@@ -9,15 +9,20 @@ before the result line is printed):
 1. device  -- the card's name and power limit (nvidia-smi);
 2. build   -- compile every kernel of ``src/repro_torch/csrc`` with nvcc,
               one process per source, and print ptxas registers / spills;
-3. kernels -- each Hopper kernel against its plain PyTorch version at the
-              tinyllama-1.1b width (M=4, B=4, S=1024, C=32, D=2048, H=32,
-              KVH=4, hd=64, F=5632, V=32000), in bf16 and f32;
-4. serve   -- ``MultiModelServer`` on the full tinyllama-1.1b config, M=4
-              seeded random instances, 16 requests; every kernel's
-              launch counter must move;
-5. check   -- greedy K=1 vs K=8 streams identical on the card (4 layers),
-              and the kernel path against the plain path on the CPU on a
-              small f32 config;
+3. kernels -- each Hopper kernel against its plain PyTorch version: the
+              dense kernels at the tinyllama-1.1b width (M=4, B=4, S=1024,
+              C=32, D=2048, H=32, KVH=4, hd=64, F=5632, V=32000), the sLSTM
+              cell at the xlstm-1.3b width (M=4, B=4, D=2048, H=4, hd=512,
+              S=1 and 32), in bf16 and f32;
+4. serve   -- two main paths, each with every launch counter set to 0
+              just before it and read just after: ``MultiModelServer`` on
+              the full tinyllama-1.1b config (dense: decode layer, chunk
+              attention, logits) and on the full xlstm-1.3b config (ssm:
+              sLSTM cell, logits), M=4 seeded random instances, 16
+              requests each; every kernel of a path must have launched;
+5. check   -- greedy K=1 vs K=8 streams identical on the card for both
+              families (full widths, cut depth), and the kernel path
+              against the plain path on the CPU on small f32 configs;
 6. times   -- each kernel, its plain version and (for chunk attention)
               ``scaled_dot_product_attention`` timed with CUDA events at
               the serving shapes, beside the bound from bytes and FLOPs.
@@ -44,6 +49,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # the full-width shapes of tinyllama-1.1b at M=4 instances, 4 slots each
 M, B, S, C = 4, 4, 1024, 32
 D, H, KVH, HD, F, V = 2048, 32, 4, 64, 5632, 32000
+# the sLSTM cell of xlstm-1.3b: D=2048 over 4 heads
+XH, XHD = 4, 512
 
 # bf16 tolerance, relative to the largest magnitude of the plain output:
 # one bf16 ulp is 2^-8 = 3.9e-3; the kernels sum in another order than
@@ -121,6 +128,28 @@ def logits_inputs(torch, dev, xdt, seed, dup=True):
     return x, scale, head
 
 
+def slstm_inputs(torch, dev, dt, rdt, m, b, s, seed, junk=False):
+    """Gate pre-activations (M,B,S,4,D), recurrent weights (M,4,H,hd,hd)
+    and a non-zero carried state at the xlstm-1.3b cell width.  With
+    ``junk``, lanes end early as in a padded final prefill chunk: their
+    suffix takes the neutral gates (input -1e30, forget +1e30)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = XH * XHD
+    pre = torch.randn(m, b, s, 4, d, generator=g, device=dev)
+    if junk:
+        neutral = torch.tensor([0.0, -1e30, 1e30, 0.0], device=dev)[:, None]
+        ends = torch.randint(0, s, (m, b), generator=g, device=dev)
+        for mi in range(m):
+            for bi in range(b):
+                pre[mi, bi, int(ends[mi, bi]):] = neutral
+    r = (torch.randn(m, 4, XH, XHD, XHD, generator=g, device=dev) * XHD ** -0.5).to(rdt)
+    state = (torch.randn(m, b, d, generator=g, device=dev),
+             torch.rand(m, b, d, generator=g, device=dev) + 0.5,
+             (0.5 * torch.randn(m, b, d, generator=g, device=dev)).to(dt),
+             torch.randn(m, b, d, generator=g, device=dev))
+    return pre.to(dt), r, state
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -149,7 +178,7 @@ def phase_build():
                                    rep, re.S):
             short = re.search(r"(matvec_partial_kernel|matvec_epilogue_kernel|ring_attn_kernel|"
                               r"ring_combine_kernel|logits_partial_kernel|logits_reduce_kernel|"
-                              r"chunk_attn_kernel)(I.*?E)?", fn)
+                              r"chunk_attn_kernel|slstm_kernel)(I.*?E)?", fn)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
             smem = re.search(r"(\d+) bytes smem", body)
@@ -216,6 +245,27 @@ def phase_kernels(torch, dev):
         e = rel_err(got, want)
         assert e <= TOL[dtn], f"chunk {dtn} pin={pin} window={window} sink={sink}: {e}"
         errs[f"chunk/{dtn}/pin{pin}/w{window}/s{sink}"] = e
+
+    # sLSTM cell at the xlstm-1.3b width: decode (S=1, M=4 x B=4 slots) and
+    # prefill (S=32, 4 lanes); r in param_dtype (f32) or bf16; a padded chunk
+    from repro_torch.kernels import slstm_cell as sc
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dt, rdt, m, b, s, junk in ((f32, f32, M, B, 1, False), (bf16, f32, M, B, 1, False),
+                                   (f32, f32, 4, 1, C, False), (bf16, f32, 4, 1, C, False),
+                                   (bf16, f32, M, B, C, True), (bf16, bf16, 4, 1, C, True)):
+        pre, r, state = slstm_inputs(torch, dev, dt, rdt, m, b, s, 8, junk)
+        want = tuple(t.clone() for t in state)
+        want_hs, _ = sc.slstm_cell_plain(pre, r, want, num_heads=XH)
+        got = tuple(t.clone() for t in state)
+        got_hs, _ = sc.slstm_cell_cuda(pre, r, got, num_heads=XH)
+        torch.cuda.synchronize()
+        dtn = str(dt).removeprefix("torch.")
+        e = max(rel_err(got_hs, want_hs), *(rel_err(a, w) for a, w in zip(got, want)))
+        key = f"slstm_cell/{dtn}/r_{str(rdt).removeprefix('torch.')}/S{s}/B{b}" + (
+            "/padded" if junk else "")
+        assert e <= TOL[dtn], f"{key}: {e}"
+        errs[key] = e
+        del pre, r
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
@@ -245,16 +295,22 @@ def requests(n, m, lo, hi, max_new, vocab, seed):
                     max_new) for i in range(n)]
 
 
-def phase_serve(torch, dev):
+def serve_path(torch, dev, arch, kernels):
+    """One main path: the full config of ``arch`` at M=4 instances, 16
+    requests with prompts of 16-512 tokens and 32 new tokens each, greedy,
+    K=8.  Every launch counter is set to 0 just before the run and read
+    just after; each kernel in ``kernels`` must have launched."""
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
 
-    cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=M)
+    cfg = registry.get_config(arch).with_(num_instances=M)
+    torch.cuda.reset_peak_memory_stats()
     srv = make_server(torch, dev, cfg, 0, slots_per_instance=B, max_context=S,
                       prefill_chunk=C, prefill_lanes=4, decode_steps=8)
+    setup_peak = torch.cuda.max_memory_allocated()
     reqs = requests(16, M, 16, 512, 32, cfg.vocab_size, 0)
-    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
     for r in reqs:
@@ -267,34 +323,53 @@ def phase_serve(torch, dev):
     assert len(results) == 16 and all(r.status == "ok" for r in results)
     assert all(len(r.tokens) == 32 for r in results), [len(r.tokens) for r in results]
     assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the main path"
-    steps = snap["decode_steps"]
+    for name in kernels:
+        assert launches[name] > 0, f"{name} was never launched on the {arch} path"
     log("serve", arch=cfg.name, instances=M, slots=B, requests=len(results),
         tokens=snap["generated_tokens"], wall_s=round(wall, 3),
         tok_per_s=round(snap["generated_tokens"] / wall, 1),
-        decode_steps=steps, decode_blocks=snap["decode_device_calls"],
+        decode_steps=snap["decode_steps"], decode_blocks=snap["decode_device_calls"],
         ms_per_decode_step=round(snap["decode_ms_per_step"], 3),
         decode_tok_per_s=round(snap["decode_tok_per_s"], 1),
         prefill_ms=round(1e3 * snap["prefill_wall_s"], 1),
         prefill_chunk_calls=snap["prefill_batches"],
         prefill_tokens=snap["prefill_tokens"],
-        decode_layer_launches_per_step=round(launches["decode_layer"] / steps, 2),
-        logits_launches_per_step=round(launches["logits_sample"] / steps, 2),
-        cuda_kernels_per_decode_step=10 * cfg.num_layers + 2,
         launches=json.dumps(launches).replace(" ", ""),
-        max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
-    profile_serve(torch, srv, requests(16, M, 16, 512, 32, cfg.vocab_size, 5))
+        max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
+        setup_peak_gib=round(setup_peak / 2 ** 30, 2))
+    profile_serve(torch, srv, requests(16, M, 16, 512, 32, cfg.vocab_size, 5), arch)
     del srv
     torch.cuda.empty_cache()
-    return launches
+    return cfg, snap, launches
+
+
+def phase_serve(torch, dev):
+    from repro_torch.models import ssm
+
+    cfg, snap, dense = serve_path(torch, dev, "tinyllama-1.1b",
+                                  ("decode_layer", "chunk_prefill_attention", "logits_sample"))
+    steps = snap["decode_steps"]
+    log("serve", arch=cfg.name,
+        decode_layer_launches_per_step=round(dense["decode_layer"] / steps, 2),
+        logits_launches_per_step=round(dense["logits_sample"] / steps, 2),
+        cuda_kernels_per_decode_step=10 * cfg.num_layers + 2)
+
+    cfg, snap, xlstm = serve_path(torch, dev, "xlstm-1.3b", ("slstm_cell", "logits_sample"))
+    n_slstm = len(ssm.mlstm_runs(cfg)) - 1
+    calls = snap["prefill_batches"] + snap["decode_steps"]
+    assert xlstm["slstm_cell"] == n_slstm * calls, (xlstm, n_slstm, calls)
+    assert xlstm["decode_layer"] == xlstm["chunk_prefill_attention"] == 0, xlstm
+    log("serve", arch=cfg.name, slstm_layers=n_slstm, chunk_calls_plus_decode_steps=calls,
+        slstm_launches=xlstm["slstm_cell"],
+        slstm_launches_check=f"{n_slstm}x{calls}=={xlstm['slstm_cell']}")
+    return {"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm}
 
 
 def device_us(e):
     return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
 
 
-def profile_serve(torch, srv, reqs):
+def profile_serve(torch, srv, reqs, arch):
     """Where the serve time goes: the same workload again under
     torch.profiler -- device busy share of the wall and the top kernels.
     The profiler's own overhead stretches this run's wall clock."""
@@ -309,10 +384,10 @@ def profile_serve(torch, srv, reqs):
         wall = time.perf_counter() - t0
     ev = [e for e in prof.key_averages() if device_us(e) > 0]
     busy = sum(device_us(e) for e in ev) / 1e6
-    log("profile", run="serve", wall_s=round(wall, 3), device_busy_s=round(busy, 3),
+    log("profile", run=f"serve/{arch}", wall_s=round(wall, 3), device_busy_s=round(busy, 3),
         device_idle_share=f"{1 - busy / wall:.1%}")
     for e in sorted(ev, key=device_us, reverse=True)[:8]:
-        log("profile", run="serve", kernel=e.key[:60], calls=e.count,
+        log("profile", run=f"serve/{arch}", kernel=e.key[:60], calls=e.count,
             device_ms=round(device_us(e) / 1e3, 2))
 
 
@@ -321,50 +396,55 @@ def phase_check(torch, dev):
 
     from repro_torch import api
     from repro_torch.configs import registry
-    from repro_torch.models.layers import KVCache
+    from repro_torch.models.common import _leaves, tree_map
 
-    # greedy K=1 vs K=8 on the card, tinyllama widths cut to 4 layers
-    cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=M, num_layers=4)
-    reqs = lambda: requests(12, M, 16, 200, 16, cfg.vocab_size, 1)
-    streams = []
-    for k in (1, 8):
-        srv = make_server(torch, dev, cfg, 1, slots_per_instance=2, max_context=S,
-                          prefill_chunk=C, decode_steps=k)
-        for r in reqs():
-            srv.submit(r)
-        streams.append({r.request_id: r.tokens for r in srv.run_until_drained()})
-        del srv
-    assert streams[0] == streams[1], "greedy streams differ between K=1 and K=8"
-    log("check", streams="K1==K8", requests=len(streams[0]), layers=cfg.num_layers,
-        tokens=sum(len(t) for t in streams[0].values()))
+    # greedy K=1 vs K=8 on the card at full widths, depth cut: tinyllama to
+    # 4 layers, xlstm to 8 (7 mLSTM layers and the sLSTM layer at 3)
+    for arch, layers in (("tinyllama-1.1b", 4), ("xlstm-1.3b", 8)):
+        cfg = registry.get_config(arch).with_(num_instances=M, num_layers=layers)
+        streams = []
+        for k in (1, 8):
+            srv = make_server(torch, dev, cfg, 1, slots_per_instance=2, max_context=S,
+                              prefill_chunk=C, decode_steps=k)
+            for r in requests(12, M, 16, 200, 16, cfg.vocab_size, 1):
+                srv.submit(r)
+            streams.append({r.request_id: r.tokens for r in srv.run_until_drained()})
+            del srv
+        assert streams[0] == streams[1], f"{arch}: greedy streams differ between K=1 and K=8"
+        log("check", arch=arch, streams="K1==K8", requests=len(streams[0]), layers=layers,
+            tokens=sum(len(t) for t in streams[0].values()))
 
-    # kernel path (card) against the plain path (CPU), small f32 config
-    small = registry.get_smoke_config("tinyllama-1.1b").with_(num_instances=2)
-    params = api.init(small, torch.Generator().manual_seed(0), "cpu")
-    rng = np.random.default_rng(2)
-    ctx = 64
-    tok = torch.from_numpy(rng.integers(1, small.vocab_size, (2, 2, 24)).astype(np.int32))
-    outs = {}
-    for d in ("cpu", dev):
-        p = params.to(d) if d != "cpu" else params
-        carry = api.init_chunk_carry(small, 2, 2, ctx, device=d)
-        for start in (0, 8, 16):
-            off = torch.full((2, 2), start, dtype=torch.int32, device=d)
-            api.prefill_chunk(small, p, {"tokens": tok[:, :, start:start + 8].to(d)},
-                              carry, off)
-        cache = carry["cache"]
-        pos = torch.full((2, 2), 24, dtype=torch.int32, device=d)
-        logits, _ = api.decode_step(small, p, cache, tok[:, :, -1:].to(d), pos)
-        nxt, _ = api.decode_step_sample(small, p, KVCache(cache.k.clone(), cache.v.clone()),
-                                        tok[:, :, -1:].to(d), pos)
-        outs[str(d)] = (cache.k.cpu(), logits.cpu(), nxt.cpu())
-    (ck0, lg0, n0), (ck1, lg1, n1) = outs["cpu"], outs[str(dev)]
-    e_cache, e_logits = rel_err(ck1, ck0), rel_err(lg1, lg0)
-    assert torch.isfinite(lg1).all() and lg1.shape == (2, 2, small.vocab_size)
-    assert e_cache <= TOL["float32"] and e_logits <= TOL["float32"], (e_cache, e_logits)
-    assert torch.equal(n1, lg0.argmax(-1).to(torch.int32)), "greedy tokens differ"
-    log("check", reference="cpu-plain", config=small.name, cache_rel_err=f"{e_cache:.2e}",
-        logits_rel_err=f"{e_logits:.2e}", tokens="equal")
+    # kernel path (card) against the plain path (CPU), small f32 configs:
+    # three prefill chunks, a decode step and a greedy decode step
+    for arch in ("tinyllama-1.1b", "xlstm-1.3b"):
+        small = registry.get_smoke_config(arch).with_(num_instances=2)
+        params = api.init(small, torch.Generator().manual_seed(0), "cpu")
+        rng = np.random.default_rng(2)
+        tok = torch.from_numpy(rng.integers(1, small.vocab_size, (2, 2, 24)).astype(np.int32))
+        outs = {}
+        for d in ("cpu", dev):
+            p = params.to(d) if d != "cpu" else params
+            carry = api.init_chunk_carry(small, 2, 2, 64, device=d)
+            for start in (0, 8, 16):
+                off = torch.full((2, 2), start, dtype=torch.int32, device=d)
+                api.prefill_chunk(small, p, {"tokens": tok[:, :, start:start + 8].to(d)},
+                                  carry, off)
+            cache = carry["cache"]
+            pos = torch.full((2, 2), 24, dtype=torch.int32, device=d)
+            nxt, _ = api.decode_step_sample(small, p, tree_map(lambda t: t.clone(), cache),
+                                            tok[:, :, -1:].to(d), pos)
+            logits, _ = api.decode_step(small, p, cache, tok[:, :, -1:].to(d), pos)
+            outs[str(d)] = ([t.cpu() for t in _leaves(cache)], logits.cpu(), nxt.cpu())
+        (c0, lg0, n0), (c1, lg1, n1) = outs["cpu"], outs[str(dev)]
+        e_cache = max(rel_err(a, b) for a, b in zip(c1, c0))
+        e_logits = rel_err(lg1, lg0)
+        assert torch.isfinite(lg1).all() and lg1.shape == (2, 2, small.vocab_size)
+        assert e_cache <= TOL["float32"] and e_logits <= TOL["float32"], (arch, e_cache,
+                                                                          e_logits)
+        assert torch.equal(n1, n0) and torch.equal(n1, lg0.argmax(-1).to(torch.int32)), (
+            f"{arch}: greedy tokens differ")
+        log("check", reference="cpu-plain", config=small.name, state_leaves=len(c0),
+            cache_rel_err=f"{e_cache:.2e}", logits_rel_err=f"{e_logits:.2e}", tokens="equal")
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -380,7 +460,7 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def phase_times(torch, dev, launches):
+def phase_times(torch, dev, by_path):
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import chunk_prefill_attn as cpa
@@ -388,6 +468,10 @@ def phase_times(torch, dev, launches):
 
     rows = []
     g = torch.Generator(device=dev).manual_seed(11)
+    # launches on the main paths: each kernel's count summed over the paths
+    # (set to 0 before each path and read after it), and split per path
+    launches = {k: sum(p[k] for p in by_path.values()) for k in by_path["xlstm-1.3b"]}
+    per_path = lambda k: {a: p[k] for a, p in by_path.items() if p[k]}
 
     # decode layer at the serve shapes: bf16, positions inside the prompts' range
     lp, x, ck, cv = layer_inputs(torch, dev, torch.bfloat16, 5)
@@ -416,7 +500,8 @@ def phase_times(torch, dev, launches):
     rows.append(dict(name="decode_layer", route="cuda",
                      source="src/repro_torch/csrc/decode_layer.cu",
                      replaces="src/repro/kernels/decode_layer.py:144",
-                     launches=launches["decode_layer"], max_abs_err=err, ms=ms,
+                     launches=launches["decode_layer"],
+                     launches_by_path=per_path("decode_layer"), max_abs_err=err, ms=ms,
                      plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None))
     del lp, x, ck, cv
 
@@ -433,7 +518,8 @@ def phase_times(torch, dev, launches):
     rows.append(dict(name="logits_sample", route="cuda",
                      source="src/repro_torch/csrc/decode_layer.cu",
                      replaces="src/repro/kernels/decode_layer.py:414",
-                     launches=launches["logits_sample"], max_abs_err=err, ms=ms,
+                     launches=launches["logits_sample"],
+                     launches_by_path=per_path("logits_sample"), max_abs_err=err, ms=ms,
                      plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None))
     del head
 
@@ -469,9 +555,45 @@ def phase_times(torch, dev, launches):
     rows.append(dict(name="chunk_prefill_attention", route="cuda",
                      source="src/repro_torch/csrc/chunk_prefill_attn.cu",
                      replaces="src/repro/kernels/chunk_prefill_attn.py:35",
-                     launches=launches["chunk_prefill_attention"], max_abs_err=err,
+                     launches=launches["chunk_prefill_attention"],
+                     launches_by_path=per_path("chunk_prefill_attention"), max_abs_err=err,
                      ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                      library_ms=library))
+
+    # sLSTM cell: prefill (S=32 over 4 lanes) in the row; decode (S=1 over
+    # M=4 x B=4 slots) beside it.  bf16 activations, r in param_dtype (f32).
+    from repro_torch.kernels import slstm_cell as sc
+
+    def slstm_time(m, b, s):
+        pre, r, state = slstm_inputs(torch, dev, torch.bfloat16, torch.float32, m, b, s, 12)
+        got = tuple(t.clone() for t in state)
+        want = tuple(t.clone() for t in state)
+        ghs, _ = sc.slstm_cell_cuda(pre, r, got, num_heads=XH)
+        whs, _ = sc.slstm_cell_plain(pre, r, want, num_heads=XH)
+        err = max(abs_err(a, w) for a, w in zip((ghs,) + got, (whs,) + want))
+        ms = time_ms(torch, lambda: sc.slstm_cell_cuda(pre, r, got, num_heads=XH))
+        plain = time_ms(torch, lambda: sc.slstm_cell_plain(pre, r, want, num_heads=XH), reps=5)
+        d = XH * XHD
+        # each input read once, each output written once: pre, r, the state
+        # (c, n, m f32 and h bf16) in and out, hs; the recurrent matvec in f32
+        nbytes = (pre.numel() * 2 + r.numel() * 4 + 2 * m * b * d * (3 * 4 + 2)
+                  + m * b * s * d * 2)
+        flops = 2 * m * b * s * 4 * d * XHD
+        return err, ms, plain, bound_ms(nbytes, flops, "float32")
+
+    err, ms, plain, (bms, by) = slstm_time(4, 1, C)
+    d_err, d_ms, d_plain, (d_bms, d_by) = slstm_time(M, B, 1)
+    rows.append(dict(name="slstm_cell", route="cuda",
+                     source="src/repro_torch/csrc/slstm_cell.cu",
+                     replaces="src/repro/kernels/slstm_cell.py:37",
+                     launches=launches["slstm_cell"],
+                     launches_by_path=per_path("slstm_cell"), max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     shape="prefill S=32, 4 lanes", decode_ms=d_ms, decode_plain_ms=d_plain,
+                     decode_bound_ms=d_bms, decode_bound_by=d_by, decode_max_abs_err=d_err))
+    log("times", name="slstm_cell", shape="decode S=1, M=4 x B=4", ms=f"{d_ms:.4f}",
+        plain_ms=f"{d_plain:.4f}", bound_ms=f"{d_bms:.4f}", bound_by=d_by,
+        of_bound=f"{d_bms / d_ms:.1%}")
     for r in rows:
         log("times", name=r["name"], ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],

@@ -1,9 +1,8 @@
-"""Uniform model API (port of ``repro.api``): the dense entries.
+"""Uniform model API (port of ``repro.api``): the dense and ssm entries.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); with no device given and no card present they raise
-instead of carrying on on the CPU.  Families other than dense are not
-ported yet and raise.
+instead of carrying on on the CPU.  Families not ported yet raise.
 """
 from __future__ import annotations
 
@@ -11,7 +10,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
-from repro_torch.models import dense
+from repro_torch.models import dense, ssm
+
+_FAMILY = {"dense": dense, "ssm": ssm}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -30,9 +31,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILY:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    return dense
+    return _FAMILY[cfg.family]
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
@@ -43,18 +44,35 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
 
 
 def prefill_prefix_len(cfg: ModelConfig) -> int:
-    """Learned-prefix positions before the prompt (none for dense)."""
+    """Learned-prefix positions before the prompt (none for dense and ssm)."""
     family_module(cfg)
     return 0
 
 
 def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device=None):
-    return family_module(cfg).make_cache(cfg, m, b, context_len, resolve_device(device))
+    """The grid's decode cache: a KV cache (dense) or the recurrent state
+    (ssm, positionless: ``context_len`` is unused)."""
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return ssm.make_state(cfg, m, b, dev)
+    return family_module(cfg).make_cache(cfg, m, b, context_len, dev)
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical-axes tree matching :func:`make_cache`'s structure."""
+    if cfg.family == "ssm":
+        return ssm.state_axes(cfg)
+    return family_module(cfg).cache_axes(cfg)
 
 
 def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device=None):
     return family_module(cfg).init_chunk_carry(cfg, m, b, cache_len,
                                                resolve_device(device))
+
+
+def chunk_carry_axes(cfg: ModelConfig):
+    """Logical-axes tree matching :func:`init_chunk_carry`'s structure."""
+    return family_module(cfg).chunk_carry_axes(cfg)
 
 
 def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *, instances=None):
@@ -73,12 +91,19 @@ def decode_step_sample(cfg: ModelConfig, params, cache, tokens, pos, *, alive=No
 
 
 def take_state(cfg: ModelConfig, cache, m: int, b: int):
-    """Slot (m, b) of a grid cache (a view, singleton dims kept)."""
-    family_module(cfg)
-    return C.tree_take_slot(cache, m, b)
+    """Slot (m, b) of a grid cache or state (views, singleton dims kept):
+    the family's own helper where it has one (ssm), else the axes-driven
+    surgery over :func:`cache_axes`."""
+    fam = family_module(cfg)
+    if hasattr(fam, "take_state"):
+        return fam.take_state(cfg, cache, m, b)
+    return C.tree_take_slot(cache, cache_axes(cfg), m, b)
 
 
 def put_state(cfg: ModelConfig, grid, one, m: int, b: int):
-    """Write a single-slot cache into grid slot (m, b), in place."""
-    family_module(cfg)
-    return C.tree_put_slot(grid, one, m, b)
+    """Write a single-slot cache or state into grid slot (m, b), in place;
+    a context axis is prefix-clipped.  Inverse of :func:`take_state`."""
+    fam = family_module(cfg)
+    if hasattr(fam, "put_state"):
+        return fam.put_state(cfg, grid, one, m, b)
+    return C.tree_put_slot(grid, cache_axes(cfg), one, m, b)

@@ -1,7 +1,8 @@
 """Carry a parameter tree of the JAX package across to the port.
 
-The tree is the reference's nested dict with numpy leaves (what
-``numpy.asarray`` makes of ``repro.api.init``'s output) -- this module
+The tree is the reference's nested structure with numpy leaves (what
+``numpy.asarray`` makes of ``repro.api.init``'s output): dicts, and for
+the ssm family lists with ``None`` for an empty mLSTM run.  This module
 never imports JAX.  Layouts are kept as they are: leading M axis, layers
 stacked on L, (M, D, F) weights.
 """
@@ -10,21 +11,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import api
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense
 from repro_torch.models.common import MergedParams
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> MergedParams:
     """The port's merged model from a reference parameter tree, in the
-    port's storage dtypes (layer matmul weights in ``cfg.dtype``; embed,
-    lm_head and norm scales in ``cfg.param_dtype``)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    family's storage dtypes (``storage_dtypes`` of the family module)."""
+    fam = api.family_module(cfg)
 
     def conv(x):
+        if x is None:
+            return None
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
         return torch.from_numpy(np.array(x, dtype=np.float32)).to(device)
 
-    return MergedParams(dense.storage_dtypes(cfg, conv(tree)))
+    return MergedParams(fam.storage_dtypes(cfg, conv(tree)))

@@ -2,8 +2,8 @@
 of ``repro.configs.registry``).
 
 The id list is the reference's, so an unknown id and a known but not yet
-ported one fail with different messages; only the dense family has config
-modules in the port so far.
+ported one fail with different messages; the port has the config modules
+of the dense family and of xlstm-1.3b (ssm) so far.
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ PAPER_MODELS = {
 ALL = {**ASSIGNED, **PAPER_MODELS}
 
 # the archs whose config modules (and model family) the port has
-PORTED = ("tinyllama-1.1b", "deepseek-67b", "granite-3-2b", "qwen1.5-0.5b")
+PORTED = ("tinyllama-1.1b", "deepseek-67b", "granite-3-2b", "qwen1.5-0.5b",
+          "xlstm-1.3b")
 
 LONG_CONTEXT_WINDOW = 8192
 

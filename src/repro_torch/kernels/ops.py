@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import chunk_prefill_attn as _cpa
 from repro_torch.kernels import decode_layer as _dl
+from repro_torch.kernels import slstm_cell as _sc
 
 
 class Kernel:
@@ -37,7 +38,9 @@ _logits = Kernel("logits_sample", _dl.logits_argmax_plain, _dl.logits_argmax_cud
 _chunk = Kernel("chunk_prefill_attention", _cpa.chunk_prefill_attention_plain,
                 _cpa.chunk_prefill_attention_cuda)
 
-KERNELS = (_decode_layer, _logits, _chunk)
+_slstm = Kernel("slstm_cell", _sc.slstm_cell_plain, _sc.slstm_cell_cuda)
+
+KERNELS = (_decode_layer, _logits, _chunk, _slstm)
 
 
 def reset_launches() -> None:
@@ -73,3 +76,9 @@ def chunk_prefill_attention(q, k, v, offset, *, s_cache: int, pin: int = 0,
     """Chunked-prefill GQA attention over [cache before the chunk, chunk]."""
     return _chunk(q, q, k, v, offset, s_cache=s_cache, pin=pin, window=window,
                   sink=sink, causal=causal)
+
+
+def slstm_cell(pre, r, state, *, num_heads: int, alive=None):
+    """The sLSTM scan over S steps; state (c, n, h, m) updated in place.
+    Returns (hs (M, B, S, D), state)."""
+    return _slstm(pre, pre, r, state, num_heads=num_heads, alive=alive)

@@ -1,4 +1,4 @@
-"""Serving launcher (port of ``repro.launch.serve``, dense family).
+"""Serving launcher (port of ``repro.launch.serve``, dense and ssm families).
 
 Initialises M "fine-tuned" instances as M random initialisations from a
 seed, merges them (the paper's offline merge step, timed), and serves a
@@ -8,6 +8,8 @@ program.  Runs on the CUDA device unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --smoke --device cpu --decode-steps 4
 """
 from __future__ import annotations
 

@@ -8,13 +8,11 @@ Conventions, as in the reference:
 * layer stacks are stacked along a leading ``L`` axis, so leaves under
   ``"layers"`` are ``(L, M, ...)`` and top-level leaves ``(M, ...)``,
 * activations are ``(M, B, ...)``,
-* serving caches are grid trees whose leaves are
-  ``(L, M, B, S_cache, KVH, hd)``: instances on axis 1, batch on axis 2,
-  context on axis 3.
-
-The reference threads logical-axes trees through these helpers for its
-sharding rules; the port is single-device, so the instance/batch axes
-follow from the two layouts above.
+* serving caches and recurrent states are grid trees whose leaves carry
+  the instances and batch dims side by side; a logical-axes tree names
+  them (and the context dim, where there is one) on every leaf, as in
+  the reference.  The port is single-device, so the axes trees drive
+  slot and lane surgery only, not sharding.
 """
 from __future__ import annotations
 
@@ -23,10 +21,6 @@ from typing import Any, Sequence
 
 import torch
 from torch import nn
-
-# grid cache leaves: (L, M, B, S_cache, ...)
-CACHE_SEQ_AXIS = 3
-
 
 # ---------------------------------------------------------------------------
 # parameter factory (the distributions of the reference's Factory)
@@ -77,19 +71,25 @@ class MergedParams(nn.Module):
     """Parameters of M merged instances under the reference's leaf names
     and layouts (``embed``, ``layers.wq``, ``final_norm``, ...).
 
-    Subscripting mirrors the reference's dict tree
-    (``params["layers"]["wq"]``), so the model math is written once over
-    plain tensors.  Nothing in serving needs a gradient."""
+    Subscripting mirrors the reference's tree (``params["layers"]["wq"]``,
+    ``params["mlstm_runs"][0]["w_up"]``; lists and ``None`` entries as in
+    the ssm tree), so the model math is written once over plain tensors.
+    Nothing in serving needs a gradient."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for name, leaf in tree.items():
-            if isinstance(leaf, (dict, MergedParams)):
-                self.add_module(name, leaf if isinstance(leaf, MergedParams)
-                                else MergedParams(leaf))
-            else:
-                self.register_parameter(
-                    name, nn.Parameter(leaf, requires_grad=False))
+            self._add(name, leaf)
+
+    def _add(self, name: str, leaf) -> None:
+        if leaf is None or isinstance(leaf, MergedParams):
+            self.add_module(name, leaf)
+        elif isinstance(leaf, dict):
+            self.add_module(name, MergedParams(leaf))
+        elif isinstance(leaf, list):
+            self.add_module(name, MergedList(leaf))
+        else:
+            self.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
 
     def __getitem__(self, name: str):
         if name in self._parameters:
@@ -108,24 +108,50 @@ class MergedParams(nn.Module):
     def tree(self) -> dict:
         """Plain nested dict of the parameter tensors."""
         out: dict[str, Any] = {k: v.data for k, v in self._parameters.items()}
-        out.update({k: m.tree() for k, m in self._modules.items()})
+        out.update({k: None if m is None else m.tree() for k, m in self._modules.items()})
         return out
+
+
+class MergedList(MergedParams):
+    """A list node of the parameter tree (entries may be ``None``)."""
+
+    def __init__(self, items: list):
+        super().__init__({str(i): v for i, v in enumerate(items)})
+
+    def __getitem__(self, i: int):
+        return super().__getitem__(str(i))
+
+    def __len__(self) -> int:
+        return len(self._modules) + len(self._parameters)
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def tree(self) -> list:
+        t = super().tree()
+        return [t[str(i)] for i in range(len(self))]
 
 
 def _as_tree(params) -> dict:
     return params.tree() if isinstance(params, MergedParams) else params
 
 
-def _map_params(fn, *trees, _layered: bool = False):
+# subtrees whose leaves are stacked on a leading layer axis (L, M, ...)
+_LAYER_STACKED = ("layers", "mlstm_runs")
+
+
+def _map_params(fn, *trees, _inst: int = 0):
     """Map ``fn(leaves..., inst_axis)`` over parameter trees."""
-    out = {}
-    for k, v in trees[0].items():
-        if isinstance(v, dict):
-            out[k] = _map_params(fn, *(t[k] for t in trees),
-                                 _layered=_layered or k == "layers")
-        else:
-            out[k] = fn(*(t[k] for t in trees), 1 if _layered else 0)
-    return out
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, dict):
+        return {k: _map_params(fn, *(t[k] for t in trees),
+                               _inst=1 if k in _LAYER_STACKED else _inst)
+                for k in t0}
+    if isinstance(t0, list):
+        return [_map_params(fn, *xs, _inst=_inst) for xs in zip(*trees)]
+    return fn(*trees, _inst)
 
 
 def merge_instances(params_list: list) -> MergedParams:
@@ -149,21 +175,33 @@ def gather_instances(params, idx) -> MergedParams:
 
 
 # ---------------------------------------------------------------------------
-# lane / slot surgery on grid trees (caches)
+# lane / slot surgery on grid trees (caches and recurrent states)
 # ---------------------------------------------------------------------------
+#
+# Serving keeps one cache/state tree for the whole (M, B) slot grid.  A
+# logical-axes tree of the same structure (``dense.cache_axes``,
+# ``ssm.state_axes``) names where the instances, batch and context dims
+# sit on every leaf, so one set of helpers covers the dense KV-cache
+# stacks (L, M, B, S, KVH, hd) and the nested recurrent states
+# (sLSTM (M, B, D), mLSTM (L, M, B, ...), ``None`` for an empty run).
 
 
 def _leaves(tree) -> list[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [l for v in tree.values() for l in _leaves(v)]
     return [l for v in tree for l in _leaves(v)]
 
 
 def tree_map(fn, *trees):
-    """Map over matching tensors of dicts / NamedTuples / tuples."""
+    """Map over matching tensors of dicts / lists / NamedTuples / tuples;
+    ``None`` subtrees stay ``None``."""
     t0 = trees[0]
+    if t0 is None:
+        return None
     if isinstance(t0, torch.Tensor):
         return fn(*trees)
     if isinstance(t0, dict):
@@ -172,36 +210,84 @@ def tree_map(fn, *trees):
     return type(t0)(*vals) if hasattr(t0, "_fields") else type(t0)(vals)
 
 
-def tree_select_lanes(mask: torch.Tensor, new_tree, old_tree):
-    """Lane k (along each grid leaf's instances axis) takes ``new_tree``
-    where ``mask[k]``, else keeps ``old_tree``."""
-    def _sel(n, o):
-        mk = mask.reshape((1, mask.shape[0]) + (1,) * (n.ndim - 2))
+def _is_axes(x) -> bool:
+    # an axes leaf is a plain tuple of names; a NamedTuple (KVCache) is a
+    # node whose fields are axes leaves
+    return isinstance(x, tuple) and not hasattr(x, "_fields")
+
+
+def tree_map_axes(fn, axes_tree, *trees):
+    """``fn(axes, *leaves)`` over the leaves of ``trees``, each with its
+    logical axes from ``axes_tree``."""
+    if axes_tree is None:
+        return None
+    if _is_axes(axes_tree):
+        return fn(axes_tree, *trees)
+    if isinstance(axes_tree, dict):
+        return {k: tree_map_axes(fn, axes_tree[k], *(t[k] for t in trees))
+                for k in axes_tree}
+    vals = [tree_map_axes(fn, a, *xs) for a, xs in zip(axes_tree, zip(*trees))]
+    t0 = trees[0]
+    return type(t0)(*vals) if hasattr(t0, "_fields") else type(t0)(vals)
+
+
+def _select(mask: torch.Tensor, new_tree, old_tree, axes_tree):
+    """``torch.where`` of two grid trees with ``mask`` over each leaf's
+    leading grid dims (instances, or instances and batch)."""
+    def _sel(ax, n, o):
+        i = ax.index("instances")
+        if mask.ndim == 2:
+            assert ax[i + 1] == "batch", ax
+        mk = mask.reshape((1,) * i + tuple(mask.shape) + (1,) * (n.ndim - i - mask.ndim))
         return torch.where(mk, n, o)
-    return tree_map(_sel, new_tree, old_tree)
+    return tree_map_axes(_sel, axes_tree, new_tree, old_tree)
 
 
-def tree_select_slots(mask: torch.Tensor, new_tree, old_tree):
+def tree_select_lanes(mask: torch.Tensor, new_tree, old_tree, axes_tree):
+    """Lane k (along each leaf's instances axis) takes ``new_tree`` where
+    ``mask[k]``, else keeps ``old_tree``."""
+    return _select(mask, new_tree, old_tree, axes_tree)
+
+
+def tree_select_slots(mask: torch.Tensor, new_tree, old_tree, axes_tree):
     """Slot (m, b) takes ``new_tree`` where ``mask[m, b]``, else keeps
     ``old_tree``."""
-    def _sel(n, o):
-        mk = mask.reshape((1,) + tuple(mask.shape) + (1,) * (n.ndim - 3))
-        return torch.where(mk, n, o)
-    return tree_map(_sel, new_tree, old_tree)
+    return _select(mask, new_tree, old_tree, axes_tree)
 
 
-def tree_take_slot(tree, m: int, b: int):
+def tree_reset_lanes(tree, init_lane, axes_tree, lanes: list[int]) -> None:
+    """Copy the one-lane tree ``init_lane`` into rows ``lanes`` (along
+    each leaf's instances axis) of ``tree``, in place: the in-place form
+    of ``tree_select_lanes(fresh, init, carry)``."""
+    def _reset(ax, leaf, init):
+        i = ax.index("instances")
+        for k in lanes:
+            leaf.select(i, k).copy_(init.select(i, 0))
+    if lanes:
+        tree_map_axes(_reset, axes_tree, tree, init_lane)
+
+
+def _slot(ax: tuple, leaf: torch.Tensor, m: int, b: int) -> torch.Tensor:
+    i, j = ax.index("instances"), ax.index("batch")
+    return leaf.narrow(i, m, 1).narrow(j, b, 1)
+
+
+def tree_take_slot(tree, axes_tree, m: int, b: int):
     """Slot (m, b) of every grid leaf, singleton dims kept (a view)."""
-    return tree_map(lambda l: l[:, m:m + 1, b:b + 1], tree)
+    return tree_map_axes(lambda ax, l: _slot(ax, l, m, b), axes_tree, tree)
 
 
-def tree_put_slot(grid, one, m: int, b: int):
-    """Write a single-slot tree into grid slot (m, b), in place.  A
-    source whose context axis is longer or shorter than the grid's is
-    prefix-clipped, as in the reference.  Returns ``grid``."""
-    def _put(g, o):
-        s = min(o.shape[CACHE_SEQ_AXIS], g.shape[CACHE_SEQ_AXIS])
-        g[:, m:m + 1, b:b + 1, :s].copy_(o[:, :, :, :s])
-        return g
-    tree_map(_put, grid, one)
+def tree_put_slot(grid, axes_tree, one, m: int, b: int):
+    """Write a single-slot tree into grid slot (m, b), in place.  A leaf
+    with a ``cache_seq`` axis longer or shorter than the grid's is
+    prefix-clipped there, as in the reference; other leaves are copied
+    whole.  Returns ``grid``."""
+    def _put(ax, g, o):
+        dst = _slot(ax, g, m, b)
+        if "cache_seq" in ax:
+            sa = ax.index("cache_seq")
+            s = min(o.shape[sa], g.shape[sa])
+            dst, o = dst.narrow(sa, 0, s), o.narrow(sa, 0, s)
+        dst.copy_(o)
+    tree_map_axes(_put, axes_tree, grid, one)
     return grid

@@ -205,6 +205,16 @@ def decode_step_sample(cfg: ModelConfig, params, cache: KVCache, tokens, pos, *,
     return tok, cache
 
 
+def cache_axes(cfg: ModelConfig) -> KVCache:
+    """Logical axes of the grid cache leaves."""
+    ax = ("layers", "instances", "batch", "cache_seq", "kv_heads", "kv_hd")
+    return KVCache(k=ax, v=ax)
+
+
+def chunk_carry_axes(cfg: ModelConfig) -> dict:
+    return {"cache": cache_axes(cfg)}
+
+
 def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device) -> KVCache:
     s_cache = cfg.sliding_window if cfg.sliding_window else context_len
     return L.make_kv_cache(cfg.num_layers, m, b, s_cache, cfg.num_kv_heads,

@@ -1,5 +1,5 @@
 """Multi-model serving engine — the paper's deployment scenario (port of
-``repro.serving.engine``, single device).
+``repro.serving.engine``, dense and ssm families, single device).
 
 M fine-tuned instances of one architecture, merged on a leading
 instances axis, are served from one program over a fixed (M, B) slot
@@ -17,9 +17,11 @@ grid:
   accounting and finish detection keep their per-token meaning.
 
 A lane that stops mid-block freezes: its token, position and budget stop
-advancing, and the decode layers leave its ring untouched (``alive``),
-so K=1 and K>1 greedy streams are identical.  An adaptive horizon shrinks
-k while prefill lanes are in flight or requests wait.
+advancing, and the decode step leaves its cache untouched (``alive``:
+the dense decode layers skip its ring append, the ssm cells keep its
+recurrent state), so K=1 and K>1 greedy streams are identical.  An
+adaptive horizon shrinks k while prefill lanes are in flight or requests
+wait.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.serving.prefill import ChunkedPrefill
 from repro_torch.serving.sampling import make_grid_sampler
 from repro_torch.serving.scheduler import Request, Result, Scheduler, make_scheduler
 
-SERVABLE_FAMILIES = ("dense",)
+SERVABLE_FAMILIES = ("dense", "ssm")
 
 
 class MultiModelServer:

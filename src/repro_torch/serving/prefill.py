@@ -1,5 +1,5 @@
 """Chunked prefill for serving admission (port of
-``repro.serving.prefill``, dense family, single device).
+``repro.serving.prefill``, dense and ssm families, single device).
 
 Every prompt streams through ``api.prefill_chunk`` in fixed-size chunks;
 the final partial chunk is padded and masked per position (tail
@@ -11,9 +11,18 @@ interleaves with decode.
 
 The reference re-initialises ``fresh`` lanes and keeps non-working
 lanes unchanged by selecting between carry trees.  The port's carry is
-updated in place: a fresh lane's rows are zeroed before the call, and a
-lane that does not advance gets an all-False per-position ``valid`` mask,
-so none of its rows reach the cache.
+updated in place: a fresh lane's rows are copied from a one-lane initial
+carry before the call (``tree_reset_lanes``, the in-place form of the
+reference's ``tree_select_lanes(fresh, init, carry)``: zeros for a KV
+cache, zeros and m = -1e30 for a recurrent state).  A lane's junk suffix
+and a lane that does not advance get False in the per-position ``valid``
+mask: a KV cache drops those rows, a recurrent cell takes neutral gates
+there.  Every lane that holds a request advances in every call; a lane
+whose prefill completed earlier in the same ``advance`` rides the later
+calls as junk and keeps its state exactly (after its first real step its
+stabilizer m is finite, so the neutral gates give forget 1 and input 0)
+until the engine scatters it.  The chunk is clamped to a sliding-window
+ring (dense); recurrent state has no ring.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import api
+from repro_torch.models.common import tree_reset_lanes
 from repro_torch.serving.scheduler import Request
 
 DEFAULT_CHUNK = 32
@@ -34,7 +44,8 @@ DEFAULT_LANES = 4
 @dataclasses.dataclass
 class PrefillOut:
     """One admitted request's prefill product: row ``index`` of the
-    shared carry's cache.  The engine scatters it into the request's grid
+    shared carry's cache (of the pristine one-lane carry for a
+    single-token prompt).  The engine scatters it into the request's grid
     slot and seeds decode at ``pos`` with ``last_token`` (the last prompt
     token is decoded by the first grid step)."""
     cache: Any
@@ -54,20 +65,22 @@ class _Lane:
 class ChunkedPrefill:
     def __init__(self, cfg, *, max_context: int, device, chunk: int = DEFAULT_CHUNK,
                  lanes: int = DEFAULT_LANES, metrics=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        api.family_module(cfg)                # raises for a family not ported
         self.cfg = cfg
         self.device = torch.device(device)
         self.max_context = max_context
         self.metrics = metrics
         self.lanes = max(1, lanes)
         # a chunk must map to distinct cache slots: clamp it to the ring
-        ring = cfg.sliding_window
+        ring = cfg.sliding_window if cfg.family == "dense" else 0
         self.chunk = max(1, min(chunk, ring if ring else chunk))
         self.prefix = api.prefill_prefix_len(cfg)
         if self.max_prompt_len() <= 0:
             raise ValueError(f"max_context={max_context} leaves no room for a prompt")
         self._carry = api.init_chunk_carry(cfg, self.lanes, 1, max_context, self.device)
+        self._carry_axes = api.chunk_carry_axes(cfg)
+        # one lane of initial carry: the rows a fresh lane starts from
+        self._init_lane = api.init_chunk_carry(cfg, 1, 1, max_context, self.device)
         self._lanes = [_Lane() for _ in range(self.lanes)]
         self.device_calls = 0               # chunk calls
         self.admitted = 0                   # lanes ever started
@@ -111,12 +124,12 @@ class ChunkedPrefill:
                 return True
         return False
 
-    def _zero_fresh(self) -> None:
-        for i, lane in enumerate(self._lanes):
-            if lane.req is not None and lane.fresh:
-                for leaf in self._carry["cache"]:
-                    leaf[:, i].zero_()
-                lane.fresh = False
+    def _reset_fresh(self) -> None:
+        fresh = [i for i, lane in enumerate(self._lanes)
+                 if lane.req is not None and lane.fresh]
+        tree_reset_lanes(self._carry, self._init_lane, self._carry_axes, fresh)
+        for i in fresh:
+            self._lanes[i].fresh = False
 
     # -- the chunk pump ------------------------------------------------------
 
@@ -124,13 +137,17 @@ class ChunkedPrefill:
         """Run up to ``budget`` chunk calls; return the requests whose
         prefill completed.  Their rows alias the live carry, which the
         next ``advance`` updates in place: scatter them first."""
-        self._zero_fresh()
-        done: list[tuple[Request, PrefillOut]] = []
-        for i, lane in enumerate(self._lanes):
+        # a single-token prompt needs no chunk call: its state is the
+        # initial one, taken from the pristine one-lane carry (the live
+        # lane turns idle, and idle lanes ride later calls as junk)
+        zero_done: list[tuple[Request, PrefillOut]] = []
+        for lane in self._lanes:
             if lane.req is not None and lane.total == 0:
-                # single-token prompt: the zeroed rows are its state
-                done.append((lane.req, PrefillOut(None, i, 0, lane.req.prompt[-1])))
+                zero_done.append((lane.req, PrefillOut(self._init_lane["cache"], 0, 0,
+                                                       lane.req.prompt[-1])))
                 lane.req = None
+        self._reset_fresh()
+        done: list[tuple[Request, PrefillOut]] = []
         stepped = False
         t0 = time.perf_counter()
         while budget > 0:
@@ -153,7 +170,7 @@ class ChunkedPrefill:
                 self.metrics.note_prefill_wall(time.perf_counter() - t0)
         for _, out in done:
             out.cache = self._carry["cache"]
-        return done
+        return zero_done + done
 
     def _step(self, params, workable: list[int]) -> None:
         k, c = self.lanes, self.chunk

@@ -8,6 +8,7 @@ from repro.configs import registry as jreg
 from repro_torch.configs import registry as treg
 
 DENSE = ["tinyllama-1.1b", "qwen1.5-0.5b", "granite-3-2b", "deepseek-67b"]
+PORTED = DENSE + ["xlstm-1.3b"]
 
 
 def _fields(cfg):
@@ -25,7 +26,14 @@ def test_dense_config_matches_reference(arch, smoke):
     assert got == want
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_ssm_config_matches_reference(smoke):
+    get = "get_smoke_config" if smoke else "get_config"
+    assert dataclasses.asdict(getattr(treg, get)("xlstm-1.3b")) == _fields(
+        getattr(jreg, get)("xlstm-1.3b"))
+
+
+@pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k", "long_500k"])
 def test_config_for_shape_matches_reference(arch, shape):
     want = _fields(jreg.config_for_shape(arch, shape, num_instances=4))
@@ -35,6 +43,7 @@ def test_config_for_shape_matches_reference(arch, shape):
 
 def test_registry_ids_match_and_unported_raise():
     assert treg.ASSIGNED == jreg.ASSIGNED and treg.PAPER_MODELS == jreg.PAPER_MODELS
+    assert sorted(treg.PORTED) == sorted(PORTED)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         treg.get_config("olmoe-1b-7b")
     with pytest.raises(KeyError):

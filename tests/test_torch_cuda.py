@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import chunk_prefill_attn as cpa
 from repro_torch.kernels import decode_layer as dl
 from repro_torch.kernels import ops
+from repro_torch.kernels import slstm_cell as sc
 
 pytestmark = pytest.mark.cuda
 
@@ -126,6 +127,58 @@ def test_chunk_prefill_kernel(dev, dt, m, b, c, h, kvh, sc, hd, pin, win, sink):
     assert _err(got, want) <= _tol(dt)
 
 
+def _cell(dev, dt, rdt, m, b, s, h, hd, seed=3):
+    """Gate pre-activations with neutral (junk) steps on some lanes and a
+    non-zero carried state."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = h * hd
+    pre = torch.randn(m, b, s, 4, d, generator=g, device=dev)
+    neutral = torch.tensor([0.0, -1e30, 1e30, 0.0], device=dev)[:, None]
+    pre[0, -1, s // 2:] = neutral
+    pre[-1, 0, :] = neutral
+    r = (torch.randn(m, 4, h, hd, hd, generator=g, device=dev) * hd ** -0.5).to(rdt)
+    state = (torch.randn(m, b, d, generator=g, device=dev),
+             torch.rand(m, b, d, generator=g, device=dev) + 0.5,
+             (0.5 * torch.randn(m, b, d, generator=g, device=dev)).to(dt),
+             torch.randn(m, b, d, generator=g, device=dev))
+    return pre.to(dt), r, state
+
+
+@pytest.mark.parametrize("dt,rdt", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("m,b,s,h,hd", [(2, 1, 1, 2, 32), (2, 3, 9, 2, 64),
+                                        (1, 6, 5, 1, 96), (2, 4, 32, 4, 128)])
+def test_slstm_cell_kernel(dev, dt, rdt, m, b, s, h, hd):
+    """hs and the carried (c, n, h, m); B = 6 spans two lane tiles; a
+    lane that is junk throughout keeps c, n and m bit for bit."""
+    pre, r, state = _cell(dev, dt, rdt, m, b, s, h, hd)
+    want_st = tuple(t.clone() for t in state)
+    want_hs, _ = sc.slstm_cell_plain(pre, r, want_st, num_heads=h)
+    got_st = tuple(t.clone() for t in state)
+    got_hs, _ = ops.slstm_cell(pre, r, got_st, num_heads=h)
+    torch.cuda.synchronize()
+    assert _err(got_hs, want_hs) <= _tol(dt)
+    for gt, wt, name in zip(got_st, want_st, "cnhm"):
+        assert _err(gt, wt) <= _tol(dt), name
+    for i in (0, 1, 3):
+        assert torch.equal(got_st[i][-1, 0], state[i][-1, 0])
+
+
+def test_slstm_cell_kernel_alive(dev):
+    pre, r, state = _cell(dev, torch.float32, torch.float32, 2, 2, 1, 2, 32)
+    alive = torch.tensor([[True, False], [False, True]], device=dev)
+    st = tuple(t.clone() for t in state)
+    ops.slstm_cell(pre, r, st, num_heads=2, alive=alive)
+    want = tuple(t.clone() for t in state)
+    sc.slstm_cell_plain(pre, r, want, num_heads=2, alive=alive)
+    torch.cuda.synchronize()
+    for i in range(4):
+        assert torch.equal(st[i][0, 1], state[i][0, 1])
+        assert torch.equal(st[i][1, 0], state[i][1, 0])
+        assert _err(st[i], want[i]) <= 1e-4
+
+
 def test_cuda_tensors_count_launches(dev):
     ops.reset_launches()
     q = torch.randn(1, 1, 4, 4, 8, device=dev)
@@ -136,3 +189,7 @@ def test_cuda_tensors_count_launches(dev):
         torch.randn(1, 2, 8, device=dev), torch.ones(1, 8, device=dev),
         torch.randn(1, 8, 16, device=dev)).sum()))
     assert ops.launches()["logits_sample"] == 1
+    state = tuple(torch.zeros(1, 1, 32, device=dev) for _ in range(4))
+    ops.slstm_cell(torch.randn(1, 1, 2, 4, 32, device=dev),
+                   torch.randn(1, 4, 1, 32, 32, device=dev), state, num_heads=1)
+    assert ops.launches()["slstm_cell"] == 1

@@ -151,12 +151,13 @@ def test_lane_and_slot_surgery():
     shape = (2, 3, 2, 5, 1, 4)                     # (L, M, B, S, KVH, hd)
     old = KVCache(torch.zeros(shape), torch.zeros(shape))
     new = KVCache(torch.ones(shape), torch.ones(shape))
-    lanes = tree_select_lanes(torch.tensor([True, False, True]), new, old)
+    cfg = treg.get_smoke_config("tinyllama-1.1b")
+    ax = tapi.cache_axes(cfg)
+    lanes = tree_select_lanes(torch.tensor([True, False, True]), new, old, ax)
     assert lanes.k[:, 0].eq(1).all() and lanes.k[:, 1].eq(0).all()
-    slots = tree_select_slots(torch.tensor([[True, False]] * 3), new, old)
+    slots = tree_select_slots(torch.tensor([[True, False]] * 3), new, old, ax)
     assert slots.v[:, :, 0].eq(1).all() and slots.v[:, :, 1].eq(0).all()
 
-    cfg = treg.get_smoke_config("tinyllama-1.1b")
     grid = KVCache(torch.zeros(shape), torch.zeros(shape))
     src = KVCache(torch.arange(2 * 2 * 1 * 7 * 4.0).reshape(2, 2, 1, 7, 1, 4),
                   torch.zeros(2, 2, 1, 7, 1, 4))

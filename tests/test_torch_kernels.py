@@ -162,5 +162,8 @@ def test_cpu_tensors_route_to_plain_without_launches():
         ops.chunk_prefill_attention(q, kv, kv, off, s_cache=16),
         cpa.chunk_prefill_attention_plain(q, kv, kv, off, s_cache=16))
     ops.logits_sample(torch.randn(1, 2, 8), torch.ones(1, 8), torch.randn(1, 8, 16))
+    state = tuple(torch.zeros(1, 2, 8) for _ in range(4))
+    ops.slstm_cell(torch.randn(1, 2, 3, 4, 8), torch.randn(1, 4, 2, 4, 4), state,
+                   num_heads=2)
     assert ops.launches() == {"decode_layer": 0, "logits_sample": 0,
-                              "chunk_prefill_attention": 0}
+                              "chunk_prefill_attention": 0, "slstm_cell": 0}

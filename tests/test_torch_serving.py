@@ -2,9 +2,10 @@
 
 Same merged weights on both sides (``repro.api.init`` carried across
 with the bridge), the request mix of test_megakernel.py (mixed budgets:
-lanes die mid-block under K=8).  Greedy streams must be equal token for
-token, and the device-call counts of the two runtimes equal: prefill
-chunk calls and decode dispatches (one per engine step).
+lanes die mid-block under K=8), for the dense family and for xLSTM
+(ssm: recurrent state instead of a KV cache).  Greedy streams must be
+equal token for token, and the device-call counts of the two runtimes
+equal: prefill chunk calls and decode dispatches (one per engine step).
 """
 import numpy as np
 import pytest
@@ -62,7 +63,7 @@ def _drain(server, req_cls):
     return streams, calls[0], server.prefill.device_calls
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen1.5-0.5b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen1.5-0.5b", "xlstm-1.3b"])
 @pytest.mark.parametrize("k", [1, 8])
 def test_streams_and_call_counts_match_jax_engine(arch, k):
     jcfg, tcfg, jp, tp = _params(arch)
