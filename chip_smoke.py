@@ -13,25 +13,37 @@ before the result line is printed):
               dense kernels at the tinyllama-1.1b width (M=4, B=4, S=1024,
               C=32, D=2048, H=32, KVH=4, hd=64, F=5632, V=32000), the sLSTM
               cell at the xlstm-1.3b width (M=4, B=4, D=2048, H=4, hd=512,
-              S=1 and 32), in bf16 and f32;
-4. serve   -- two main paths, each with every launch counter set to 0
+              S=1 and 32), and at the hymba-1.5b width (H=25, KVH=5, hd=64)
+              the decode attention (S=1536, mixed kv_len), the chunk
+              attention at both of its geometries (SWA ring: S=1152,
+              pin=128, window=1024, sink=128; global: S=1536,
+              window=1<<30) and the logits at D=1600, V=32001, in bf16 and
+              f32;
+4. serve   -- three main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
               the full tinyllama-1.1b config (dense: decode layer, chunk
-              attention, logits) and on the full xlstm-1.3b config (ssm:
-              sLSTM cell, logits), M=4 seeded random instances, 16
-              requests each; every kernel of a path must have launched;
-5. check   -- greedy K=1 vs K=8 streams identical on the card for both
-              families (full widths, cut depth), and the kernel path
-              against the plain path on the CPU on small f32 configs;
-6. times   -- each kernel, its plain version and (for chunk attention)
-              ``scaled_dot_product_attention`` timed with CUDA events at
-              the serving shapes, beside the bound from bytes and FLOPs.
+              attention, logits), on the full xlstm-1.3b config (ssm:
+              sLSTM cell, logits) and on the full hymba-1.5b config
+              (hybrid: chunk attention, decode attention of the 3 global
+              layers, logits; max_context 1536), M=4 seeded random
+              instances, 16 requests each; every kernel of a path must
+              have launched;
+5. check   -- greedy K=1 vs K=8 streams identical on the card for the
+              three families (full widths, cut depth), and the kernel
+              path against the plain path on the CPU on small f32
+              configs (hymba-smoke at 4 layers over 176 prefilled
+              positions: the meta prefix and a wrapped SWA ring);
+6. times   -- each kernel, its plain version and (for chunk and decode
+              attention) ``scaled_dot_product_attention`` timed with CUDA
+              events at the serving shapes, beside the bound from bytes
+              and FLOPs.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -51,6 +63,11 @@ M, B, S, C = 4, 4, 1024, 32
 D, H, KVH, HD, F, V = 2048, 32, 4, 64, 5632, 32000
 # the sLSTM cell of xlstm-1.3b: D=2048 over 4 heads
 XH, XHD = 4, 512
+# hymba-1.5b: 25 heads over 5 kv heads of 64, d 1600, vocab 32001; the
+# serving context holds the 128 meta tokens, the 1024-slot SWA window and
+# prompts of up to 512 tokens with 32 new ones
+YH, YKVH, YD, YV, YS = 25, 5, 1600, 32001, 1536
+YSWA = 128 + 1024
 
 # bf16 tolerance, relative to the largest magnitude of the plain output:
 # one bf16 ulp is 2^-8 = 3.9e-3; the kernels sum in another order than
@@ -102,30 +119,50 @@ def layer_inputs(torch, dev, dt, seed, bias=False):
     return lp, x, ck, cv
 
 
-def chunk_inputs(torch, dev, dt, seed, m, b, offsets):
+def chunk_inputs(torch, dev, dt, seed, m, b, offsets, s=None, h=None, kvh=None):
+    """q (m,b,C,h,hd), k/v (m,b,s+C,kvh,hd) (default: the tinyllama width
+    S, H, KVH) and the lanes' offsets."""
+    s, h, kvh = s or S, h or H, kvh or KVH
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(m, b, C, H, HD, generator=g, device=dev).to(dt)
-    k = torch.randn(m, b, S + C, KVH, HD, generator=g, device=dev).to(dt)
-    v = torch.randn(m, b, S + C, KVH, HD, generator=g, device=dev).to(dt)
+    q = torch.randn(m, b, C, h, HD, generator=g, device=dev).to(dt)
+    k = torch.randn(m, b, s + C, kvh, HD, generator=g, device=dev).to(dt)
+    v = torch.randn(m, b, s + C, kvh, HD, generator=g, device=dev).to(dt)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev).reshape(m, b)
     return q, k, v, off
 
 
-def logits_inputs(torch, dev, xdt, seed, dup=True):
-    """x (M,B,D), scale (M,D), f32 head (M,D,V).  With ``dup``, one column
-    is made the clear winner for every lane and copied to an earlier and
-    a later index: the answer must be the earlier copy, bit-exactly tied."""
+def logits_inputs(torch, dev, xdt, seed, dup=True, d=None, v=None):
+    """x (M,B,d), scale (M,d), f32 head (M,d,v) (default: the tinyllama
+    width D, V).  With ``dup``, one column is made the clear winner for
+    every lane and copied to an earlier and a later index: the answer must
+    be the earlier copy, bit-exactly tied."""
+    d, v = d or D, v or V
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(M, B, D, generator=g, device=dev).to(xdt)
-    scale = 1 + 0.1 * torch.randn(M, D, generator=g, device=dev)
-    head = torch.randn(M, D, V, generator=g, device=dev) * D ** -0.5
+    x = torch.randn(M, B, d, generator=g, device=dev).to(xdt)
+    scale = 1 + 0.1 * torch.randn(M, d, generator=g, device=dev)
+    head = torch.randn(M, d, v, generator=g, device=dev) * d ** -0.5
     if dup:
         xf = x.float()
         n = xf / xf.pow(2).mean(-1, keepdim=True).add(1e-5).sqrt() * scale[:, None]
-        win = n.sum(1) / (B * D ** 0.5)
-        for col in (31000, 5, 31999):
+        win = n.sum(1) / (B * d ** 0.5)
+        for col in (v - 1000, 5, v - 1):
             head[:, :, col] = win
     return x, scale, head
+
+
+def decode_attn_inputs(torch, dev, dt, seed, lens=None):
+    """q (M,B,25,64), k/v (M,B,1536,5,64) at the hymba-1.5b width and
+    kv_len (M,B): the edges 1, 128 (one split), 129, 1536 and random
+    lengths, unless ``lens`` gives its own range [lo, hi)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(M, B, YH, HD, generator=g, device=dev).to(dt)
+    k = torch.randn(M, B, YS, YKVH, HD, generator=g, device=dev).to(dt)
+    v = torch.randn(M, B, YS, YKVH, HD, generator=g, device=dev).to(dt)
+    lo, hi = lens or (1, YS + 1)
+    kv_len = torch.randint(lo, hi, (M, B), generator=g, device=dev, dtype=torch.int32)
+    if lens is None:
+        kv_len.view(-1)[:4] = torch.tensor([1, 128, 129, YS], dtype=torch.int32)
+    return q, k, v, kv_len
 
 
 def slstm_inputs(torch, dev, dt, rdt, m, b, s, seed, junk=False):
@@ -178,7 +215,8 @@ def phase_build():
                                    rep, re.S):
             short = re.search(r"(matvec_partial_kernel|matvec_epilogue_kernel|ring_attn_kernel|"
                               r"ring_combine_kernel|logits_partial_kernel|logits_reduce_kernel|"
-                              r"chunk_attn_kernel|slstm_kernel)(I.*?E)?", fn)
+                              r"chunk_attn_kernel|slstm_kernel|decode_attn_kernel|"
+                              r"decode_combine_kernel)(I.*?E)?", fn)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
             smem = re.search(r"(\d+) bytes smem", body)
@@ -229,6 +267,16 @@ def phase_kernels(torch, dev):
         assert torch.equal(tok, ptok), f"logits {xdt}: tokens differ"
         errs[f"logits/{xdt}/rand"] = rel_err(val, pval)
         del head
+        # hymba-1.5b: d 1600, odd vocab 32001 (the kernel's scalar loads)
+        x, scale, head = logits_inputs(torch, dev, getattr(torch, xdt), 12, d=YD, v=YV)
+        tok, val = dl.logits_argmax_cuda(x, scale, head)
+        ptok, pval = dl.logits_argmax_plain(x, scale, head)
+        torch.cuda.synchronize()
+        assert (tok == 5).all() and torch.equal(tok, ptok), f"logits V={YV} {xdt}: {tok.tolist()}"
+        e = rel_err(val, pval)
+        assert e <= TOL["float32"], f"logits V={YV} val {xdt}: {e}"
+        errs[f"logits/{xdt}/V{YV}/dup"] = e
+        del head
 
     # chunk attention: empty / mid / full / wrapped caches; pin, window, sink
     offs = [0, 1, 17, 200, 500, 992, 1000, 1023, 1024, 1100, 1500, 2047, 5, 64, 300, 3000]
@@ -245,6 +293,33 @@ def phase_kernels(torch, dev):
         e = rel_err(got, want)
         assert e <= TOL[dtn], f"chunk {dtn} pin={pin} window={window} sink={sink}: {e}"
         errs[f"chunk/{dtn}/pin{pin}/w{window}/s{sink}"] = e
+    # chunk attention at the hymba-1.5b width (G=5): the SWA group (128
+    # pinned meta slots, window, meta sink) and the global group
+    yoffs = [0, 96, 128, 150, 700, 1100, 1151, 1152, 1200, 1500, 2000, 2303, 2304, 3000, 40, 64]
+    for dtn, s_c, pin, window in (("bfloat16", YSWA, 128, 1024), ("float32", YSWA, 128, 1024),
+                                  ("bfloat16", YS, 0, 1 << 30), ("float32", YS, 0, 1 << 30)):
+        dt = getattr(torch, dtn)
+        q, k, v, off = chunk_inputs(torch, dev, dt, 13, M, B, yoffs, s=s_c, h=YH, kvh=YKVH)
+        kw = dict(s_cache=s_c, pin=pin, window=window, sink=128)
+        want = cpa.chunk_prefill_attention_plain(q, k, v, off, **kw)
+        got = cpa.chunk_prefill_attention_cuda(q, k, v, off, **kw)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        assert e <= TOL[dtn], f"chunk hymba {dtn} S={s_c} pin={pin} window={window}: {e}"
+        errs[f"chunk/hymba/{dtn}/S{s_c}/pin{pin}/w{window}/s128"] = e
+        del q, k, v
+
+    # decode attention at the hymba-1.5b width: G=5, S=1536, mixed kv_len
+    from repro_torch.kernels import decode_attn as da
+    for dtn in ("bfloat16", "float32"):
+        q, k, v, kv_len = decode_attn_inputs(torch, dev, getattr(torch, dtn), 14)
+        want = da.decode_attention_plain(q, k, v, kv_len)
+        got = da.decode_attention_cuda(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        assert e <= TOL[dtn], f"decode_attention {dtn}: {e}"
+        errs[f"decode_attention/{dtn}/S{YS}/G5"] = e
+        del q, k, v
 
     # sLSTM cell at the xlstm-1.3b width: decode (S=1, M=4 x B=4 slots) and
     # prefill (S=32, 4 lanes); r in param_dtype (f32) or bf16; a padded chunk
@@ -295,7 +370,7 @@ def requests(n, m, lo, hi, max_new, vocab, seed):
                     max_new) for i in range(n)]
 
 
-def serve_path(torch, dev, arch, kernels):
+def serve_path(torch, dev, arch, kernels, max_context=S):
     """One main path: the full config of ``arch`` at M=4 instances, 16
     requests with prompts of 16-512 tokens and 32 new tokens each, greedy,
     K=8.  Every launch counter is set to 0 just before the run and read
@@ -305,7 +380,7 @@ def serve_path(torch, dev, arch, kernels):
 
     cfg = registry.get_config(arch).with_(num_instances=M)
     torch.cuda.reset_peak_memory_stats()
-    srv = make_server(torch, dev, cfg, 0, slots_per_instance=B, max_context=S,
+    srv = make_server(torch, dev, cfg, 0, slots_per_instance=B, max_context=max_context,
                       prefill_chunk=C, prefill_lanes=4, decode_steps=8)
     setup_peak = torch.cuda.max_memory_allocated()
     reqs = requests(16, M, 16, 512, 32, cfg.vocab_size, 0)
@@ -338,7 +413,10 @@ def serve_path(torch, dev, arch, kernels):
         max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
         setup_peak_gib=round(setup_peak / 2 ** 30, 2))
     profile_serve(torch, srv, requests(16, M, 16, 512, 32, cfg.vocab_size, 5), arch)
+    # the server holds a reference cycle (its step is a bound method): free
+    # it now, or the next path's memory peak counts this path's weights
     del srv
+    gc.collect()
     torch.cuda.empty_cache()
     return cfg, snap, launches
 
@@ -362,7 +440,22 @@ def phase_serve(torch, dev):
     log("serve", arch=cfg.name, slstm_layers=n_slstm, chunk_calls_plus_decode_steps=calls,
         slstm_launches=xlstm["slstm_cell"],
         slstm_launches_check=f"{n_slstm}x{calls}=={xlstm['slstm_cell']}")
-    return {"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm}
+
+    from repro_torch.models import hybrid
+    cfg, snap, hymba = serve_path(torch, dev, "hymba-1.5b",
+                                  ("chunk_prefill_attention", "decode_attention",
+                                   "logits_sample"), max_context=YS)
+    steps, chunks = snap["decode_steps"], snap["prefill_batches"]
+    n_global = len(hybrid.global_layers(cfg))
+    assert hymba["decode_attention"] == n_global * steps, (hymba, n_global, steps)
+    assert hymba["chunk_prefill_attention"] == cfg.num_layers * chunks, (hymba, chunks)
+    assert hymba["logits_sample"] == steps, (hymba, steps)
+    assert hymba["decode_layer"] == hymba["slstm_cell"] == 0, hymba
+    log("serve", arch=cfg.name, global_layers=n_global, decode_steps=steps,
+        decode_attention_launches=hymba["decode_attention"],
+        decode_attention_check=f"{n_global}x{steps}=={hymba['decode_attention']}",
+        chunk_launches_check=f"{cfg.num_layers}x{chunks}=={hymba['chunk_prefill_attention']}")
+    return {"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm, "hymba-1.5b": hymba}
 
 
 def device_us(e):
@@ -399,38 +492,47 @@ def phase_check(torch, dev):
     from repro_torch.models.common import _leaves, tree_map
 
     # greedy K=1 vs K=8 on the card at full widths, depth cut: tinyllama to
-    # 4 layers, xlstm to 8 (7 mLSTM layers and the sLSTM layer at 3)
-    for arch, layers in (("tinyllama-1.1b", 4), ("xlstm-1.3b", 8)):
+    # 4 layers, xlstm to 8 (7 mLSTM layers and the sLSTM layer at 3),
+    # hymba to 4 (global layers 0, 2, 3 and the SWA layer 1)
+    for arch, layers, ctx in (("tinyllama-1.1b", 4, S), ("xlstm-1.3b", 8, S),
+                              ("hymba-1.5b", 4, YS)):
         cfg = registry.get_config(arch).with_(num_instances=M, num_layers=layers)
         streams = []
         for k in (1, 8):
-            srv = make_server(torch, dev, cfg, 1, slots_per_instance=2, max_context=S,
+            srv = make_server(torch, dev, cfg, 1, slots_per_instance=2, max_context=ctx,
                               prefill_chunk=C, decode_steps=k)
             for r in requests(12, M, 16, 200, 16, cfg.vocab_size, 1):
                 srv.submit(r)
             streams.append({r.request_id: r.tokens for r in srv.run_until_drained()})
             del srv
+            gc.collect()
         assert streams[0] == streams[1], f"{arch}: greedy streams differ between K=1 and K=8"
         log("check", arch=arch, streams="K1==K8", requests=len(streams[0]), layers=layers,
             tokens=sum(len(t) for t in streams[0].values()))
 
     # kernel path (card) against the plain path (CPU), small f32 configs:
-    # three prefill chunks, a decode step and a greedy decode step
-    for arch in ("tinyllama-1.1b", "xlstm-1.3b"):
+    # prefill chunks (three of 8; hymba: eleven of 16 over the 128 meta
+    # positions and 48 prompt tokens, wrapping its 32-slot SWA ring at
+    # context 256), a decode step and a greedy decode step
+    for arch, layers, n_pos, width, ctx in (("tinyllama-1.1b", None, 24, 8, 64),
+                                            ("xlstm-1.3b", None, 24, 8, 64),
+                                            ("hymba-1.5b", 4, 176, 16, 256)):
         small = registry.get_smoke_config(arch).with_(num_instances=2)
+        if layers:
+            small = small.with_(num_layers=layers)
         params = api.init(small, torch.Generator().manual_seed(0), "cpu")
         rng = np.random.default_rng(2)
-        tok = torch.from_numpy(rng.integers(1, small.vocab_size, (2, 2, 24)).astype(np.int32))
+        tok = torch.from_numpy(rng.integers(1, small.vocab_size, (2, 2, n_pos)).astype(np.int32))
         outs = {}
         for d in ("cpu", dev):
             p = params.to(d) if d != "cpu" else params
-            carry = api.init_chunk_carry(small, 2, 2, 64, device=d)
-            for start in (0, 8, 16):
+            carry = api.init_chunk_carry(small, 2, 2, ctx, device=d)
+            for start in range(0, n_pos, width):
                 off = torch.full((2, 2), start, dtype=torch.int32, device=d)
-                api.prefill_chunk(small, p, {"tokens": tok[:, :, start:start + 8].to(d)},
+                api.prefill_chunk(small, p, {"tokens": tok[:, :, start:start + width].to(d)},
                                   carry, off)
             cache = carry["cache"]
-            pos = torch.full((2, 2), 24, dtype=torch.int32, device=d)
+            pos = torch.full((2, 2), n_pos, dtype=torch.int32, device=d)
             nxt, _ = api.decode_step_sample(small, p, tree_map(lambda t: t.clone(), cache),
                                             tok[:, :, -1:].to(d), pos)
             logits, _ = api.decode_step(small, p, cache, tok[:, :, -1:].to(d), pos)
@@ -443,7 +545,8 @@ def phase_check(torch, dev):
                                                                           e_logits)
         assert torch.equal(n1, n0) and torch.equal(n1, lg0.argmax(-1).to(torch.int32)), (
             f"{arch}: greedy tokens differ")
-        log("check", reference="cpu-plain", config=small.name, state_leaves=len(c0),
+        log("check", reference="cpu-plain", config=small.name, layers=small.num_layers,
+            prefilled_positions=n_pos, state_leaves=len(c0),
             cache_rel_err=f"{e_cache:.2e}", logits_rel_err=f"{e_logits:.2e}", tokens="equal")
 
 
@@ -452,6 +555,22 @@ def time_ms(torch, fn, reps=20, warmup=3):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_queued_ms(torch, fn, reps=20):
+    """Device time per call of a kernel too short to outrun its host-side
+    launch: the calls are queued behind a spin kernel (~10 ms), so the
+    device runs them back to back however slowly the host enqueues them."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -594,10 +713,48 @@ def phase_times(torch, dev, by_path):
     log("times", name="slstm_cell", shape="decode S=1, M=4 x B=4", ms=f"{d_ms:.4f}",
         plain_ms=f"{d_plain:.4f}", bound_ms=f"{d_bms:.4f}", bound_by=d_by,
         of_bound=f"{d_bms / d_ms:.1%}")
+    # decode attention at the hymba serve shapes: M=4 x B=4 slots, bf16,
+    # kv_len inside the served positions (128 meta + 16..512 prompt + 32
+    # new); 8 input copies rotate so K/V come from HBM, as in a decode step
+    # where 32 layers of weights stream through L2 between two global layers
+    from repro_torch.kernels import decode_attn as da
+    sets = [decode_attn_inputs(torch, dev, torch.bfloat16, 30 + i, lens=(144, 673))
+            for i in range(8)]
+    q, k, v, kv_len = sets[0]
+    got = da.decode_attention_cuda(q, k, v, kv_len)
+    want = da.decode_attention_plain(q, k, v, kv_len)
+    err = abs_err(got, want)
+    it = iter(range(10 ** 9))
+    ms = time_ms(torch, lambda: da.decode_attention_cuda(*sets[next(it) % 8]))
+    plain = time_ms(torch, lambda: da.decode_attention_plain(*sets[next(it) % 8]), reps=5)
+    device_ms = time_queued_ms(torch, lambda: da.decode_attention_cuda(*sets[next(it) % 8]))
+    # the same function as one library call: SDPA, the prefix mask, GQA
+    lib_in = []
+    for q_, k_, v_, l_ in sets:
+        mask = (torch.arange(YS, device=dev) < l_[..., None]).reshape(M * B, 1, 1, YS)
+        lib_in.append((q_.reshape(M * B, YH, 1, HD), k_.reshape(M * B, YS, YKVH, HD).transpose(1, 2),
+                       v_.reshape(M * B, YS, YKVH, HD).transpose(1, 2), mask))
+    lib = lambda i: Fn.scaled_dot_product_attention(
+        *lib_in[i % 8][:3], attn_mask=lib_in[i % 8][3], enable_gqa=True)
+    assert abs_err(lib(0).reshape(M, B, YH, HD), want) < 0.05
+    library = time_ms(torch, lambda: lib(next(it)))
+    valid = kv_len.sum().item()
+    nbytes = 2 * M * B * YH * HD * 2 + valid * YKVH * HD * 2 * 2 + M * B * 4
+    bms, by = bound_ms(nbytes, 4 * YH * HD * valid, "bfloat16")
+    rows.append(dict(name="decode_attention", route="cuda",
+                     source="src/repro_torch/csrc/decode_attn.cu",
+                     replaces="src/repro/kernels/decode_attn.py:25",
+                     launches=launches["decode_attention"],
+                     launches_by_path=per_path("decode_attention"), max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=library,
+                     device_ms=device_ms))
+    del sets, lib_in
+
     for r in rows:
         log("times", name=r["name"], ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
-            library_ms=r["library_ms"], of_bound=f"{r['bound_ms'] / r['ms']:.1%}")
+            library_ms=r["library_ms"], of_bound=f"{r['bound_ms'] / r['ms']:.1%}",
+            **({"device_ms": f"{r['device_ms']:.4f}"} if "device_ms" in r else {}))
     return rows
 
 

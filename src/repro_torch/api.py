@@ -1,4 +1,5 @@
-"""Uniform model API (port of ``repro.api``): the dense and ssm entries.
+"""Uniform model API (port of ``repro.api``): the dense, ssm and hybrid
+entries.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); with no device given and no card present they raise
@@ -10,9 +11,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
-from repro_torch.models import dense, ssm
+from repro_torch.models import dense, hybrid, ssm
 
-_FAMILY = {"dense": dense, "ssm": ssm}
+_FAMILY = {"dense": dense, "ssm": ssm, "hybrid": hybrid}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -44,14 +45,16 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
 
 
 def prefill_prefix_len(cfg: ModelConfig) -> int:
-    """Learned-prefix positions before the prompt (none for dense and ssm)."""
+    """Learned-prefix positions before the prompt: hybrid's meta tokens,
+    none for dense and ssm."""
     family_module(cfg)
-    return 0
+    return hybrid.NUM_META_TOKENS if cfg.family == "hybrid" else 0
 
 
 def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device=None):
-    """The grid's decode cache: a KV cache (dense) or the recurrent state
-    (ssm, positionless: ``context_len`` is unused)."""
+    """The grid's decode cache: a KV cache (dense), the recurrent state
+    (ssm, positionless: ``context_len`` is unused) or per-group KV caches
+    and mamba states (hybrid)."""
     dev = resolve_device(device)
     if cfg.family == "ssm":
         return ssm.make_state(cfg, m, b, dev)

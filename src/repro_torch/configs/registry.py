@@ -3,7 +3,7 @@ of ``repro.configs.registry``).
 
 The id list is the reference's, so an unknown id and a known but not yet
 ported one fail with different messages; the port has the config modules
-of the dense family and of xlstm-1.3b (ssm) so far.
+of the dense family, xlstm-1.3b (ssm) and hymba-1.5b (hybrid) so far.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ ALL = {**ASSIGNED, **PAPER_MODELS}
 
 # the archs whose config modules (and model family) the port has
 PORTED = ("tinyllama-1.1b", "deepseek-67b", "granite-3-2b", "qwen1.5-0.5b",
-          "xlstm-1.3b")
+          "xlstm-1.3b", "hymba-1.5b")
 
 LONG_CONTEXT_WINDOW = 8192
 

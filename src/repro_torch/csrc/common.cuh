@@ -1,5 +1,5 @@
-// Shared helpers of the port's Hopper kernels: element types, rounding to
-// the activation dtype, floor modulo.
+// Shared helpers of the port's Hopper kernels: element types, 16-byte
+// loads, rounding to the activation dtype, floor modulo, warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +25,30 @@ template <> struct Ty<__nv_bfloat16> {
   // two neighbouring elements; p must be 4-byte aligned
   static __device__ __forceinline__ float2 pair(const __nv_bfloat16* p) {
     return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+};
+
+// 8 consecutive elements as floats, in one 16-byte load (bf16) or two
+// (f32); p must be 16-byte (bf16) or 32-byte (f32) aligned.
+template <typename T> struct Load8;
+template <> struct Load8<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(const __nv_bfloat16* p, float* o) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+};
+template <> struct Load8<float> {
+  static __device__ __forceinline__ void run(const float* p, float* o) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
   }
 };
 

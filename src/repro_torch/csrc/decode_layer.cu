@@ -148,28 +148,6 @@ __device__ __forceinline__ float unpark(const float* red, int b, int c) {
 constexpr int VEC = 8;
 constexpr int MTN = 32 * VEC;    // columns per matvec tile
 
-template <typename T> struct Load8;
-template <> struct Load8<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(const __nv_bfloat16* p, float* o) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-};
-template <> struct Load8<float> {
-  static __device__ __forceinline__ void run(const float* p, float* o) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    const float4 b = *reinterpret_cast<const float4*>(p + 4);
-    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-  }
-};
-
 // acc[b][v] += sum over rows k of this block's slice of xs[b][k] * w[k][col+v]
 template <typename T>
 __device__ __forceinline__ void slice_accum(const T* __restrict__ w, int N, int col, int k0,

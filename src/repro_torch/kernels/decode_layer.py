@@ -23,8 +23,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.models import layers as L
 
-NEG_INF = -1e30
-
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -36,23 +34,9 @@ def ring_attention_plain(q, ck, cv, pos, *, window: int = 0):
     (M, B, H, hd), ck/cv (M, B, S, KVH, hd), pos (M, B).  Mirrors the
     reference's Sq=1 flash path (one KV block, f32 scores, p in V's
     dtype, f32 accumulation).  Returns (M, B, H, hd) in q's dtype."""
-    m, b, h, hd = q.shape
-    s_cache, kvh = ck.shape[2], ck.shape[3]
-    g = h // kvh
-    kv_pos = L.cache_slot_positions(pos, s_cache)                  # (M,B,S)
-    qp = pos[..., None]
-    valid = (kv_pos >= 0) & (kv_pos <= qp)
-    if window > 0:
-        valid = valid & (qp - kv_pos < window)
-    qg = q.reshape(m, b, kvh, g, hd).float()
-    s = torch.einsum("mbkgd,mbskd->mbkgs", qg, ck.float()) * (1.0 / math.sqrt(hd))
-    s = torch.where(valid[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
-    mx = torch.clamp(s.amax(dim=-1), min=NEG_INF)
-    p = torch.exp(s - mx[..., None])
-    l = p.sum(dim=-1)
-    pv = torch.einsum("mbkgs,mbskd->mbkgd", p.to(cv.dtype).float(), cv.float())
-    o = pv / torch.clamp(l, min=1e-30)[..., None]
-    return o.to(q.dtype).reshape(m, b, h, hd)
+    kv_pos = L.cache_slot_positions(pos, ck.shape[2])
+    return L.flash_attention_plain(q[:, :, None], ck, cv, pos[..., None], kv_pos,
+                                   window=window)[:, :, 0]
 
 
 def decode_layer_plain(lp, x, ck, cv, pos, *, num_heads, head_dim, rope_theta,

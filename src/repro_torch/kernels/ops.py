@@ -10,6 +10,7 @@ its main path went through the kernels.
 from __future__ import annotations
 
 from repro_torch.kernels import chunk_prefill_attn as _cpa
+from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import decode_layer as _dl
 from repro_torch.kernels import slstm_cell as _sc
 
@@ -39,8 +40,10 @@ _chunk = Kernel("chunk_prefill_attention", _cpa.chunk_prefill_attention_plain,
                 _cpa.chunk_prefill_attention_cuda)
 
 _slstm = Kernel("slstm_cell", _sc.slstm_cell_plain, _sc.slstm_cell_cuda)
+_decode_attn = Kernel("decode_attention", _da.decode_attention_plain,
+                      _da.decode_attention_cuda)
 
-KERNELS = (_decode_layer, _logits, _chunk, _slstm)
+KERNELS = (_decode_layer, _logits, _chunk, _slstm, _decode_attn)
 
 
 def reset_launches() -> None:
@@ -82,3 +85,9 @@ def slstm_cell(pre, r, state, *, num_heads: int, alive=None):
     """The sLSTM scan over S steps; state (c, n, h, m) updated in place.
     Returns (hs (M, B, S, D), state)."""
     return _slstm(pre, pre, r, state, num_heads=num_heads, alive=alive)
+
+
+def decode_attention(q, k, v, kv_len):
+    """Single-token GQA attention over the first ``kv_len`` (M, B) slots
+    of k, v (M, B, S, KVH, hd); 1 <= kv_len <= S.  Returns (M, B, H, hd)."""
+    return _decode_attn(q, q, k, v, kv_len)

@@ -1,4 +1,5 @@
-"""Serving launcher (port of ``repro.launch.serve``, dense and ssm families).
+"""Serving launcher (port of ``repro.launch.serve``, dense, ssm and hybrid
+families).
 
 Initialises M "fine-tuned" instances as M random initialisations from a
 seed, merges them (the paper's offline merge step, timed), and serves a
@@ -10,6 +11,11 @@ program.  Runs on the CUDA device unless ``--device cpu`` is given.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
       --smoke --device cpu --decode-steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --smoke --device cpu --decode-steps 4
+
+Hybrid archs raise ``--max-context`` to the meta tokens plus the SWA
+window plus ``--max-new``, as the reference's CLI does.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 
 from repro_torch import api
 from repro_torch.configs import registry
+from repro_torch.models import hybrid as H
 from repro_torch.models.common import merge_instances
 from repro_torch.serving import MultiModelServer, Request
 from repro_torch.serving.scheduler import POLICIES
@@ -53,6 +60,13 @@ def main(argv=None):
 
     device = api.resolve_device(args.device)
     base = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
+    max_context = args.max_context
+    if base.family == "hybrid":
+        need = H.min_serving_context(base, args.max_new)
+        if max_context < need:
+            print(f"raising --max-context {max_context} -> {need} "
+                  f"(hybrid meta tokens + SWA ring)")
+            max_context = need
     m = args.num_instances
     cfg1 = base.with_(num_instances=1)
     cfg = base.with_(num_instances=m)
@@ -73,7 +87,7 @@ def main(argv=None):
           f"on {device}")
 
     server = MultiModelServer(
-        cfg, merged, slots_per_instance=args.slots, max_context=args.max_context,
+        cfg, merged, slots_per_instance=args.slots, max_context=max_context,
         temperature=args.temperature, top_k=args.top_k, seed=args.seed,
         scheduler=args.policy, prefill_chunk=args.chunk, prefill_lanes=args.lanes,
         chunk_budget=args.chunk_budget, decode_steps=args.decode_steps, device=device,

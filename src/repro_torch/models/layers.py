@@ -225,3 +225,54 @@ def cache_append_chunk(cache_layer: torch.Tensor, new: torch.Tensor,
         vals = torch.where(keep, vals, flat[rows, sl])
     flat[rows, sl] = vals
     return cache_layer
+
+
+def cache_update_one(cache_layer: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                     alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Write one token's k or v row per lane at ``slot``, in place.
+
+    cache_layer: (M, B, S, KVH, hd); new: (M, B, 1, KVH, hd); slot: (M, B).
+    A lane whose ``alive`` (M, B) is False keeps its slot's old value, so
+    a stopped lane's cache stays frozen without a copy of the cache."""
+    m, b, s, kvh, hd = cache_layer.shape
+    flat = cache_layer.view(m * b, s, kvh, hd)
+    rows = torch.arange(m * b, device=cache_layer.device)
+    sl = slot.reshape(m * b).long()
+    vals = new.to(cache_layer.dtype).reshape(m * b, kvh, hd)
+    if alive is not None:
+        vals = torch.where(alive.reshape(m * b, 1, 1), vals, flat[rows, sl])
+    flat[rows, sl] = vals
+    return cache_layer
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                          window: int = 0, sink: int = 0) -> torch.Tensor:
+    """Causal GQA attention with the reference's positional mask
+    (``flash_attention`` of ``repro/models/layers.py``) as one block:
+    q (M, B, Sq, H, hd); k, v (M, B, Skv, KVH, hd); q_pos (M, B, Sq);
+    kv_pos (M, B, Skv) with -1 marking empty slots.  A key is visible
+    when kv_pos >= 0, kv_pos <= q_pos and, with a ``window``, q_pos -
+    kv_pos < window or kv_pos < ``sink``.  f32 scores, p in V's dtype,
+    f32 accumulation, as the reference's single-block decode path.
+    Returns (M, B, Sq, H, hd) in q's dtype."""
+    m, b, sq, h, hd = q.shape
+    kvh = k.shape[3]
+    g = h // kvh
+    qg = q.reshape(m, b, sq, kvh, g, hd).float()
+    s = torch.einsum("mbqkgd,mbckd->mbkgqc", qg, k.float()) * (1.0 / math.sqrt(hd))
+    kp = kv_pos[:, :, None, :]
+    qp = q_pos[..., None]
+    valid = (kp >= 0) & (kp <= qp)
+    if window > 0:
+        in_win = qp - kp < window
+        if sink > 0:
+            in_win = in_win | (kp < sink)
+        valid = valid & in_win
+    s = torch.where(valid[:, :, None, None], s, torch.full_like(s, NEG_INF))
+    mx = torch.clamp(s.amax(dim=-1), min=NEG_INF)
+    p = torch.exp(s - mx[..., None])
+    l = p.sum(dim=-1)
+    pv = torch.einsum("mbkgqc,mbckd->mbkgqd", p.to(v.dtype).float(), v.float())
+    o = pv / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 1, 4, 2, 3, 5).reshape(m, b, sq, h, hd).to(q.dtype)

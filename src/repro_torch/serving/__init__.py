@@ -1,4 +1,4 @@
-"""Multi-model serving (port of ``repro.serving``, dense and ssm, single device)."""
+"""Multi-model serving (port of ``repro.serving``, dense, ssm and hybrid, single device)."""
 from repro_torch.serving.engine import SERVABLE_FAMILIES, MultiModelServer
 from repro_torch.serving.scheduler import Request, Result
 

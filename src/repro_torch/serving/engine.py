@@ -1,5 +1,5 @@
 """Multi-model serving engine — the paper's deployment scenario (port of
-``repro.serving.engine``, dense and ssm families, single device).
+``repro.serving.engine``, dense, ssm and hybrid families, single device).
 
 M fine-tuned instances of one architecture, merged on a leading
 instances axis, are served from one program over a fixed (M, B) slot
@@ -18,8 +18,9 @@ grid:
 
 A lane that stops mid-block freezes: its token, position and budget stop
 advancing, and the decode step leaves its cache untouched (``alive``:
-the dense decode layers skip its ring append, the ssm cells keep its
-recurrent state), so K=1 and K>1 greedy streams are identical.  An
+the dense decode layers and the hybrid blocks skip its ring append, the
+ssm cells and the hybrid mamba branch keep its recurrent state), so K=1
+and K>1 greedy streams are identical.  An
 adaptive horizon shrinks k while prefill lanes are in flight or requests
 wait.
 """
@@ -31,12 +32,13 @@ import numpy as np
 import torch
 
 from repro_torch import api
+from repro_torch.models import hybrid as H
 from repro_torch.serving.metrics import ServerMetrics
 from repro_torch.serving.prefill import ChunkedPrefill
 from repro_torch.serving.sampling import make_grid_sampler
 from repro_torch.serving.scheduler import Request, Result, Scheduler, make_scheduler
 
-SERVABLE_FAMILIES = ("dense", "ssm")
+SERVABLE_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class MultiModelServer:
@@ -62,6 +64,11 @@ class MultiModelServer:
     ):
         if cfg.family not in SERVABLE_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        if cfg.family == "hybrid":
+            need = H.min_serving_context(cfg)
+            if max_context < need:
+                raise ValueError(f"hybrid serving needs max_context >= meta+window = "
+                                 f"{need}, got {max_context}")
         self.device = api.resolve_device(device)
         self.cfg = cfg
         self.m = cfg.num_instances

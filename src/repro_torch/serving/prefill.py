@@ -1,5 +1,5 @@
 """Chunked prefill for serving admission (port of
-``repro.serving.prefill``, dense and ssm families, single device).
+``repro.serving.prefill``, dense, ssm and hybrid families, single device).
 
 Every prompt streams through ``api.prefill_chunk`` in fixed-size chunks;
 the final partial chunk is padded and masked per position (tail
@@ -21,8 +21,11 @@ there.  Every lane that holds a request advances in every call; a lane
 whose prefill completed earlier in the same ``advance`` rides the later
 calls as junk and keeps its state exactly (after its first real step its
 stabilizer m is finite, so the neutral gates give forget 1 and input 0)
-until the engine scatters it.  The chunk is clamped to a sliding-window
-ring (dense); recurrent state has no ring.
+until the engine scatters it.  The chunk is clamped to the narrowest
+ring of the cache (dense sliding window, hybrid SWA ring after the meta
+tokens); recurrent state has no ring.  Hybrid prompts start after the
+``prefill_prefix_len`` meta positions, whose chunk rows the model fills
+from its meta-token embeddings.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import api
+from repro_torch.models import hybrid as H
 from repro_torch.models.common import tree_reset_lanes
 from repro_torch.serving.scheduler import Request
 
@@ -72,7 +76,7 @@ class ChunkedPrefill:
         self.metrics = metrics
         self.lanes = max(1, lanes)
         # a chunk must map to distinct cache slots: clamp it to the ring
-        ring = cfg.sliding_window if cfg.family == "dense" else 0
+        ring = self._min_ring_width()
         self.chunk = max(1, min(chunk, ring if ring else chunk))
         self.prefix = api.prefill_prefix_len(cfg)
         if self.max_prompt_len() <= 0:
@@ -84,6 +88,16 @@ class ChunkedPrefill:
         self._lanes = [_Lane() for _ in range(self.lanes)]
         self.device_calls = 0               # chunk calls
         self.admitted = 0                   # lanes ever started
+
+    def _min_ring_width(self) -> int:
+        """Narrowest ring of the family's caches (0: none): the sliding
+        window (dense), the SWA ring after the pinned meta tokens
+        (hybrid; ``make_cache`` clips it to ``max_context``)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            s_cache = min(H.NUM_META_TOKENS + H.swa_window(cfg), self.max_context)
+            return max(s_cache - H.NUM_META_TOKENS, 1)
+        return cfg.sliding_window if cfg.family == "dense" else 0
 
     def max_prompt_len(self) -> int:
         return self.max_context - self.prefix

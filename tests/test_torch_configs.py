@@ -8,7 +8,7 @@ from repro.configs import registry as jreg
 from repro_torch.configs import registry as treg
 
 DENSE = ["tinyllama-1.1b", "qwen1.5-0.5b", "granite-3-2b", "deepseek-67b"]
-PORTED = DENSE + ["xlstm-1.3b"]
+PORTED = DENSE + ["xlstm-1.3b", "hymba-1.5b"]
 
 
 def _fields(cfg):
@@ -31,6 +31,13 @@ def test_ssm_config_matches_reference(smoke):
     get = "get_smoke_config" if smoke else "get_config"
     assert dataclasses.asdict(getattr(treg, get)("xlstm-1.3b")) == _fields(
         getattr(jreg, get)("xlstm-1.3b"))
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_hybrid_config_matches_reference(smoke):
+    get = "get_smoke_config" if smoke else "get_config"
+    assert dataclasses.asdict(getattr(treg, get)("hymba-1.5b")) == _fields(
+        getattr(jreg, get)("hymba-1.5b"))
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import chunk_prefill_attn as cpa
+from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import decode_layer as dl
 from repro_torch.kernels import ops
 from repro_torch.kernels import slstm_cell as sc
@@ -109,6 +110,26 @@ def test_logits_kernel_first_occurrence(dev, dt):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_logits_kernel_odd_vocab_duplicated_max(dev, dt):
+    """V = 32001 (hymba-1.5b): an odd row length takes the kernel's scalar
+    loads; a duplicated winning column gives the first copy."""
+    m, b, d, v = 2, 2, 64, 32001
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(m, b, d, generator=g, device=dev).to(dt)
+    scale = 1 + 0.1 * torch.randn(m, d, generator=g, device=dev)
+    head = torch.randn(m, d, v, generator=g, device=dev) * d ** -0.5
+    n = x.float() / x.float().pow(2).mean(-1, keepdim=True).add(1e-5).sqrt()
+    head[:, :, 31999] = (n * scale[:, None]).sum(1) / b
+    head[:, :, 32000] = head[:, :, 31999]
+    head[:, :, 20000] = head[:, :, 31999]
+    tok, val = ops.logits_argmax(x, scale, head)
+    want_tok, want_val = dl.logits_argmax_plain(x, scale, head)
+    torch.cuda.synchronize()
+    assert (tok == 20000).all() and torch.equal(tok, want_tok)
+    assert _err(val, want_val) <= 1e-4
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,b,c,h,kvh,sc,hd,pin,win,sink", [
     (2, 1, 8, 4, 2, 16, 8, 0, 0, 0), (1, 2, 4, 4, 4, 24, 8, 0, 6, 0),
     (2, 1, 8, 8, 2, 20, 16, 4, 8, 4), (1, 1, 5, 3, 1, 13, 8, 0, 0, 0),
@@ -125,6 +146,52 @@ def test_chunk_prefill_kernel(dev, dt, m, b, c, h, kvh, sc, hd, pin, win, sink):
     got = ops.chunk_prefill_attention(q, k, v, off, **kw)
     torch.cuda.synchronize()
     assert _err(got, want) <= _tol(dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sc,win", [(160, 32), (1152, 1024), (192, 1 << 30)])
+def test_chunk_prefill_kernel_hymba_geometry(dev, dt, sc, win):
+    """Hymba's chunk attention: H=25 over KVH=5 (G=5), the SWA group with
+    128 pinned meta slots, window and sink (pin=128, sink=128), and the
+    global group with window=1<<30 (no overflow in q_pos - k_pos)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    m, b, c, h, kvh, hd = 2, 2, 32, 25, 5, 64
+    pin = 128 if win < sc else 0
+    q = torch.randn(m, b, c, h, hd, generator=g, device=dev).to(dt)
+    k = torch.randn(m, b, sc + c, kvh, hd, generator=g, device=dev).to(dt)
+    v = torch.randn(m, b, sc + c, kvh, hd, generator=g, device=dev).to(dt)
+    off = torch.tensor([[0, 100], [150, 3 * sc + 17]], dtype=torch.int32, device=dev)
+    kw = dict(s_cache=sc, pin=pin, window=win, sink=128)
+    want = cpa.chunk_prefill_attention_plain(q, k, v, off, **kw)
+    got = ops.chunk_prefill_attention(q, k, v, off, **kw)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= _tol(dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,hd,s", [(4, 4, 64, 300), (25, 5, 64, 1536), (16, 1, 128, 200),
+                                        (10, 2, 8, 129)])
+def test_decode_attention_kernel(dev, dt, h, kvh, hd, s):
+    """G in {1, 5, 16, 5}; kv_len 1, S, one past a split boundary, a
+    non-multiple of the 128-slot split and of the 64-slot tile."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    m, b = 2, 3
+    q = torch.randn(m, b, h, hd, generator=g, device=dev).to(dt)
+    k = torch.randn(m, b, s, kvh, hd, generator=g, device=dev).to(dt)
+    v = torch.randn(m, b, s, kvh, hd, generator=g, device=dev).to(dt)
+    kv_len = torch.tensor([[1, s, min(129, s)], [s - 1, 77, min(200, s)]], dtype=torch.int32,
+                          device=dev)
+    ops.reset_launches()
+    got = ops.decode_attention(q, k, v, kv_len)
+    want = da.decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert ops.launches()["decode_attention"] == 1
+    assert got.dtype == dt and _err(got, want) <= _tol(dt)
+    # slots past kv_len are never read: poisoning them changes nothing
+    k2, v2 = k.clone(), v.clone()
+    mask = torch.arange(s, device=dev)[None, None] >= kv_len[..., None]
+    k2[mask], v2[mask] = float("nan"), float("nan")
+    assert torch.equal(ops.decode_attention(q, k2, v2, kv_len), got)
 
 
 def _cell(dev, dt, rdt, m, b, s, h, hd, seed=3):
@@ -193,3 +260,6 @@ def test_cuda_tensors_count_launches(dev):
     ops.slstm_cell(torch.randn(1, 1, 2, 4, 32, device=dev),
                    torch.randn(1, 4, 1, 32, 32, device=dev), state, num_heads=1)
     assert ops.launches()["slstm_cell"] == 1
+    ops.decode_attention(torch.randn(1, 1, 4, 8, device=dev), kv[:, :, :16], kv[:, :, :16],
+                         torch.tensor([[3]], dtype=torch.int32, device=dev))
+    assert ops.launches()["decode_attention"] == 1

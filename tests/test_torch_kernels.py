@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from repro.kernels import ref
 from repro_torch.kernels import chunk_prefill_attn as cpa
+from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import decode_layer as dl
 from repro_torch.kernels import ops
 
@@ -165,5 +166,9 @@ def test_cpu_tensors_route_to_plain_without_launches():
     state = tuple(torch.zeros(1, 2, 8) for _ in range(4))
     ops.slstm_cell(torch.randn(1, 2, 3, 4, 8), torch.randn(1, 4, 2, 4, 4), state,
                    num_heads=2)
+    assert torch.equal(
+        ops.decode_attention(q[:, :, 0], kv, kv, torch.tensor([[5]], dtype=torch.int32)),
+        da.decode_attention_plain(q[:, :, 0], kv, kv, torch.tensor([[5]], dtype=torch.int32)))
     assert ops.launches() == {"decode_layer": 0, "logits_sample": 0,
-                              "chunk_prefill_attention": 0, "slstm_cell": 0}
+                              "chunk_prefill_attention": 0, "slstm_cell": 0,
+                              "decode_attention": 0}
