@@ -3,12 +3,13 @@
 
   python3 chip_smoke.py
 
-Phases, each printing one line of findings (any failure exits non-zero
-before the result line is printed):
+Phases, each printing its findings and its seconds (any failure exits
+non-zero before the result line is printed):
 
 1. device  -- the card's name and power limit (nvidia-smi);
-2. build   -- compile every kernel of ``src/repro_torch/csrc`` with nvcc,
-              one process per source, and print ptxas registers / spills;
+2. build   -- compile the seven kernel sources of ``src/repro_torch/csrc``
+              with nvcc, one process per source, and print ptxas
+              registers / spills;
 3. kernels -- each Hopper kernel against its plain PyTorch version: the
               dense kernels at the tinyllama-1.1b width (M=4, B=4, S=1024,
               C=32, D=2048, H=32, KVH=4, hd=64, F=5632, V=32000), the sLSTM
@@ -17,8 +18,17 @@ before the result line is printed):
               the decode attention (S=1536, mixed kv_len), the chunk
               attention at both of its geometries (SWA ring: S=1152,
               pin=128, window=1024, sink=128; global: S=1536,
-              window=1<<30) and the logits at D=1600, V=32001, in bf16 and
-              f32;
+              window=1<<30) and the logits at D=1600, V=32001; the merged
+              matmul at (M, T, D, F) = (4, 4, 2048, 5632) and (32, 128, 768,
+              3072) with and without bias and at T=77; the group RMS norm
+              at (32, 128, 768) and (4, 128, 2048) with an f32 scale, and
+              at (32, 128, 768) with the scale in x's dtype (the
+              profiler's); the chunkwise mLSTM at
+              the xlstm-1.3b profiler shape (M=B=H=4, S=32, hd=1024, chunk
+              32) and over four chunks of 64 (S=256, hd=128) with
+              gate-neutral padded steps, h and the final C, n, m compared,
+              and junk in the padded steps changing nothing bit for bit;
+              all in bf16 and f32;
 4. serve   -- three main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
               the full tinyllama-1.1b config (dense: decode layer, chunk
@@ -33,10 +43,28 @@ before the result line is printed):
               path against the plain path on the CPU on small f32
               configs (hymba-smoke at 4 layers over 176 prefilled
               positions: the meta prefix and a wrapped SWA ring);
-6. times   -- each kernel, its plain version and (for chunk and decode
-              attention) ``scaled_dot_product_attention`` timed with CUDA
-              events at the serving shapes, beside the bound from bytes
-              and FLOPs.
+6. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
+              at full width: bert-base and xlnet-base at S=128, resnet50
+              and resnext50 at 224x224, bs=1, M in {1, 8, 32} under
+              sequential, concurrent (one CUDA stream per instance),
+              hybrid (P=4, resnext) and netfuse; netfuse's speedup at
+              M=32; merged vs per-instance max |diff| in f32 with TF32 off
+              (held to PAPER_EXACT_TOL); at M=32 the outputs of
+              concurrent and hybrid (P=4) element by element against
+              sequential (the dtype's kernel tolerance); peak memory per
+              strategy and the merge time at M=32;
+7. profile -- the port's kernel profiler on each kernel at the
+              architecture that launches it (dense kernels at
+              tinyllama-1.1b, sLSTM and mLSTM at xlstm-1.3b, decode
+              attention at hymba-1.5b, M=4; the merged matmul also and
+              the group RMS norm at bert-base, M=32), every launch counter
+              set to 0 just before and read just after: the three kernels
+              of this path must have launched;
+8. times   -- each kernel, its plain version and, where one PyTorch call
+              computes the same function, that call (SDPA for chunk and
+              decode attention, ``torch.bmm`` for the merged matmul) timed
+              with CUDA events at the serving / profiler shapes, beside
+              the bound from bytes and FLOPs.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -54,9 +82,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# H100 SXM published peaks (NVIDIA data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+sys.path.insert(0, os.path.join(HERE, "benchmarks"))
 
 # the full-width shapes of tinyllama-1.1b at M=4 instances, 4 slots each
 M, B, S, C = 4, 4, 1024, 32
@@ -75,6 +101,11 @@ YSWA = 128 + 1024
 # bf16 (q, k, v, the attention output, the SwiGLU hidden) and later stages
 # carry that on.  f32: summation order only.
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+# merged vs per-instance outputs of the paper's models in f32, TF32 off,
+# relative to the largest output magnitude: the merged and the single
+# calls may take other cuBLAS / cuDNN algorithms, so only summation order
+# differs (the f32 kernel figure)
+PAPER_EXACT_TOL = 1e-4
 
 
 def log(phase, **kw):
@@ -91,6 +122,10 @@ def abs_err(got, want):
 
 
 def bound_ms(nbytes, flops, dtype):
+    """max(bytes / HBM rate, FLOPs / peak) in ms, from the H100 peaks that
+    ``repro_torch.serving.obs.kernel_profile`` keeps."""
+    from repro_torch.serving.obs.kernel_profile import HBM_BYTES_PER_S, PEAK_FLOPS
+
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_b, t_f), "bytes" if t_b >= t_f else "operations"
 
@@ -216,7 +251,8 @@ def phase_build():
             short = re.search(r"(matvec_partial_kernel|matvec_epilogue_kernel|ring_attn_kernel|"
                               r"ring_combine_kernel|logits_partial_kernel|logits_reduce_kernel|"
                               r"chunk_attn_kernel|slstm_kernel|decode_attn_kernel|"
-                              r"decode_combine_kernel)(I.*?E)?", fn)
+                              r"decode_combine_kernel|fused_matmul_bf16|fused_matmul_f32|"
+                              r"group_rms_kernel|mlstm_state_kernel|mlstm_out_kernel)(I.*?E)?", fn)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
             smem = re.search(r"(\d+) bytes smem", body)
@@ -341,10 +377,210 @@ def phase_kernels(torch, dev):
         assert e <= TOL[dtn], f"{key}: {e}"
         errs[key] = e
         del pre, r
+    errs.update(new_kernel_cases(torch, dev))
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
         tolerance_f32=TOL["float32"], status="ok")
+
+
+def mlstm_inputs(torch, dev, dt, m, b, h, s, hd, seed, ends=None):
+    """q, k, v (m,b,h,s,hd) and the f32 gates (log-forget from a
+    log-sigmoid, input gate N(0,1)); lanes listed in ``ends`` take
+    gate-neutral steps (input -1e30, forget 0) from there on, as the
+    serving junk rule pads a final chunk."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(m, b, h, s, hd, generator=g, device=dev).to(dt) for _ in range(3))
+    lf = torch.nn.functional.logsigmoid(2 + torch.randn(m, b, h, s, generator=g, device=dev))
+    li = torch.randn(m, b, h, s, generator=g, device=dev)
+    for (mi, bi, hi), e in (ends or {}).items():
+        li[mi, bi, hi, e:] = -1e30
+        lf[mi, bi, hi, e:] = 0.0
+    return q, k, v, lf, li
+
+
+def new_kernel_cases(torch, dev):
+    """The merged matmul, the group RMS norm and the chunkwise mLSTM
+    against their plain versions, bf16 and f32."""
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import group_norm as gn
+    from repro_torch.kernels import mlstm_chunk as ml
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(21)
+    # merged matmul: the tinyllama serving shape (skinny), the paper's BERT
+    # MLP shape, an odd T; with and without bias
+    for dtn in ("bfloat16", "float32"):
+        dt = getattr(torch, dtn)
+        for m, t, d, f, bias in ((4, 4, 2048, 5632, False), (4, 4, 2048, 5632, True),
+                                 (32, 128, 768, 3072, False), (32, 128, 768, 3072, True),
+                                 (3, 77, 768, 3072, True)):
+            x = torch.randn(m, t, d, generator=g, device=dev).to(dt)
+            w = (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
+            b = torch.randn(m, f, generator=g, device=dev) if bias else None
+            got, want = fm.fused_matmul_cuda(x, w, b), fm.fused_matmul_plain(x, w, b)
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            key = f"fused_matmul/{dtn}/({m},{t},{d},{f})" + ("/bias" if bias else "")
+            assert got.dtype == dt and e <= TOL[dtn], f"{key}: {e}"
+            errs[key] = e
+        # the scale in f32 and in x's dtype (the profiler's, at bert-base)
+        scales = [((32, 128, 768), torch.float32), ((4, 128, 2048), torch.float32)]
+        for (m, t, d), sdt in scales + ([((32, 128, 768), dt)] if dt != torch.float32 else []):
+            x = (3 * torch.randn(m, t, d, generator=g, device=dev)).to(dt)
+            scale = (1 + 0.1 * torch.randn(m, d, generator=g, device=dev)).to(sdt)
+            got, want = gn.group_rms_norm_cuda(x, scale), gn.group_rms_norm_plain(x, scale)
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            key = f"group_rms_norm/{dtn}/({m},{t},{d})/scale_{str(sdt)[6:]}"
+            assert got.dtype == dt and e <= TOL[dtn], f"{key}: {e}"
+            errs[key] = e
+        # mLSTM: the xlstm-1.3b profiler shape (one chunk of 32, hd 1024) and
+        # four chunks of 64 with gate-neutral padded steps in 5 of 8 lanes
+        ends = {(0, 0, 0): 100, (0, 0, 1): 1, (0, 1, 0): 64, (0, 1, 2): 255, (1, 1, 3): 130}
+        for m, b, h, s, hd, chunk, pad in ((4, 4, 4, 32, 1024, 32, None),
+                                           (2, 2, 4, 256, 128, 64, ends)):
+            q, k, v, lf, li = mlstm_inputs(torch, dev, dt, m, b, h, s, hd, 22, pad)
+            gh, gst = ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=chunk)
+            wh, wst = ml.mlstm_chunkwise_plain(q, k, v, lf, li, chunk=chunk)
+            torch.cuda.synchronize()
+            e = max(rel_err(gh, wh), *(rel_err(a, w_) for a, w_ in zip(gst, wst)))
+            key = f"mlstm_chunkwise/{dtn}/({m},{b},{h},{s},{hd})/chunk{chunk}" + (
+                "/padded" if pad else "")
+            assert gh.dtype == dt and e <= TOL[dtn], f"{key}: {e}"
+            errs[key] = e
+            if pad:
+                # padded steps add exactly nothing: other junk in their q, k,
+                # v leaves h at the valid steps and the final state bit for bit
+                for (mi, bi, hi), e0 in pad.items():
+                    for t_ in (q, k, v):
+                        t_[mi, bi, hi, e0:] = 7 * torch.randn_like(t_[mi, bi, hi, e0:])
+                gh2, gst2 = ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=chunk)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b_) for a, b_ in zip(gst, gst2)), f"{key}: state"
+                for (mi, bi, hi), e0 in pad.items():
+                    assert torch.equal(gh[mi, bi, hi, :e0], gh2[mi, bi, hi, :e0]), key
+                errs[key + "/junk_invariant"] = 0.0
+            del q, k, v, gh, wh, gst, wst
+    return errs
+
+
+def phase_paper(torch, dev, counts=(1, 8, 32), repeats=3):
+    """The paper's evaluation at full width through benchmarks/torch_run.py:
+    bert-base and xlnet-base at S=128, resnet50 and resnext50 at 224x224,
+    bs=1, M in ``counts`` under sequential, concurrent (one CUDA stream per
+    instance), hybrid (P=4, resnext) and netfuse; merged vs per-instance in
+    f32 with TF32 off; peak memory per strategy and the merge time at
+    M=32."""
+    import torch_run as tr
+
+    models = tr.bench_models(smoke=False)
+    times = tr.fig5_inference_time(models, dev, counts=counts, repeats=repeats,
+                                   hybrid={"resnext50": (4,)})
+    top = max(counts)
+    for name in models:
+        t = {s: times[name, top, s] for (n, mm, s) in times if n == name and mm == top}
+        assert all(v > 0 for v in t.values()), (name, t)
+        log("paper", model=name, m=top, **{f"{s}_ms": f"{v / 1e3:.3f}" for s, v in t.items()},
+            netfuse_speedup_vs_sequential=f"{t['sequential'] / t['netfuse']:.2f}x",
+            netfuse_speedup_vs_concurrent=f"{t['concurrent'] / t['netfuse']:.2f}x")
+    for name, (kind, cfg) in models.items():
+        profile_paper_cell(torch, tr, name, tr.Bench(kind, cfg, dev), top)
+    exact = tr.tab_exactness(models, dev)
+    for name, (a, r) in exact.items():
+        assert r <= PAPER_EXACT_TOL, f"tab_exact {name}: merged vs per-instance {r:.2e}"
+        log("paper", model=name, tab_exact_max_abs_diff=f"{a:.2e}", rel=f"{r:.2e}",
+            tolerance=PAPER_EXACT_TOL)
+    for name in ("bert", "resnext50"):
+        for (mm, s), (params_mb, peak_mb) in tr.fig7_memory(models, dev, counts=[top],
+                                                            name=name).items():
+            log("paper", model=name, m=mm, strategy=s, params_mb=f"{params_mb:.1f}",
+                peak_allocated_mb=f"{peak_mb:.1f}")
+    merge = tr.tab_merge_overhead(models, dev, counts=(top,))
+    log("paper", model="resnext50", m=top, merge_ms=f"{merge[top] / 1e3:.3f}")
+    return times
+
+
+def profile_paper_cell(torch, tr, name, bench, m):
+    """Where a paper cell's time goes: one sequential and one netfuse round
+    at M=m under torch.profiler -- device busy share of the wall and the
+    top kernels.  Then the multi-stream strategies (concurrent, hybrid
+    P=4) are held element by element against sequential: the same kernels
+    on the same inputs, so any gap beyond the dtype's tolerance is a
+    missing wait or an early reuse of memory across streams."""
+    from torch.profiler import ProfilerActivity, profile
+
+    merged = bench.init(m)
+    x = bench.inputs(m, 1)
+    with torch.inference_mode():
+        strat = tr.strategies(bench.apply, tr.instances(merged, m), merged, x, bench.dev,
+                              hybrid=(4,))
+        for s in ("sequential", "netfuse"):
+            strat[s]()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                strat[s]()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ev = [e for e in prof.key_averages() if device_us(e) > 0]
+            busy = device_busy_s(prof)
+            log("profile", run=f"paper/{name}/m{m}/{s}", wall_ms=round(1e3 * wall, 2),
+                device_busy_ms=round(1e3 * busy, 2), device_idle_share=f"{1 - busy / wall:.1%}",
+                kernels=sum(e.count for e in ev))
+            for e in sorted(ev, key=device_us, reverse=True)[:3]:
+                log("profile", run=f"paper/{name}/m{m}/{s}", kernel=e.key[:60], calls=e.count,
+                    device_ms=round(device_us(e) / 1e3, 2))
+        want = torch.stack(strat["sequential"]())
+        for s in ("concurrent", "hybrid_4"):
+            got = torch.stack(strat[s]())
+            torch.cuda.synchronize()
+            tol = TOL[str(want.dtype)[6:]]
+            e = rel_err(got, want)
+            assert got.shape == want.shape and e <= tol, f"paper {name} m{m} {s}: {e:.2e}"
+            log("paper", model=name, m=m, strategy=s, vs_sequential_max_abs_diff=
+                f"{abs_err(got, want):.2e}", rel=f"{e:.2e}", tolerance=tol)
+    del merged, x, strat
+    torch.cuda.empty_cache()
+
+
+def phase_profile(torch, dev):
+    """The port's kernel profiler (serving/obs/kernel_profile.py) on each
+    kernel at the architecture that launches it, every launch counter set
+    to 0 just before and read just after: the dense kernels at
+    tinyllama-1.1b, the sLSTM and mLSTM at xlstm-1.3b, the decode attention
+    at hymba-1.5b (M=4, the reference's serving geometry: 4 slots, context
+    128, chunk 32, 4 lanes), the merged matmul and the group RMS norm at
+    bert-base M=32 (bs 1, S 128)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.serving.obs import kernel_profile as kp
+
+    plan = (("tinyllama-1.1b", M, ("decode_layer", "logits_sample", "chunk_prefill_attn",
+                                   "fused_matmul")),
+            ("xlstm-1.3b", M, ("slstm_cell", "mlstm_chunk")),
+            ("hymba-1.5b", M, ("decode_attn",)))
+    ops.reset_launches()
+    rows = []
+    for arch, m, kernels in plan:
+        cfg = registry.get_config(arch).with_(num_instances=m)
+        rows += [dict(r, arch=arch) for r in
+                 kp.profile_serving_kernels(cfg, kernels=kernels, device=dev, repeats=5)]
+    cfg = registry.get_config("bert-base").with_(num_instances=32)
+    for k, shape in kp.paper_shapes(cfg).items():
+        rows.append(dict(kp.profile_kernel(k, dtype=cfg.dtype, device=dev, repeats=5, **shape),
+                         arch="bert-base"))
+    launches = ops.launches()
+    kp.validate_profile(rows)
+    for r in rows:
+        assert r["backend"] == "cuda" and not r["plain"], r
+        log("profile", arch=r["arch"], kernel=r["kernel"], shape=repr(r["shape"]),
+            ms=f"{1e3 * r['wall_s']:.4f}", bound_ms=f"{1e3 * r['bound_s']:.4f}",
+            bound=r["bound"], of_roofline=f"{r['frac_of_roofline']:.1%}")
+    for name in ("fused_matmul", "group_rms_norm", "mlstm_chunkwise"):
+        assert launches[name] > 0, f"{name} was never launched by the profiler"
+    log("profile", launches=json.dumps(launches).replace(" ", ""))
+    return launches
 
 
 def make_server(torch, dev, cfg, seed, **kw):
@@ -459,7 +695,23 @@ def phase_serve(torch, dev):
 
 
 def device_us(e):
-    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    """An event's own device time in us (an op's total would count its
+    kernels a second time under the op)."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_busy_s(prof):
+    """Seconds in which at least one kernel ran: the union of the device
+    events' time ranges, so overlapping streams count once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
 
 
 def profile_serve(torch, srv, reqs, arch):
@@ -476,7 +728,7 @@ def profile_serve(torch, srv, reqs, arch):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ev = [e for e in prof.key_averages() if device_us(e) > 0]
-    busy = sum(device_us(e) for e in ev) / 1e6
+    busy = device_busy_s(prof)
     log("profile", run=f"serve/{arch}", wall_s=round(wall, 3), device_busy_s=round(busy, 3),
         device_idle_share=f"{1 - busy / wall:.1%}")
     for e in sorted(ev, key=device_us, reverse=True)[:8]:
@@ -579,7 +831,7 @@ def time_queued_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def phase_times(torch, dev, by_path):
+def phase_times(torch, dev, by_path, profile_launches):
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import chunk_prefill_attn as cpa
@@ -750,11 +1002,91 @@ def phase_times(torch, dev, by_path):
                      device_ms=device_ms))
     del sets, lib_in
 
+    rows += new_time_rows(torch, dev, profile_launches)
     for r in rows:
         log("times", name=r["name"], ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
             library_ms=r["library_ms"], of_bound=f"{r['bound_ms'] / r['ms']:.1%}",
             **({"device_ms": f"{r['device_ms']:.4f}"} if "device_ms" in r else {}))
+    return rows
+
+
+def new_time_rows(torch, dev, launches):
+    """Times rows of the merged matmul, the group RMS norm and the chunkwise
+    mLSTM at the profiler's shapes; ``launches`` are the counts of the
+    profile phase (their main path)."""
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import group_norm as gn
+    from repro_torch.kernels import mlstm_chunk as ml
+    from repro_torch.serving.obs import kernel_profile as kp
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(31)
+    bf16 = torch.bfloat16
+
+    # merged matmul: the tinyllama serving shape in the row, the BERT shape
+    # beside it; 8 weight copies rotate so w comes from HBM, not L2
+    def matmul_time(m, t, d, f, copies):
+        sets = [((torch.randn(m, t, d, generator=g, device=dev)).to(bf16),
+                 (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(bf16))
+                for _ in range(copies)]
+        err = abs_err(fm.fused_matmul_cuda(*sets[0]), fm.fused_matmul_plain(*sets[0]))
+        it = iter(range(10 ** 9))
+        ms = time_ms(torch, lambda: fm.fused_matmul_cuda(*sets[next(it) % copies]))
+        plain = time_ms(torch, lambda: fm.fused_matmul_plain(*sets[next(it) % copies]), reps=5)
+        lib = time_ms(torch, lambda: torch.bmm(*sets[next(it) % copies]))
+        nbytes = 2 * (m * t * d + m * d * f + m * t * f)
+        return err, ms, plain, lib, bound_ms(nbytes, 2 * m * t * d * f, "bfloat16")
+
+    err, ms, plain, lib, (bms, by) = matmul_time(M, B, D, F, 8)
+    b_err, b_ms, b_plain, b_lib, (b_bms, b_by) = matmul_time(32, 128, 768, 3072, 4)
+    rows.append(dict(name="fused_matmul", route="cuda", source="src/repro_torch/csrc/fused_matmul.cu",
+                     replaces="src/repro/kernels/fused_matmul.py:24",
+                     launches=launches["fused_matmul"], max_abs_err=err, ms=ms, plain_ms=plain,
+                     bound_ms=bms, bound_by=by, library_ms=lib,
+                     shape=f"({M},{B},{D})@({M},{D},{F}) bf16", bert_ms=b_ms,
+                     bert_plain_ms=b_plain, bert_library_ms=b_lib, bert_bound_ms=b_bms,
+                     bert_bound_by=b_by, bert_max_abs_err=b_err,
+                     library="torch.bmm"))
+    log("times", name="fused_matmul", shape="(32,128,768)@(32,768,3072) bf16",
+        ms=f"{b_ms:.4f}", plain_ms=f"{b_plain:.4f}", library_ms=f"{b_lib:.4f}",
+        bound_ms=f"{b_bms:.4f}", bound_by=b_by, of_bound=f"{b_bms / b_ms:.1%}")
+
+    # group RMS norm at the BERT shape: launch latency dominates, so the
+    # device time of calls queued behind a spin kernel stands beside it
+    x = (3 * torch.randn(32, 128, 768, generator=g, device=dev)).to(bf16)
+    scale = (1 + 0.1 * torch.randn(32, 768, generator=g, device=dev)).to(bf16)
+    err = abs_err(gn.group_rms_norm_cuda(x, scale), gn.group_rms_norm_plain(x, scale))
+    ms = time_ms(torch, lambda: gn.group_rms_norm_cuda(x, scale))
+    device_ms = time_queued_ms(torch, lambda: gn.group_rms_norm_cuda(x, scale))
+    plain = time_ms(torch, lambda: gn.group_rms_norm_plain(x, scale))
+    bms, by = bound_ms(2 * x.numel() * 2 + scale.numel() * 2, 4 * x.numel(), "float32")
+    rows.append(dict(name="group_rms_norm", route="cuda", source="src/repro_torch/csrc/group_norm.cu",
+                     replaces="src/repro/kernels/group_norm.py:17",
+                     launches=launches["group_rms_norm"], max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     library="none: F.rms_norm takes one (D,) weight, not M of them",
+                     shape="(32,128,768) bf16, bf16 scale", device_ms=device_ms))
+    del x
+
+    # chunkwise mLSTM at the xlstm-1.3b profiler shape
+    q, k, v, lf, li = mlstm_inputs(torch, dev, bf16, 4, 4, 4, 32, 1024, 32)
+    gh, gst = ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=32)
+    wh, wst = ml.mlstm_chunkwise_plain(q, k, v, lf, li, chunk=32)
+    err = max(abs_err(a, w_) for a, w_ in zip((gh,) + gst, (wh,) + wst))
+    del gh, gst, wh, wst
+    ms = time_ms(torch, lambda: ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=32), reps=10)
+    plain = time_ms(torch, lambda: ml.mlstm_chunkwise_plain(q, k, v, lf, li, chunk=32), reps=5)
+    lanes, s, hd = 64, 32, 1024
+    nbytes = (3 * q.numel() * 2 + 2 * lf.numel() * 4 + q.numel() * 2
+              + lanes * (hd * hd + hd + 1) * 4)
+    bms, by = bound_ms(nbytes, kp.mlstm_chunkwise_flops(lanes, s, hd, 32), "float32")
+    rows.append(dict(name="mlstm_chunkwise", route="cuda", source="src/repro_torch/csrc/mlstm_chunk.cu",
+                     replaces="src/repro/kernels/mlstm_chunk.py:29",
+                     launches=launches["mlstm_chunkwise"], max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     library="none: no one PyTorch call computes the chunkwise scan",
+                     shape="qkv (4,4,4,32,1024) bf16, chunk 32"))
     return rows
 
 
@@ -768,14 +1100,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    phase_device(torch)
-    phase_build()
-    phase_kernels(torch, dev)
-    torch.cuda.empty_cache()
-    launches = phase_serve(torch, dev)
-    phase_check(torch, dev)
-    torch.cuda.empty_cache()
-    rows = phase_times(torch, dev, launches)
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log("phase", name=name, seconds=round(time.perf_counter() - t, 1))
+        return out
+
+    timed("device", phase_device, torch)
+    timed("build", phase_build)
+    timed("kernels", phase_kernels, torch, dev)
+    launches = timed("serve", phase_serve, torch, dev)
+    timed("check", phase_check, torch, dev)
+    timed("paper", phase_paper, torch, dev)
+    profile_launches = timed("profile", phase_profile, torch, dev)
+    rows = timed("times", phase_times, torch, dev, launches, profile_launches)
     log("done", seconds=round(time.perf_counter() - t0, 1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

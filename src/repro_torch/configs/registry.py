@@ -3,7 +3,8 @@ of ``repro.configs.registry``).
 
 The id list is the reference's, so an unknown id and a known but not yet
 ported one fail with different messages; the port has the config modules
-of the dense family, xlstm-1.3b (ssm) and hymba-1.5b (hybrid) so far.
+of the dense family, xlstm-1.3b (ssm), hymba-1.5b (hybrid) and the paper's
+four evaluation models (cnn and encoder) so far.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ ALL = {**ASSIGNED, **PAPER_MODELS}
 
 # the archs whose config modules (and model family) the port has
 PORTED = ("tinyllama-1.1b", "deepseek-67b", "granite-3-2b", "qwen1.5-0.5b",
-          "xlstm-1.3b", "hymba-1.5b")
+          "xlstm-1.3b", "hymba-1.5b", *PAPER_MODELS)
 
 LONG_CONTEXT_WINDOW = 8192
 

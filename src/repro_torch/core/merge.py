@@ -19,10 +19,12 @@ def _plain(tree):
     return tree.tree() if isinstance(tree, MergedParams) else tree
 
 
-def _structure(tree) -> tuple:
+def _structure(tree):
     if isinstance(tree, dict):
         return tuple((k, _structure(v)) for k, v in sorted(tree.items()))
-    return tuple(tree.shape)
+    if isinstance(tree, (list, tuple)):
+        return ("list",) + tuple(_structure(v) for v in tree)
+    return None if tree is None else tuple(tree.shape)
 
 
 def stack_instances(params_list: Sequence[Tree]) -> Tree:
@@ -42,6 +44,17 @@ def unstack_instances(merged: Tree) -> list[Tree]:
     merged = _plain(merged)
     return [tree_map(lambda x, i=i: x[i], merged)
             for i in range(num_instances(merged))]
+
+
+def concat_instances(merged_a: Tree, merged_b: Tree) -> Tree:
+    """Merge two already-merged models (M_a + M_b instances): grouped ops
+    compose (paper section 3.1)."""
+    return tree_map(lambda a, b: torch.cat([a, b]), _plain(merged_a), _plain(merged_b))
+
+
+def add_instance_axis(params: Tree) -> Tree:
+    """Lift a plain (unmerged) tree to the M=1 instance-axis form (views)."""
+    return tree_map(lambda x: x[None], _plain(params))
 
 
 def num_instances(merged: Tree) -> int:

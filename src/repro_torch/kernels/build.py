@@ -19,7 +19,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("decode_layer", "chunk_prefill_attn", "slstm_cell", "decode_attn")
+SOURCES = ("decode_layer", "chunk_prefill_attn", "slstm_cell", "decode_attn", "fused_matmul",
+           "group_norm", "mlstm_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

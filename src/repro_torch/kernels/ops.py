@@ -12,6 +12,9 @@ from __future__ import annotations
 from repro_torch.kernels import chunk_prefill_attn as _cpa
 from repro_torch.kernels import decode_attn as _da
 from repro_torch.kernels import decode_layer as _dl
+from repro_torch.kernels import fused_matmul as _fm
+from repro_torch.kernels import group_norm as _gn
+from repro_torch.kernels import mlstm_chunk as _ml
 from repro_torch.kernels import slstm_cell as _sc
 
 
@@ -43,7 +46,12 @@ _slstm = Kernel("slstm_cell", _sc.slstm_cell_plain, _sc.slstm_cell_cuda)
 _decode_attn = Kernel("decode_attention", _da.decode_attention_plain,
                       _da.decode_attention_cuda)
 
-KERNELS = (_decode_layer, _logits, _chunk, _slstm, _decode_attn)
+_fused_matmul = Kernel("fused_matmul", _fm.fused_matmul_plain, _fm.fused_matmul_cuda)
+_group_rms = Kernel("group_rms_norm", _gn.group_rms_norm_plain, _gn.group_rms_norm_cuda)
+_mlstm = Kernel("mlstm_chunkwise", _ml.mlstm_chunkwise_plain, _ml.mlstm_chunkwise_cuda)
+
+KERNELS = (_decode_layer, _logits, _chunk, _slstm, _decode_attn, _fused_matmul, _group_rms,
+           _mlstm)
 
 
 def reset_launches() -> None:
@@ -91,3 +99,20 @@ def decode_attention(q, k, v, kv_len):
     """Single-token GQA attention over the first ``kv_len`` (M, B) slots
     of k, v (M, B, S, KVH, hd); 1 <= kv_len <= S.  Returns (M, B, H, hd)."""
     return _decode_attn(q, q, k, v, kv_len)
+
+
+def fused_matmul(x, w, b=None):
+    """The NetFuse merged matmul x (M, T, D) @ w (M, D, F) [+ b (M, F)],
+    f32 sums, in x's dtype."""
+    return _fused_matmul(x, x, w, b)
+
+
+def group_rms_norm(x, scale, *, eps: float = 1e-5):
+    """Per-instance RMS norm of x (M, T, D) with scale (M, D), f32 stats."""
+    return _group_rms(x, x, scale, eps=eps)
+
+
+def mlstm_chunkwise(q, k, v, lf, li, *, chunk: int = 64):
+    """Chunkwise mLSTM from zero state over q, k, v (M, B, H, S, hd).
+    Returns (h, (C, n, m))."""
+    return _mlstm(q, q, k, v, lf, li, chunk=chunk)

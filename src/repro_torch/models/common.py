@@ -163,6 +163,12 @@ def merge_instances(params_list: list) -> MergedParams:
         lambda *ls: torch.cat(ls[:-1], dim=ls[-1]), *trees))
 
 
+def instance_views(params, start: int, n: int = 1) -> MergedParams:
+    """Instances ``start .. start + n`` of a merged model as a model of n
+    instances whose leaves are views of the merged ones (no copy)."""
+    return MergedParams(_map_params(lambda l, ax: l.narrow(ax, start, n), _as_tree(params)))
+
+
 def gather_instances(params, idx) -> MergedParams:
     """Gather instance rows ``idx`` (k,) into a model whose instances axis
     is k.  This copies every weight; the serving prefill uses per-lane

@@ -85,6 +85,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (y * s).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Merged layer norm (group norm with G=M, instance-axis form): stats
+    in f32 (population variance), the result in x's dtype."""
+    y = fused_ops.merged_layer_norm(x.float(), scale.float(),
+                                    None if bias is None else bias.float(), eps=eps)
+    return y.to(x.dtype)
+
+
 def embed(ids: torch.Tensor, table: torch.Tensor, dtype: torch.dtype,
           instances: list[int] | None = None) -> torch.Tensor:
     """ids (M, B, S), table (M_t, V, D) -> (M, B, S, D) in ``dtype``."""
@@ -101,6 +110,11 @@ def unembed(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
 def swiglu_mlp(x, wg, wu, wd, groups: LaneGroups | None = None):
     h = F.silu(linear(x, wg, groups=groups)) * linear(x, wu, groups=groups)
     return linear(h, wd, groups=groups)
+
+
+def gelu_mlp(x, w1, b1, w2, b2):
+    """The encoder's MLP; ``jax.nn.gelu``'s default is the tanh form."""
+    return linear(F.gelu(linear(x, w1, b1), approximate="tanh"), w2, b2)
 
 
 def rope_tables(pos: torch.Tensor, hd: int, theta: float, dtype: torch.dtype):

@@ -8,7 +8,9 @@ from repro.configs import registry as jreg
 from repro_torch.configs import registry as treg
 
 DENSE = ["tinyllama-1.1b", "qwen1.5-0.5b", "granite-3-2b", "deepseek-67b"]
-PORTED = DENSE + ["xlstm-1.3b", "hymba-1.5b"]
+SERVED = DENSE + ["xlstm-1.3b", "hymba-1.5b"]
+PAPER = ["resnet50", "resnext50", "bert-base", "xlnet-base"]
+PORTED = SERVED + PAPER
 
 
 def _fields(cfg):
@@ -40,7 +42,24 @@ def test_hybrid_config_matches_reference(smoke):
         getattr(jreg, get)("hymba-1.5b"))
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PAPER)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_paper_config_matches_reference(arch, smoke):
+    get = "get_smoke_config" if smoke else "get_config"
+    assert dataclasses.asdict(getattr(treg, get)(arch)) == _fields(getattr(jreg, get)(arch))
+
+
+@pytest.mark.parametrize("arch", PAPER)
+def test_paper_models_run_no_serving_shape(arch):
+    """As in the reference, the cnn and encoder families run no shape of
+    SHAPES: they are called through their modules."""
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        assert treg.supported(arch, shape) is jreg.supported(arch, shape) is False
+        with pytest.raises(ValueError):
+            treg.config_for_shape(arch, shape)
+
+
+@pytest.mark.parametrize("arch", SERVED)
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k", "long_500k"])
 def test_config_for_shape_matches_reference(arch, shape):
     want = _fields(jreg.config_for_shape(arch, shape, num_instances=4))

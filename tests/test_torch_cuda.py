@@ -19,6 +19,9 @@ import torch
 from repro_torch.kernels import chunk_prefill_attn as cpa
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import decode_layer as dl
+from repro_torch.kernels import fused_matmul as fm
+from repro_torch.kernels import group_norm as gn
+from repro_torch.kernels import mlstm_chunk as ml
 from repro_torch.kernels import ops
 from repro_torch.kernels import slstm_cell as sc
 
@@ -263,3 +266,94 @@ def test_cuda_tensors_count_launches(dev):
     ops.decode_attention(torch.randn(1, 1, 4, 8, device=dev), kv[:, :, :16], kv[:, :, :16],
                          torch.tensor([[3]], dtype=torch.int32, device=dev))
     assert ops.launches()["decode_attention"] == 1
+    ops.fused_matmul(torch.randn(2, 3, 16, device=dev), torch.randn(2, 16, 8, device=dev))
+    assert ops.launches()["fused_matmul"] == 1
+    ops.group_rms_norm(torch.randn(2, 3, 16, device=dev), torch.ones(2, 16, device=dev))
+    assert ops.launches()["group_rms_norm"] == 1
+    q = torch.randn(1, 1, 1, 8, 64, device=dev)
+    ops.mlstm_chunkwise(q, q, q, torch.zeros(1, 1, 1, 8, device=dev),
+                        torch.zeros(1, 1, 1, 8, device=dev), chunk=4)
+    assert ops.launches()["mlstm_chunkwise"] == 1
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,t,d,f,bias", [(4, 4, 2048, 5632, False), (3, 128, 768, 3072, True),
+                                          (2, 77, 64, 200, True), (1, 1, 8, 8, False),
+                                          (5, 130, 96, 72, False)])
+def test_fused_matmul_kernel(dev, dt, m, t, d, f, bias):
+    """The skinny serving shape, the BERT shape (cut to 3 instances), odd T
+    and F not a multiple of the 64-wide tile."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(m, t, d, generator=g, device=dev).to(dt)
+    w = (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
+    b = torch.randn(m, f, generator=g, device=dev) if bias else None
+    got = fm.fused_matmul_cuda(x, w, b)
+    want = fm.fused_matmul_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and _err(got, want) <= _tol(dt)
+
+
+@pytest.mark.parametrize("dt,sdt", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("m,t,d", [(32, 128, 768), (4, 128, 2048), (3, 5, 8), (2, 9, 8192)])
+def test_group_rms_norm_kernel(dev, dt, sdt, m, t, d):
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (3 * torch.randn(m, t, d, generator=g, device=dev)).to(dt)
+    scale = (1 + 0.1 * torch.randn(m, d, generator=g, device=dev)).to(sdt)
+    got = gn.group_rms_norm_cuda(x, scale)
+    want = gn.group_rms_norm_plain(x, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and _err(got, want) <= _tol(dt)
+
+
+def _mlstm_inputs(dev, dt, m, b, h, s, hd, seed=2, ends=None):
+    """q, k, v and gates with the serving scales (k / sqrt(hd) is applied
+    inside); lanes listed in ``ends`` take gate-neutral steps from there on
+    (input -1e30, forget 0) with junk q, k, v."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(m, b, h, s, hd, generator=g, device=dev).to(dt) for _ in range(3))
+    lf = torch.nn.functional.logsigmoid(2 + torch.randn(m, b, h, s, generator=g, device=dev))
+    li = torch.randn(m, b, h, s, generator=g, device=dev)
+    for (mi, bi, hi), e in (ends or {}).items():
+        li[mi, bi, hi, e:] = -1e30
+        lf[mi, bi, hi, e:] = 0.0
+    return q, k, v, lf, li
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,b,h,s,hd,chunk", [(2, 1, 2, 32, 1024, 32), (1, 2, 3, 256, 128, 64),
+                                              (1, 1, 1, 24, 64, 16), (2, 2, 2, 40, 64, 8)])
+def test_mlstm_chunkwise_kernel(dev, dt, m, b, h, s, hd, chunk):
+    """h and the final C, n, m against the plain version: xlstm-1.3b's
+    hd=1024 in one chunk, hd=128 over four chunks of 64, a chunk of 16
+    clamped to 12 on S=24 (not a multiple of the kernels' 16-row thread
+    grid), five chunks of 8."""
+    q, k, v, lf, li = _mlstm_inputs(dev, dt, m, b, h, s, hd)
+    gh, gst = ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=chunk)
+    wh, wst = ml.mlstm_chunkwise_plain(q, k, v, lf, li, chunk=chunk)
+    torch.cuda.synchronize()
+    assert gh.dtype == dt
+    assert _err(gh, wh) <= _tol(dt)
+    for a, w in zip(gst, wst):
+        assert _err(a, w) <= _tol(dt)
+
+
+def test_mlstm_chunkwise_kernel_padded_steps_exact(dev):
+    """Gate-neutral padded steps add exactly nothing: other junk in their
+    q, k, v leaves h at the valid steps and the final state bit for bit."""
+    ends = {(0, 0, 0): 100, (0, 0, 1): 1, (0, 1, 0): 64, (0, 1, 1): 255}
+    q, k, v, lf, li = _mlstm_inputs(torch.device("cuda"), torch.bfloat16, 1, 2, 2, 256, 128,
+                                    ends=ends)
+    h1, st1 = ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=64)
+    wh, wst = ml.mlstm_chunkwise_plain(q, k, v, lf, li, chunk=64)
+    for (mi, bi, hi), e in ends.items():
+        for t in (q, k, v):
+            t[mi, bi, hi, e:] = 7 * torch.randn_like(t[mi, bi, hi, e:])
+    h2, st2 = ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=64)
+    torch.cuda.synchronize()
+    for (mi, bi, hi), e in ends.items():
+        assert torch.equal(h1[mi, bi, hi, :e], h2[mi, bi, hi, :e])
+    for a, b_ in zip(st1, st2):
+        assert torch.equal(a, b_)
+    assert _err(h1, wh) <= 3e-2 and all(_err(a, w) <= 3e-2 for a, w in zip(st1, wst))

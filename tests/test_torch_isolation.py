@@ -15,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _sources():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + sorted((REPO / "benchmarks").glob("torch_*.py")) + [REPO / "chip_smoke.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(REPO)))

@@ -16,6 +16,9 @@ from repro.kernels import ref
 from repro_torch.kernels import chunk_prefill_attn as cpa
 from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import decode_layer as dl
+from repro_torch.kernels import fused_matmul as fm
+from repro_torch.kernels import group_norm as gn
+from repro_torch.kernels import mlstm_chunk as ml
 from repro_torch.kernels import ops
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -169,6 +172,72 @@ def test_cpu_tensors_route_to_plain_without_launches():
     assert torch.equal(
         ops.decode_attention(q[:, :, 0], kv, kv, torch.tensor([[5]], dtype=torch.int32)),
         da.decode_attention_plain(q[:, :, 0], kv, kv, torch.tensor([[5]], dtype=torch.int32)))
+    x, w = torch.randn(2, 3, 8), torch.randn(2, 8, 4)
+    assert torch.equal(ops.fused_matmul(x, w), fm.fused_matmul_plain(x, w))
+    assert torch.equal(ops.group_rms_norm(x, torch.ones(2, 8)),
+                       gn.group_rms_norm_plain(x, torch.ones(2, 8)))
+    qm = torch.randn(1, 1, 1, 4, 8)
+    gates = torch.zeros(1, 1, 1, 4)
+    assert torch.equal(ops.mlstm_chunkwise(qm, qm, qm, gates, gates, chunk=2)[0],
+                       ml.mlstm_chunkwise_plain(qm, qm, qm, gates, gates, chunk=2)[0])
     assert ops.launches() == {"decode_layer": 0, "logits_sample": 0,
                               "chunk_prefill_attention": 0, "slstm_cell": 0,
-                              "decode_attention": 0}
+                              "decode_attention": 0, "fused_matmul": 0,
+                              "group_rms_norm": 0, "mlstm_chunkwise": 0}
+
+
+@pytest.mark.parametrize("m,t,d,f,bias", [(2, 5, 16, 24, False), (3, 1, 32, 8, True),
+                                          (1, 7, 8, 40, True)])
+def test_fused_matmul_plain_matches_ref(m, t, d, f, bias):
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((m, t, d)).astype(np.float32)
+    w = rng.standard_normal((m, d, f)).astype(np.float32)
+    b = rng.standard_normal((m, f)).astype(np.float32) if bias else None
+    want = ref.fused_matmul(jnp.asarray(x), jnp.asarray(w),
+                            None if b is None else jnp.asarray(b))
+    got = ops.fused_matmul(_t(x), _t(w), None if b is None else _t(b))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_fused_matmul_plain_casts_weights_to_x_dtype():
+    """w in x's dtype, the sum in f32, the bias in f32, one cast at the
+    end (``ref.fused_matmul``): bf16 x with f32 weights rounds the weights."""
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((2, 3, 16)).astype(np.float32)
+    w = rng.standard_normal((2, 16, 8)).astype(np.float32)
+    b = rng.standard_normal((2, 8)).astype(np.float32)
+    want = ref.fused_matmul(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b))
+    got = fm.fused_matmul_plain(_t(x).bfloat16(), _t(w), _t(b))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,t,d", [(2, 5, 16), (3, 1, 64), (1, 9, 8)])
+def test_group_rms_norm_plain_matches_ref(m, t, d):
+    rng = np.random.default_rng(23)
+    x = (3 * rng.standard_normal((m, t, d))).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal((m, d))).astype(np.float32)
+    want = ref.group_rms_norm(jnp.asarray(x), jnp.asarray(scale))
+    np.testing.assert_allclose(ops.group_rms_norm(_t(x), _t(scale)).numpy(), np.asarray(want),
+                               **TOL)
+
+
+@pytest.mark.parametrize("s,chunk,padded", [(16, 16, False), (24, 8, True), (20, 8, False)])
+def test_mlstm_chunkwise_plain_matches_ref(s, chunk, padded):
+    """h and the final (C, n, m) against ``ref.mlstm_chunkwise`` from zero
+    state, one or several chunks (chunk 8 on S=20 clamps to 5), with
+    gate-neutral padded steps (input -1e30, forget 0) in one lane."""
+    rng = np.random.default_rng(24)
+    m, b, h, hd = 2, 2, 2, 8
+    q, k, v = (rng.standard_normal((m, b, h, s, hd)).astype(np.float32) for _ in range(3))
+    lf = np.log(1 / (1 + np.exp(-(2 + rng.standard_normal((m, b, h, s)))))).astype(np.float32)
+    li = rng.standard_normal((m, b, h, s)).astype(np.float32)
+    if padded:
+        li[0, 1, 1, 13:] = -1e30
+        lf[0, 1, 1, 13:] = 0.0
+    wh, (wc, wn, wm) = ref.mlstm_chunkwise(*(jnp.asarray(a) for a in (q, k, v, lf, li)),
+                                           chunk=chunk)
+    gh, (gc, gn_, gm) = ops.mlstm_chunkwise(*(_t(a) for a in (q, k, v, lf, li)), chunk=chunk)
+    for got, want in ((gh, wh), (gc, wc), (gn_, wn), (gm, wm)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
