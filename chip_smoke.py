@@ -28,6 +28,9 @@ non-zero before the result line is printed):
               32) and over four chunks of 64 (S=256, hd=128) with
               gate-neutral padded steps, h and the final C, n, m compared,
               and junk in the padded steps changing nothing bit for bit;
+              the attention and FFN phases of the sharded decode layer at a
+              rank's widths of tinyllama-1.1b at TP=2 (H=16, KVH=2, F=2816)
+              over a wrapped ring with lanes frozen by ``alive``;
               all in bf16 and f32;
 4. serve   -- three main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
@@ -43,7 +46,16 @@ non-zero before the result line is printed):
               path against the plain path on the CPU on small f32
               configs (hymba-smoke at 4 layers over 176 prefilled
               positions: the meta prefix and a wrapped SWA ring);
-6. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
+6. tp      -- tensor-parallel serving over 2 ranks, one process each, sharing
+              the card (gloo): the full tinyllama-1.1b (M=4, 16 requests of
+              16-512 tokens, 32 new, K=8) with every launch counter set to 0
+              just before and read just after on each rank -- the attention
+              and FFN phase kernels 22 times each per decode step, the
+              whole-layer kernel never; the ranks' streams identical; K=1 ==
+              K=8 at 4 layers; the f32 smoke config's cache shards, gathered
+              logits and greedy tokens against the single-device plain path
+              on the CPU;
+7. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
               at full width: bert-base and xlnet-base at S=128, resnet50
               and resnext50 at 224x224, bs=1, M in {1, 8, 32} under
               sequential, concurrent (one CUDA stream per instance),
@@ -53,18 +65,19 @@ non-zero before the result line is printed):
               concurrent and hybrid (P=4) element by element against
               sequential (the dtype's kernel tolerance); peak memory per
               strategy and the merge time at M=32;
-7. profile -- the port's kernel profiler on each kernel at the
+8. profile -- the port's kernel profiler on each kernel at the
               architecture that launches it (dense kernels at
               tinyllama-1.1b, sLSTM and mLSTM at xlstm-1.3b, decode
               attention at hymba-1.5b, M=4; the merged matmul also and
               the group RMS norm at bert-base, M=32), every launch counter
               set to 0 just before and read just after: the three kernels
               of this path must have launched;
-8. times   -- each kernel, its plain version and, where one PyTorch call
+9. times   -- each kernel, its plain version and, where one PyTorch call
               computes the same function, that call (SDPA for chunk and
               decode attention, ``torch.bmm`` for the merged matmul) timed
-              with CUDA events at the serving / profiler shapes, beside
-              the bound from bytes and FLOPs.
+              with CUDA events at the serving / profiler shapes (the two
+              phase kernels at a rank's shapes at TP=2), beside the bound
+              from bytes and FLOPs.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -94,6 +107,13 @@ XH, XHD = 4, 512
 # prompts of up to 512 tokens with 32 new ones
 YH, YKVH, YD, YV, YS = 25, 5, 1600, 32001, 1536
 YSWA = 128 + 1024
+# tensor parallelism: TP ranks share the card; a rank's share of tinyllama at
+# TP=2 is 16 query heads over 2 kv heads and 2816 of d_ff
+TP = 2
+TH, TKVH, TF = H // TP, KVH // TP, F // TP
+# requests of the TP serve cell (cut before anything else to keep the script
+# inside its time)
+TP_REQUESTS = 16
 
 # bf16 tolerance, relative to the largest magnitude of the plain output:
 # one bf16 ulp is 2^-8 = 3.9e-3; the kernels sum in another order than
@@ -117,6 +137,14 @@ def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
 
 
+def part_err(got, want):
+    """Error relative to the largest magnitude of ``want`` itself, with no
+    floor: for a partial with no residual added (an out-proj or down-proj
+    partial of a rank), whose values lie far below 1."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
 def abs_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
@@ -135,22 +163,24 @@ def bound_ms(nbytes, flops, dtype):
 # ---------------------------------------------------------------------------
 
 
-def layer_inputs(torch, dev, dt, seed, bias=False):
+def layer_inputs(torch, dev, dt, seed, bias=False, h=H, kvh=KVH, ff=F):
+    """One layer's weights, x and ring at the tinyllama width (default) or
+    at a rank's share of the heads and FFN (``h``, ``kvh``, ``ff``)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *shp, sc=1.0: torch.randn(shp, generator=g, device=dev) * sc
     lp = {
         "attn_norm": 1 + 0.1 * r(M, D), "mlp_norm": 1 + 0.1 * r(M, D),
-        "wq": r(M, D, H * HD, sc=D ** -0.5).to(dt), "wk": r(M, D, KVH * HD, sc=D ** -0.5).to(dt),
-        "wv": r(M, D, KVH * HD, sc=D ** -0.5).to(dt),
-        "wo": r(M, H * HD, D, sc=(H * HD) ** -0.5).to(dt),
-        "w_gate": r(M, D, F, sc=D ** -0.5).to(dt), "w_up": r(M, D, F, sc=D ** -0.5).to(dt),
-        "w_down": r(M, F, D, sc=F ** -0.5).to(dt),
+        "wq": r(M, D, h * HD, sc=D ** -0.5).to(dt), "wk": r(M, D, kvh * HD, sc=D ** -0.5).to(dt),
+        "wv": r(M, D, kvh * HD, sc=D ** -0.5).to(dt),
+        "wo": r(M, h * HD, D, sc=(H * HD) ** -0.5).to(dt),
+        "w_gate": r(M, D, ff, sc=D ** -0.5).to(dt), "w_up": r(M, D, ff, sc=D ** -0.5).to(dt),
+        "w_down": r(M, ff, D, sc=F ** -0.5).to(dt),
     }
     if bias:
-        lp.update(bq=r(M, H * HD, sc=0.1).to(dt), bk=r(M, KVH * HD, sc=0.1).to(dt),
-                  bv=r(M, KVH * HD, sc=0.1).to(dt))
+        lp.update(bq=r(M, h * HD, sc=0.1).to(dt), bk=r(M, kvh * HD, sc=0.1).to(dt),
+                  bv=r(M, kvh * HD, sc=0.1).to(dt))
     x = r(M, B, D).to(dt)
-    ck, cv = r(M, B, S, KVH, HD).to(dt), r(M, B, S, KVH, HD).to(dt)
+    ck, cv = r(M, B, S, kvh, HD).to(dt), r(M, B, S, kvh, HD).to(dt)
     return lp, x, ck, cv
 
 
@@ -378,10 +408,45 @@ def phase_kernels(torch, dev):
         errs[key] = e
         del pre, r
     errs.update(new_kernel_cases(torch, dev))
+    errs.update(phase_kernel_cases(torch, dev))
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
         tolerance_f32=TOL["float32"], status="ok")
+
+
+def phase_kernel_cases(torch, dev):
+    """The two halves of the sharded decode layer at a rank's widths of
+    tinyllama-1.1b at TP=2 against their plain versions, bf16 and f32: the
+    attention phase over a wrapped ring with lanes frozen by ``alive``
+    (their ring rows compared bit for bit with the input), the FFN phase.
+    The partials carry no residual and lie far below 1, so they are held
+    relative to their own largest magnitude (``part_err``)."""
+    from repro_torch.kernels import decode_layer as dl
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(17)
+    for dtn in ("bfloat16", "float32"):
+        dt = getattr(torch, dtn)
+        lp, x, ck, cv = layer_inputs(torch, dev, dt, 18, h=TH, kvh=TKVH, ff=TF)
+        pos = (S + torch.randint(0, S, (M, B), generator=g, device=dev)).to(torch.int32)
+        alive = torch.rand(M, B, generator=g, device=dev) < 0.75
+        alive[0, 0] = False
+        kw = dict(num_heads=TH, head_dim=HD, rope_theta=10000.0, alive=alive)
+        want = dl.decode_layer_attn_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+        got = dl.decode_layer_attn_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+        torch.cuda.synchronize()
+        e = max(part_err(got[0], want[0]), *(rel_err(a, b) for a, b in zip(got[1:], want[1:])))
+        assert e <= TOL[dtn], f"decode_layer_attn {dtn}: {e}"
+        assert torch.equal(got[1][~alive], ck[~alive]) and torch.equal(got[2][~alive], cv[~alive])
+        errs[f"decode_layer_attn/{dtn}/TP{TP}/wrapped/alive"] = e
+        ffn = [lp[k] for k in ("mlp_norm", "w_gate", "w_up", "w_down")]
+        e = part_err(dl.ffn_cuda(x, *ffn), dl.ffn_plain(x, *ffn))
+        torch.cuda.synchronize()
+        assert e <= TOL[dtn], f"decode_layer_ffn {dtn}: {e}"
+        errs[f"decode_layer_ffn/{dtn}/TP{TP}"] = e
+        del lp, x, ck, cv, got, want
+    return errs
 
 
 def mlstm_inputs(torch, dev, dt, m, b, h, s, hd, seed, ends=None):
@@ -736,6 +801,113 @@ def profile_serve(torch, srv, reqs, arch):
             device_ms=round(device_us(e) / 1e3, 2))
 
 
+def chunk_decode_cpu(cfg, params, tok, width, ctx):
+    """The single-device plain path on the CPU: prefill ``tok`` in chunks
+    of ``width``, a greedy decode step and a decode step (the reference of
+    ``tp_parity.chunk_decode_rank``)."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.models.common import tree_map
+
+    m, b, n = tok.shape
+    carry = api.init_chunk_carry(cfg, m, b, ctx, device="cpu")
+    for start in range(0, n, width):
+        api.prefill_chunk(cfg, params, {"tokens": tok[:, :, start:start + width]}, carry,
+                          torch.full((m, b), start, dtype=torch.int32))
+    cache = carry["cache"]
+    out = {"k": cache.k.clone(), "v": cache.v.clone()}
+    pos = torch.full((m, b), n, dtype=torch.int32)
+    nxt, _ = api.decode_step_sample(cfg, params, tree_map(lambda t: t.clone(), cache),
+                                    tok[:, :, -1:], pos)
+    logits, _ = api.decode_step(cfg, params, cache, tok[:, :, -1:], pos)
+    return dict(out, logits=logits, tokens=nxt)
+
+
+def phase_tp(torch, dev):
+    """Tensor-parallel serving over TP=2 ranks, one process each, sharing
+    the card (``mesh.spawn``; gloo, since NCCL refuses two ranks on one
+    card).  Every rank, in one spawn: the full tinyllama-1.1b (M=4,
+    TP_REQUESTS requests of 16-512 tokens, 32 new, K=8), every launch
+    counter set to 0 just before and read just after; the same model cut
+    to 4 layers at K=1 and K=8; the f32 smoke config (vocab 256, so that
+    it splits) through prefill chunks and a decode step.  Checked here:
+    the sharded kernels launched (22 attention and 22 FFN phases per
+    decode step) and the whole-layer kernel never; the ranks' streams
+    identical; K=1 == K=8; the f32 config's cache shards, gathered logits
+    and greedy tokens equal to the single-device plain path on the CPU."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh, serve, tp_parity
+
+    cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=M)
+    cut = cfg.with_(num_layers=4)
+    small = registry.get_smoke_config("tinyllama-1.1b").with_(num_instances=2, vocab_size=256)
+    small_params = api.init(small, torch.Generator().manual_seed(0), "cpu")
+    tok = torch.from_numpy(np.random.default_rng(2).integers(1, 256, (2, 2, 24)).astype(np.int32))
+    serve_kw = dict(slots_per_instance=B, max_context=S, prefill_chunk=C, prefill_lanes=4,
+                    decode_steps=8)
+    check_kw = dict(slots_per_instance=2, max_context=S, prefill_chunk=C)
+    check_reqs = requests(12, M, 16, 200, 16, cut.vocab_size, 1)
+    log("tp", ranks=TP, cards=torch.cuda.device_count(), rule=repr(mesh.describe(TP, "cuda")))
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(
+        mesh.in_turn, TP,
+        (serve.serve_rank, cfg, 0, requests(TP_REQUESTS, M, 16, 512, 32, cfg.vocab_size, 0),
+         serve_kw),
+        (serve.serve_rank, cut, 1, check_reqs, dict(check_kw, decode_steps=1)),
+        (serve.serve_rank, cut, 1, check_reqs, dict(check_kw, decode_steps=8)),
+        (tp_parity.chunk_decode_rank, small, small_params, tok, 8, 64),
+        (tp_parity.all_reduce_rank, (M, B, D), 50),
+        (tp_parity.all_reduce_rank, (4, 1, C, D), 20),
+        device="cuda")
+    log("tp", spawn_and_run_s=round(time.perf_counter() - t0, 1))
+    full = [r[0] for r in ranks]
+    for rank, out in enumerate(full):
+        la, snap = out["launches"], out["snapshot"]
+        steps, chunks = snap["decode_steps"], snap["prefill_batches"]
+        assert out["statuses"] == ["ok"] * TP_REQUESTS, out["statuses"]
+        assert all(len(t) == 32 for t in out["streams"].values())
+        assert la["decode_layer"] == 0, la
+        assert la["decode_layer_attn"] == la["decode_layer_ffn"] == cfg.num_layers * steps, la
+        assert la["logits_sample"] == steps, (la, steps)
+        assert la["chunk_prefill_attention"] == cfg.num_layers * chunks, (la, chunks)
+        log("tp", arch=cfg.name, rank=rank, device=out["device"], backend=out["backend"],
+            requests=TP_REQUESTS, tokens=snap["generated_tokens"], wall_s=round(out["wall_s"], 3),
+            tok_per_s=round(snap["generated_tokens"] / out["wall_s"], 1),
+            ms_per_decode_step=round(snap["decode_ms_per_step"], 3), decode_steps=steps,
+            decode_blocks=snap["decode_device_calls"],
+            prefill_ms=round(1e3 * snap["prefill_wall_s"], 1), prefill_chunk_calls=chunks,
+            attn_phase_launches_per_step=round(la["decode_layer_attn"] / steps, 2),
+            ffn_phase_launches_per_step=round(la["decode_layer_ffn"] / steps, 2),
+            peak_gib_on_card=round(out["peak_gib"], 2),
+            launches=json.dumps(la).replace(" ", ""))
+    assert all(o["streams"] == full[0]["streams"] for o in full), "the ranks' streams differ"
+    k1, k8 = [r[1]["streams"] for r in ranks], [r[2]["streams"] for r in ranks]
+    assert all(s_ == k1[0] for s_ in k1 + k8), "greedy streams differ between K=1 and K=8"
+    log("tp", arch=cut.name, layers=cut.num_layers, streams="K1==K8, ranks equal",
+        requests=len(k1[0]), tokens=sum(len(t) for t in k1[0].values()))
+    want = chunk_decode_cpu(small, small_params, tok, 8, 64)
+    got = [r[3] for r in ranks]
+    e_cache = max(rel_err(torch.cat([g[leaf] for g in got], 4), want[leaf]) for leaf in "kv")
+    e_logits = max(rel_err(g["logits"], want["logits"]) for g in got)
+    assert e_cache <= TOL["float32"] and e_logits <= TOL["float32"], (e_cache, e_logits)
+    assert all(torch.equal(g["tokens"], want["tokens"]) for g in got), "greedy tokens differ"
+    steps = full[0]["snapshot"]["decode_steps"]
+    for rank, r in enumerate(ranks):
+        # 2 sums per layer: their share of the decode step on this rank
+        share = 2 * cfg.num_layers * r[4] / full[rank]["snapshot"]["decode_ms_per_step"]
+        log("tp", rank=rank, all_reduce_ms_decode=round(r[4], 4),
+            all_reduce_ms_prefill_chunk=round(r[5], 4),
+            sums_per_decode_step=2 * cfg.num_layers, sum_share_of_decode_step=f"{share:.1%}")
+    log("tp", reference="cpu-plain single device", config=small.name, vocab=small.vocab_size,
+        kv_heads_per_rank=got[0]["k"].shape[4], cache_rel_err=f"{e_cache:.2e}",
+        logits_rel_err=f"{e_logits:.2e}", tokens="equal")
+    return full[0]["launches"]
+
+
 def phase_check(torch, dev):
     import numpy as np
 
@@ -1003,6 +1175,7 @@ def phase_times(torch, dev, by_path, profile_launches):
     del sets, lib_in
 
     rows += new_time_rows(torch, dev, profile_launches)
+    rows += phase_time_rows(torch, dev, launches, per_path)
     for r in rows:
         log("times", name=r["name"], ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
@@ -1090,6 +1263,59 @@ def new_time_rows(torch, dev, launches):
     return rows
 
 
+def phase_time_rows(torch, dev, launches, per_path):
+    """Times rows of the two halves of the sharded decode layer at a rank's
+    shapes at TP=2 (bf16, M=4 x B=4 slots, positions inside the prompts'
+    range); 4 input copies rotate so the weights come from HBM, as in a
+    decode step.  ``launches`` include the TP serve (rank 0)."""
+    from repro_torch.kernels import decode_layer as dl
+
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(41)
+    sets = [layer_inputs(torch, dev, torch.bfloat16, 42 + i, h=TH, kvh=TKVH, ff=TF)
+            for i in range(4)]
+    pos = torch.randint(16, 545, (M, B), generator=g, device=dev).to(torch.int32)
+    kw = dict(num_heads=TH, head_dim=HD, rope_theta=10000.0)
+    lp, x, ck, cv = sets[0]
+    got = dl.decode_layer_attn_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)[0]
+    err = abs_err(got, dl.decode_layer_attn_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)[0])
+    it = iter(range(10 ** 9))
+    attn = lambda f: (lambda s_: f(s_[0], s_[1], s_[2], s_[3], pos, **kw))(sets[next(it) % 4])
+    ms = time_ms(torch, lambda: attn(dl.decode_layer_attn_cuda))
+    device_ms = time_queued_ms(torch, lambda: attn(dl.decode_layer_attn_cuda))
+    plain = time_ms(torch, lambda: attn(dl.decode_layer_attn_plain))
+    n_w = D * (TH + 2 * TKVH) * HD + TH * HD * D
+    valid = (pos + 1).clamp(max=S).sum().item()
+    nbytes = (M * n_w * 2 + M * D * 4 + 2 * M * B * D * 2 + valid * TKVH * HD * 2 * 2
+              + M * B * TKVH * HD * 2 * 2 + M * B * 4)
+    bms, by = bound_ms(nbytes, 2 * M * B * n_w + 4 * TH * HD * valid, "bfloat16")
+    rows.append(dict(name="decode_layer_attn", route="cuda",
+                     source="src/repro_torch/csrc/decode_layer.cu",
+                     replaces="src/repro/kernels/decode_layer.py:144",
+                     launches=launches["decode_layer_attn"],
+                     launches_by_path=per_path("decode_layer_attn"), max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     device_ms=device_ms,
+                     shape=f"rank of TP={TP}: H={TH}, KVH={TKVH}, M={M}, B={B}, S={S} bf16"))
+    ffn_in = lambda s_: (s_[1], *(s_[0][k] for k in ("mlp_norm", "w_gate", "w_up", "w_down")))
+    err = abs_err(dl.ffn_cuda(*ffn_in(sets[0])), dl.ffn_plain(*ffn_in(sets[0])))
+    ffn = lambda f: f(*ffn_in(sets[next(it) % 4]))
+    ms = time_ms(torch, lambda: ffn(dl.ffn_cuda))
+    device_ms = time_queued_ms(torch, lambda: ffn(dl.ffn_cuda))
+    plain = time_ms(torch, lambda: ffn(dl.ffn_plain))
+    n_w = 3 * D * TF
+    bms, by = bound_ms(M * n_w * 2 + M * D * 4 + 2 * M * B * D * 2, 2 * M * B * n_w, "bfloat16")
+    rows.append(dict(name="decode_layer_ffn", route="cuda",
+                     source="src/repro_torch/csrc/decode_layer.cu",
+                     replaces="src/repro/kernels/decode_layer.py:201",
+                     launches=launches["decode_layer_ffn"],
+                     launches_by_path=per_path("decode_layer_ffn"), max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     device_ms=device_ms, shape=f"rank of TP={TP}: F={TF}, M={M}, B={B} bf16"))
+    del sets
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1114,6 +1340,7 @@ def main() -> int:
     timed("kernels", phase_kernels, torch, dev)
     launches = timed("serve", phase_serve, torch, dev)
     timed("check", phase_check, torch, dev)
+    launches[f"tinyllama-1.1b/tp{TP}-rank0"] = timed("tp", phase_tp, torch, dev)
     timed("paper", phase_paper, torch, dev)
     profile_launches = timed("profile", phase_profile, torch, dev)
     rows = timed("times", phase_times, torch, dev, launches, profile_launches)

@@ -4,6 +4,9 @@ entries.
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); with no device given and no card present they raise
 instead of carrying on on the CPU.  Families not ported yet raise.
+
+``tp`` (a ``models.common.TensorParallel``) runs an entry on this rank's
+shard under tensor parallelism; only the dense family takes it.
 """
 from __future__ import annotations
 
@@ -37,6 +40,16 @@ def family_module(cfg: ModelConfig):
     return _FAMILY[cfg.family]
 
 
+def _tp(cfg: ModelConfig, tp) -> dict:
+    """The ``tp`` keyword for the family's entry, where there is a handle."""
+    if tp is None:
+        return {}
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"tensor parallelism is ported for the dense family, not {cfg.family!r}")
+    return {"tp": tp}
+
+
 def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
     """Random merged parameters (the reference's distributions) drawn from
     ``generator``, which must live on the target device."""
@@ -51,14 +64,15 @@ def prefill_prefix_len(cfg: ModelConfig) -> int:
     return hybrid.NUM_META_TOKENS if cfg.family == "hybrid" else 0
 
 
-def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device=None):
+def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device=None, tp=None):
     """The grid's decode cache: a KV cache (dense), the recurrent state
     (ssm, positionless: ``context_len`` is unused) or per-group KV caches
     and mamba states (hybrid)."""
     dev = resolve_device(device)
+    kw = _tp(cfg, tp)
     if cfg.family == "ssm":
         return ssm.make_state(cfg, m, b, dev)
-    return family_module(cfg).make_cache(cfg, m, b, context_len, dev)
+    return family_module(cfg).make_cache(cfg, m, b, context_len, dev, **kw)
 
 
 def cache_axes(cfg: ModelConfig):
@@ -68,9 +82,10 @@ def cache_axes(cfg: ModelConfig):
     return family_module(cfg).cache_axes(cfg)
 
 
-def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device=None):
+def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device=None,
+                     tp=None):
     return family_module(cfg).init_chunk_carry(cfg, m, b, cache_len,
-                                               resolve_device(device))
+                                               resolve_device(device), **_tp(cfg, tp))
 
 
 def chunk_carry_axes(cfg: ModelConfig):
@@ -78,19 +93,22 @@ def chunk_carry_axes(cfg: ModelConfig):
     return family_module(cfg).chunk_carry_axes(cfg)
 
 
-def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *, instances=None):
+def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *, instances=None,
+                  tp=None):
     return family_module(cfg).prefill_chunk(cfg, params, batch, carry, offset,
-                                            instances=instances)
+                                            instances=instances, **_tp(cfg, tp))
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None):
-    return family_module(cfg).decode_step(cfg, params, cache, tokens, pos, alive=alive)
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None, tp=None):
+    return family_module(cfg).decode_step(cfg, params, cache, tokens, pos, alive=alive,
+                                          **_tp(cfg, tp))
 
 
-def decode_step_sample(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None):
+def decode_step_sample(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None,
+                       tp=None):
     """Greedy decode step: (next token (M, B) int32, cache)."""
     return family_module(cfg).decode_step_sample(cfg, params, cache, tokens, pos,
-                                                 alive=alive)
+                                                 alive=alive, **_tp(cfg, tp))
 
 
 def take_state(cfg: ModelConfig, cache, m: int, b: int):

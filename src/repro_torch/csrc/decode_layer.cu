@@ -3,6 +3,12 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/decode_layer.py:
 //   * _layer_kernel, phase "full" (via _layer_call / decode_layer): one
 //     dense decode layer for the whole (M, B) lane grid;
+//   * _layer_kernel, phase "attn", and _ffn_kernel (via _ffn_call), the two
+//     halves of decode_layer_sharded: under tensor parallelism a rank holds
+//     H/T query heads, KVH/T kv heads and F/T of the FFN, and each half ends
+//     in an unreduced partial that the caller sums across ranks.  The whole
+//     layer is the same two phases with the residual added in their last
+//     epilogue (decode_layer_attn_phase, decode_layer_ffn_phase below);
 //   * _logits_kernel (via _logits_argmax_parts / logits_sample): final RMS
 //     norm + f32 logits + greedy argmax with first-occurrence ties.
 //
@@ -22,12 +28,16 @@
 //     approach the HBM rate.  Partial sums are added in a fixed order by
 //     a small epilogue kernel (deterministic: K=1 and K=8 greedy streams
 //     agree bit for bit), which also applies bias, residual or SiLU*up;
-//   * the layer runs as ten launches: rms + QKV (+bias) and its epilogue;
-//     RoPE + in-place ring append at pos % S + attention per
-//     (m, b, kv-head, split of the ring's slots), with keys and values
-//     staged through shared memory in 64-slot tiles and empty slots never
-//     read, and a kernel merging the splits; out-proj + residual;
-//     rms + gate/up + SiLU*up; down-proj + residual (each with epilogue);
+//   * the layer runs as ten launches, six in the attention phase and four
+//     in the FFN phase: rms + QKV (+bias) and its epilogue; RoPE + in-place
+//     ring append at pos % S + attention per (m, b, kv-head, split of the
+//     ring's slots), with keys and values staged through shared memory in
+//     64-slot tiles and empty slots never read, and a kernel merging the
+//     splits; out-proj (+ residual); rms + gate/up + SiLU*up; down-proj
+//     (+ residual), each matvec with its epilogue.  Nothing in the tiling
+//     assumes the full widths: the per-rank shapes of tinyllama-1.1b (16 or
+//     8 query heads over 2 or 1 kv heads, F = 2816 or 1408) take partial
+//     256-column tiles and the same fixed-order k-split;
 //   * the logits use a 64-column form of the matvec (2 columns per lane, the
 //     reduction split over warps only) over V tiles, each block reducing its
 //     tile to a (max, first index) per lane; a second pass walks the tiles
@@ -630,7 +640,7 @@ int matvec_ksplit(int tiles, int M, int B, int K) {
 template <typename T, int MODE>
 int launch_matvec(const void* x, const void* norm, float eps, const void* w0, const void* w1,
                   const void* w2, const void* b0, const void* b1, const void* b2, int n0,
-                  int n1, int n2, const void* res, void* out, void* part, int part_elems,
+                  int n1, int n2, const void* res, void* out, void* part, long long part_elems,
                   int M, int B, int K, cudaStream_t stream) {
   const int red_bytes = (NW * LB * MTN + (NW + 1) * LB) * 4;
   const int lpb = B < LB ? B : LB;
@@ -728,33 +738,21 @@ int launch_logits(const void* x, const float* norm, float eps, const void* head,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// ---------------------------------------------------------------------------
-// C interface (ctypes).  dt: 0 = float32, 1 = bfloat16.  Every entry point
-// returns cudaGetLastError() after its launches; the wrapper raises on != 0.
-// ---------------------------------------------------------------------------
-
-extern "C" {
-
-// mode 0: out (M,B,n0+n1+n2) = [x@w0 (+b0), x@w1 (+b1), x@w2 (+b2)]
-// mode 1: out (M,B,n0) = res + x@w0
-// mode 2: out (M,B,n0) = silu(x@w0) * (x@w1)
-// x is rms-normalised with norm (M,K) f32 first when norm is not null.
-// f32 scratch elements lanes_matvec needs for its k-split partial sums.
-int matvec_scratch_elems(int mode, int n0, int n1, int n2, int M, int B, int K) {
+// f32 scratch elements one lanes matvec needs for its k-split partial sums.
+long long matvec_scratch_elems(int mode, int n0, int n1, int n2, int M, int B, int K) {
   const int nout = mode == MODE_PLAIN ? n0 + n1 + n2 : n0;
   const int ksplit = matvec_ksplit(matvec_tiles(mode, n0, n1, n2), M, B, K);
-  return ksplit * (mode == MODE_SWIGLU ? 2 : 1) * M * B * nout;
+  return (long long)ksplit * (mode == MODE_SWIGLU ? 2 : 1) * M * B * nout;
 }
 
-// part: f32 scratch of part_elems elements for the k-split partial sums
-// (matvec_scratch_elems gives the size a call needs).
+// mode MODE_PLAIN: out (M,B,n0+n1+n2) = [x@w0 (+b0), x@w1 (+b1), x@w2 (+b2)]
+// mode MODE_RESIDUAL: out (M,B,n0) = res + x@w0
+// mode MODE_SWIGLU: out (M,B,n0) = silu(x@w0) * (x@w1)
+// x is rms-normalised with norm (M,K) f32 first when norm is not null.
 int lanes_matvec(int dt, int mode, const void* x, const void* norm, float eps, const void* w0,
                  const void* w1, const void* w2, const void* b0, const void* b1, const void* b2,
-                 int n0, int n1, int n2, const void* res, void* out, void* part, int part_elems,
-                 int M, int B, int K, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+                 int n0, int n1, int n2, const void* res, void* out, void* part,
+                 long long part_elems, int M, int B, int K, cudaStream_t s) {
 #define MV(T, MODE)                                                                         \
   launch_matvec<T, MODE>(x, norm, eps, w0, w1, w2, b0, b1, b2, n0, n1, n2, res, out, part, \
                          part_elems, M, B, K, s)
@@ -771,16 +769,15 @@ int lanes_matvec(int dt, int mode, const void* x, const void* norm, float eps, c
   return (int)cudaErrorInvalidValue;
 }
 
-// f32 scratch elements ring_attention needs for its split partials.
-long long ring_attention_scratch_elems(int M, int B, int S, int H, int KVH, int hd) {
+// f32 scratch elements the ring attention needs for its split partials.
+long long attention_scratch_elems(int M, int B, int S, int H, int KVH, int hd) {
   return (long long)M * B * KVH * attn_splits(M, B, S, KVH) * (H / KVH) * (2 + hd);
 }
 
 int ring_attention(int dt, const void* qkv, void* ck, void* cv, const void* pos,
                    const void* alive, void* out, void* part, long long part_elems, int M, int B,
                    int S, int H, int KVH, int hd, float neg_log_theta, int use_rope, int window,
-                   float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+                   float scale, cudaStream_t s) {
   if (dt == 0)
     return launch_attn<float>(qkv, ck, cv, (const int*)pos, (const uint8_t*)alive, out,
                               (float*)part, part_elems, M, B, S, H, KVH, hd, neg_log_theta,
@@ -790,6 +787,77 @@ int ring_attention(int dt, const void* qkv, void* ck, void* cv, const void* pos,
                                       (float*)part, part_elems, M, B, S, H, KVH, hd,
                                       neg_log_theta, use_rope, window, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+long long max3(long long a, long long b, long long c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// C interface (ctypes).  dt: 0 = float32, 1 = bfloat16.  Every entry point
+// returns cudaGetLastError() after its launches (or the first error); the
+// wrapper raises on != 0.  A phase's launches run in order on one stream and
+// share one f32 scratch buffer.
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// f32 scratch elements decode_layer_attn_phase needs.
+long long decode_layer_attn_scratch_elems(int M, int B, int D, int S, int H, int KVH, int hd) {
+  return max3(matvec_scratch_elems(MODE_PLAIN, H * hd, KVH * hd, KVH * hd, M, B, D),
+              attention_scratch_elems(M, B, S, H, KVH, hd),
+              matvec_scratch_elems(MODE_RESIDUAL, D, 0, 0, M, B, H * hd));
+}
+
+// The attention phase of a dense decode layer (the "attn" body of the TPU
+// _layer_kernel): rms(attn_norm) + QKV (+bias) into qkv (M,B,(H+2KVH)hd),
+// RoPE + in-place ring append at pos % S (not for lanes whose alive byte is
+// 0) + split ring attention + combine into attn (M,B,H*hd), then the
+// out-projection into out (M,B,D): res + attn @ wo when res is given (the
+// first half of the whole layer), else the bare partial attn @ wo rounded to
+// the dtype (the tensor-parallel partial, summed across ranks afterwards).
+int decode_layer_attn_phase(int dt, const void* x, const void* norm, float eps, const void* wq,
+                            const void* wk, const void* wv, const void* bq, const void* bk,
+                            const void* bv, const void* wo, void* ck, void* cv, const void* pos,
+                            const void* alive, const void* res, void* qkv, void* attn,
+                            void* out, void* part, long long part_elems, int M, int B, int D,
+                            int S, int H, int KVH, int hd, float neg_log_theta, int use_rope,
+                            int window, float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int e = lanes_matvec(dt, MODE_PLAIN, x, norm, eps, wq, wk, wv, bq, bk, bv, H * hd, KVH * hd,
+                       KVH * hd, nullptr, qkv, part, part_elems, M, B, D, s);
+  if (e != 0) return e;
+  e = ring_attention(dt, qkv, ck, cv, pos, alive, attn, part, part_elems, M, B, S, H, KVH, hd,
+                     neg_log_theta, use_rope, window, scale, s);
+  if (e != 0) return e;
+  return lanes_matvec(dt, res != nullptr ? MODE_RESIDUAL : MODE_PLAIN, attn, nullptr, eps, wo,
+                      nullptr, nullptr, nullptr, nullptr, nullptr, D, 0, 0, res, out, part,
+                      part_elems, M, B, H * hd, s);
+}
+
+// f32 scratch elements decode_layer_ffn_phase needs.
+long long decode_layer_ffn_scratch_elems(int M, int B, int D, int F) {
+  return max3(matvec_scratch_elems(MODE_SWIGLU, F, 0, 0, M, B, D),
+              matvec_scratch_elems(MODE_RESIDUAL, D, 0, 0, M, B, F), 0);
+}
+
+// The FFN phase (the TPU _ffn_kernel, and the second half of the whole
+// layer): rms(mlp_norm) + gate/up + SiLU*up into hid (M,B,F), then the
+// down-projection into out (M,B,D): res + hid @ wd when res is given, else
+// the bare partial hid @ wd rounded to the dtype.
+int decode_layer_ffn_phase(int dt, const void* x, const void* norm, float eps, const void* wg,
+                           const void* wu, const void* wd, const void* res, void* hid, void* out,
+                           void* part, long long part_elems, int M, int B, int D, int F,
+                           void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int e = lanes_matvec(dt, MODE_SWIGLU, x, norm, eps, wg, wu, nullptr, nullptr, nullptr, nullptr,
+                       F, 0, 0, nullptr, hid, part, part_elems, M, B, D, s);
+  if (e != 0) return e;
+  return lanes_matvec(dt, res != nullptr ? MODE_RESIDUAL : MODE_PLAIN, hid, nullptr, eps, wd,
+                      nullptr, nullptr, nullptr, nullptr, nullptr, D, 0, 0, res, out, part,
+                      part_elems, M, B, F, s);
 }
 
 // pval/pidx: scratch of M*B*ceil(V/64) entries.

@@ -6,8 +6,18 @@ device -- or raises.  There is no switch and no fallback: a kernel that
 fails to build or launch on the card is an error.  ``launches`` counts
 the wrapper's kernel calls (not the plain ones), so a run can show that
 its main path went through the kernels.
+
+The ``*_sharded`` functions are the tensor-parallel forms (the
+reference's ``shard_map`` wrappers) over a rank's shard and its
+``TensorParallel`` handle, with the collectives written out.  The
+reference's ``chunk_prefill_attention_sharded`` needs none of its own:
+the model computes q, k and v for the rank's heads and calls
+:func:`chunk_prefill_attention` on them.
 """
 from __future__ import annotations
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import chunk_prefill_attn as _cpa
 from repro_torch.kernels import decode_attn as _da
@@ -38,6 +48,9 @@ class Kernel:
 
 
 _decode_layer = Kernel("decode_layer", _dl.decode_layer_plain, _dl.decode_layer_cuda)
+_attn_phase = Kernel("decode_layer_attn", _dl.decode_layer_attn_plain,
+                     _dl.decode_layer_attn_cuda)
+_ffn_phase = Kernel("decode_layer_ffn", _dl.ffn_plain, _dl.ffn_cuda)
 _logits = Kernel("logits_sample", _dl.logits_argmax_plain, _dl.logits_argmax_cuda)
 _chunk = Kernel("chunk_prefill_attention", _cpa.chunk_prefill_attention_plain,
                 _cpa.chunk_prefill_attention_cuda)
@@ -51,7 +64,7 @@ _group_rms = Kernel("group_rms_norm", _gn.group_rms_norm_plain, _gn.group_rms_no
 _mlstm = Kernel("mlstm_chunkwise", _ml.mlstm_chunkwise_plain, _ml.mlstm_chunkwise_cuda)
 
 KERNELS = (_decode_layer, _logits, _chunk, _slstm, _decode_attn, _fused_matmul, _group_rms,
-           _mlstm)
+           _mlstm, _attn_phase, _ffn_phase)
 
 
 def reset_launches() -> None:
@@ -72,6 +85,39 @@ def decode_layer(lp, x, ck, cv, pos, *, num_heads, head_dim, rope_theta,
                          window=window, eps=eps, alive=alive)
 
 
+def decode_layer_attn(lp, x, ck, cv, pos, *, num_heads, head_dim, rope_theta,
+                      window: int = 0, eps: float = 1e-5, alive=None):
+    """The attention half of a decode layer over ``num_heads`` query heads
+    of ``lp``, ring append in place: (out-proj partial, ck, cv)."""
+    return _attn_phase(x, lp, x, ck, cv, pos, num_heads=num_heads, head_dim=head_dim,
+                       rope_theta=rope_theta, window=window, eps=eps, alive=alive)
+
+
+def decode_layer_ffn(x, mlp_norm, w_gate, w_up, w_down, *, eps: float = 1e-5):
+    """The FFN half of a decode layer: the down-proj partial."""
+    return _ffn_phase(x, x, mlp_norm, w_gate, w_up, w_down, eps=eps)
+
+
+def decode_layer_sharded(lp, x, ck, cv, pos, *, tp, num_heads, head_dim, rope_theta,
+                         window: int = 0, eps: float = 1e-5, alive=None):
+    """``decode_layer`` on a rank's shard (the reference's
+    ``decode_layer_sharded``).  ``tp`` is the handle when the layer's
+    heads and FFN are split over its ranks (``lp``, ck and cv then hold
+    this rank's share of the model's ``num_heads``), ``None`` when the
+    layer is held whole.  Split, the out-proj and the down-proj contract
+    sharded dims, so the layer is the attention phase, a sum over the
+    ranks, the FFN phase and a second sum: 2 phases and 2 collectives per
+    layer and rank.  A whole layer is one ``decode_layer``."""
+    kw = dict(head_dim=head_dim, rope_theta=rope_theta, window=window, eps=eps, alive=alive)
+    if tp is None:
+        return decode_layer(lp, x, ck, cv, pos, num_heads=num_heads, **kw)
+    part, ck, cv = decode_layer_attn(lp, x, ck, cv, pos, num_heads=num_heads // tp.size, **kw)
+    x2 = x + tp.all_reduce_sum(part)
+    down = decode_layer_ffn(x2, lp["mlp_norm"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                            eps=eps)
+    return x2 + tp.all_reduce_sum(down), ck, cv
+
+
 def logits_argmax(x, scale, head, *, eps: float = 1e-5):
     """Final rms + f32 logits + greedy argmax -> (tok int32, val f32)."""
     return _logits(x, x, scale, head, eps=eps)
@@ -80,6 +126,23 @@ def logits_argmax(x, scale, head, *, eps: float = 1e-5):
 def logits_sample(x, scale, head, *, eps: float = 1e-5):
     """Greedy tokens (M, B) int32, first-occurrence ties."""
     return logits_argmax(x, scale, head, eps=eps)[0]
+
+
+def logits_sample_sharded(x, scale, head, *, tp, eps: float = 1e-5):
+    """Greedy tokens (the reference's ``logits_sample_sharded``).  ``tp``
+    is the handle when ``head`` (M, D, V/T) is this rank's vocab slice,
+    ``None`` when it is the whole head.  Split: the kernel's local (max,
+    first index), then the global first-occurrence argmax from two small
+    all-reduces, on any backend: the max of the values, then the min of
+    the global indices of the ranks that hold it.  The reference's
+    all-gather form picks the same token."""
+    if tp is None:
+        return logits_sample(x, scale, head, eps=eps)
+    tok, val = logits_argmax(x, scale, head, eps=eps)
+    best = tp.all_reduce(val.clone(), dist.ReduceOp.MAX)
+    cand = torch.where(val == best, tok + tp.rank * head.shape[2],
+                       torch.full_like(tok, torch.iinfo(torch.int32).max))
+    return tp.all_reduce(cand, dist.ReduceOp.MIN)
 
 
 def chunk_prefill_attention(q, k, v, offset, *, s_cache: int, pin: int = 0,

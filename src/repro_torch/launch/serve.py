@@ -1,5 +1,5 @@
 """Serving launcher (port of ``repro.launch.serve``, dense, ssm and hybrid
-families).
+families; tensor parallelism for dense).
 
 Initialises M "fine-tuned" instances as M random initialisations from a
 seed, merges them (the paper's offline merge step, timed), and serves a
@@ -13,9 +13,14 @@ program.  Runs on the CUDA device unless ``--device cpu`` is given.
       --smoke --device cpu --decode-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --smoke --device cpu --decode-steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --smoke --device cpu --mesh-shape 1x2
 
-Hybrid archs raise ``--max-context`` to the meta tokens plus the SWA
-window plus ``--max-new``, as the reference's CLI does.
+``--mesh-shape 1xT`` serves under tensor parallelism over T ranks, one
+process each (``launch/mesh.py`` says which backend and why); every rank
+serves the same requests and rank 0 prints.  Hybrid archs raise
+``--max-context`` to the meta tokens plus the SWA window plus
+``--max-new``, as the reference's CLI does.
 """
 from __future__ import annotations
 
@@ -27,10 +32,100 @@ import torch
 
 from repro_torch import api
 from repro_torch.configs import registry
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh
 from repro_torch.models import hybrid as H
 from repro_torch.models.common import merge_instances
 from repro_torch.serving import MultiModelServer, Request
 from repro_torch.serving.scheduler import POLICIES
+
+
+def random_merged(cfg, seed: int, device, on_host: bool = False):
+    """M "fine-tuned" instances as M random initialisations (instance i
+    seeded ``seed * 1000 + i`` on ``device``), merged.  ``on_host`` moves
+    each instance to the CPU as soon as it is drawn and merges there, so
+    the card holds one instance at a time (a tensor-parallel rank then
+    moves only its shard to the card).  Returns (merged params, merge
+    seconds, the device the merge ran on)."""
+    where = torch.device("cpu") if on_host else device
+    with torch.inference_mode():
+        instances = [
+            api.init(cfg.with_(num_instances=1),
+                     torch.Generator(device=device).manual_seed(seed * 1000 + i),
+                     device).to(where)
+            for i in range(cfg.num_instances)
+        ]
+        t0 = time.perf_counter()
+        merged = merge_instances(instances)
+        if where.type == "cuda":
+            torch.cuda.synchronize(where)
+    return merged, time.perf_counter() - t0, where
+
+
+def serve(cfg, params, reqs, *, device, tp=None, **server_kw) -> dict:
+    """Serve ``reqs`` to the end on a new server.  Every launch counter
+    is set to 0 just before the requests are submitted and read after
+    the drain.  ``params`` is a whole merged model, or an int seed of
+    :func:`random_merged` (drawn on ``device``; merged on the CPU under
+    tensor parallelism, where the server moves only the rank's shard)."""
+    merge_s = merge_dev = None
+    if isinstance(params, int):
+        params, merge_s, merge_dev = random_merged(cfg, params, device, on_host=tp is not None)
+    server = MultiModelServer(cfg, params, device=device, tp=tp, **server_kw)
+    del params
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        server.submit(r)
+    results = server.run_until_drained()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    return {"server": server, "results": results, "wall_s": wall, "merge_s": merge_s,
+            "merge_device": merge_dev, "launches": ops.launches(),
+            "snapshot": server.metrics.snapshot()}
+
+
+def serve_rank(tp, cfg, params, reqs, server_kw, verbose: bool = False) -> dict:
+    """One rank of a tensor-parallel serve (a target of ``mesh.spawn``).
+    Returns what the rank saw: its streams, launch counts, metrics
+    snapshot, wall time, device, backend and the peak memory allocated on
+    its card since the process started (None on the CPU); rank 0 prints
+    the report when ``verbose``."""
+    out = serve(cfg, params, reqs, device=tp.device, tp=tp, **server_kw)
+    if verbose and tp.rank == 0:
+        report(out, cfg, tp)
+    return {"streams": {r.request_id: r.tokens for r in out["results"]},
+            "statuses": [r.status for r in out["results"]],
+            "launches": out["launches"], "snapshot": out["snapshot"],
+            "wall_s": out["wall_s"], "device": str(tp.device), "backend": tp.backend,
+            "peak_gib": (torch.cuda.max_memory_allocated(tp.device) / 2 ** 30
+                         if tp.device.type == "cuda" else None),
+            "prefill_calls": out["server"].prefill.device_calls,
+            "decode_blocks": out["server"].steps}
+
+
+def report(out, cfg, tp=None) -> None:
+    server, results, dt = out["server"], out["results"], out["wall_s"]
+    if out["merge_s"] is not None:
+        print(f"NetFuse merge of {cfg.num_instances} instances: {out['merge_s'] * 1e3:.1f} ms "
+              f"on {out['merge_device']}")
+    if tp is not None:
+        print(f"tensor parallel over {tp.size} ranks, {tp.backend}; rank 0 on {tp.device}")
+    toks = sum(len(r.tokens) for r in results)
+    snap = out["snapshot"]
+    print(f"served {len(results)} requests, {toks} tokens in {dt:.2f}s "
+          f"({toks / dt:.1f} tok/s, {snap['decode_steps']} decode steps in "
+          f"{server.steps} blocks @ K={server.decode_steps}, "
+          f"{snap['tokens_per_device_call']:.1f} tok/block)")
+    print(f"chunked prefill: chunk={server.prefill.chunk}, "
+          f"{server.prefill.device_calls} chunk calls for "
+          f"{server.prefill.admitted} admissions")
+    print(server.metrics.format_table())
+    for r in sorted(results, key=lambda r: r.request_id)[:4]:
+        print(f"  req {r.request_id} (instance {r.instance}): {r.tokens[:8]}...")
 
 
 def main(argv=None):
@@ -56,8 +151,12 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh-shape", default="1x1", metavar="DxT",
+                    help="serve under a (data=D, model=T) mesh, one process per rank; "
+                         "only D=1 is ported")
     args = ap.parse_args(argv)
 
+    _, t = mesh.parse_mesh_shape(args.mesh_shape)
     device = api.resolve_device(args.device)
     base = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
     max_context = args.max_context
@@ -67,55 +166,29 @@ def main(argv=None):
             print(f"raising --max-context {max_context} -> {need} "
                   f"(hybrid meta tokens + SWA ring)")
             max_context = need
-    m = args.num_instances
-    cfg1 = base.with_(num_instances=1)
-    cfg = base.with_(num_instances=m)
-
-    # M independently "fine-tuned" instances (different random weights)
-    with torch.inference_mode():
-        instances = [
-            api.init(cfg1, torch.Generator(device=device).manual_seed(args.seed * 1000 + i),
-                     device)
-            for i in range(m)
-        ]
-        t0 = time.perf_counter()
-        merged = merge_instances(instances)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    del instances
-    print(f"NetFuse merge of {m} instances: {(time.perf_counter() - t0) * 1e3:.1f} ms "
-          f"on {device}")
-
-    server = MultiModelServer(
-        cfg, merged, slots_per_instance=args.slots, max_context=max_context,
-        temperature=args.temperature, top_k=args.top_k, seed=args.seed,
-        scheduler=args.policy, prefill_chunk=args.chunk, prefill_lanes=args.lanes,
-        chunk_budget=args.chunk_budget, decode_steps=args.decode_steps, device=device,
-    )
+    cfg = base.with_(num_instances=args.num_instances)
     rng = np.random.default_rng(args.seed)
     reqs = [
-        Request(instance=i % m,
+        Request(instance=i % cfg.num_instances,
                 prompt=rng.integers(1, cfg.vocab_size, size=rng.integers(2, 8)).tolist(),
                 max_new_tokens=args.max_new)
         for i in range(args.requests)
     ]
-    t0 = time.perf_counter()
-    for r in reqs:
-        server.submit(r)
-    results = server.run_until_drained()
-    dt = time.perf_counter() - t0
-    toks = sum(len(r.tokens) for r in results)
-    snap = server.metrics.snapshot()
-    print(f"served {len(results)} requests, {toks} tokens in {dt:.2f}s "
-          f"({toks / dt:.1f} tok/s, {snap['decode_steps']} decode steps in "
-          f"{server.steps} blocks @ K={args.decode_steps}, "
-          f"{snap['tokens_per_device_call']:.1f} tok/block, policy={args.policy})")
-    print(f"chunked prefill: chunk={server.prefill.chunk}, "
-          f"{server.prefill.device_calls} chunk calls for "
-          f"{server.prefill.admitted} admissions")
-    print(server.metrics.format_table())
-    for r in sorted(results, key=lambda r: r.request_id)[:4]:
-        print(f"  req {r.request_id} (instance {r.instance}): {r.tokens[:8]}...")
+    server_kw = dict(slots_per_instance=args.slots, max_context=max_context,
+                     temperature=args.temperature, top_k=args.top_k, seed=args.seed,
+                     scheduler=args.policy, prefill_chunk=args.chunk,
+                     prefill_lanes=args.lanes, chunk_budget=args.chunk_budget,
+                     decode_steps=args.decode_steps)
+    print(f"policy={args.policy}, mesh 1x{t}")
+    if t == 1:
+        report(serve(cfg, args.seed, reqs, device=device, **server_kw), cfg)
+        return
+    print(mesh.describe(t, device.type))
+    outs = mesh.spawn(serve_rank, t, cfg, args.seed, reqs, server_kw, True,
+                      device=device.type)
+    if any(o["streams"] != outs[0]["streams"] for o in outs):
+        raise RuntimeError("the ranks' token streams differ")
+    print(f"{t} ranks on {[o['device'] for o in outs]}: streams identical")
 
 
 if __name__ == "__main__":

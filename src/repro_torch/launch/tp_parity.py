@@ -1,0 +1,64 @@
+"""Rank programs that hold the tensor-parallel dense path against the
+single-device one: targets of ``mesh.spawn``, run by the tests on the
+CPU and by ``chip_smoke.py`` on the card.  Each takes the whole model,
+shards it for its rank and returns what it computed, on the CPU.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from repro_torch import api
+from repro_torch.kernels import ops
+from repro_torch.models.common import tree_map
+from repro_torch.models.shardings import shard, shard_params
+
+
+def chunk_decode_rank(tp, cfg, params, tokens, width: int, ctx: int) -> dict:
+    """Prefill ``tokens`` (M, B, n) in chunks of ``width`` from a fresh
+    carry of context ``ctx``, then a greedy decode step and a decode step
+    at position n.  Returns this rank's cache shard after the prefill
+    (k, v), the decode step's logits (M, B, V), gathered over the ranks,
+    and the greedy tokens (M, B)."""
+    dev = tp.device
+    with torch.inference_mode():
+        p = shard_params(cfg, params, tp.rank, tp.size).to(dev)
+        m, b, n = tokens.shape
+        carry = api.init_chunk_carry(cfg, m, b, ctx, device=dev, tp=tp)
+        for start in range(0, n, width):
+            off = torch.full((m, b), start, dtype=torch.int32, device=dev)
+            api.prefill_chunk(cfg, p, {"tokens": tokens[:, :, start:start + width].to(dev)},
+                              carry, off, tp=tp)
+        cache = carry["cache"]
+        out = {"k": cache.k.cpu().clone(), "v": cache.v.cpu().clone()}
+        pos = torch.full((m, b), n, dtype=torch.int32, device=dev)
+        last = tokens[:, :, -1:].to(dev)
+        nxt, _ = api.decode_step_sample(cfg, p, tree_map(lambda t: t.clone(), cache), last, pos,
+                                        tp=tp)
+        logits, _ = api.decode_step(cfg, p, cache, last, pos, tp=tp)
+    return dict(out, logits=logits.cpu(), tokens=nxt.cpu())
+
+
+def logits_rank(tp, x, scale, head) -> torch.Tensor:
+    """Greedy tokens of ``logits_sample_sharded`` over this rank's vocab
+    slice of ``head`` (M, D, V), which splits over the ranks."""
+    dev = tp.device
+    local = shard(head, 2, tp.rank, tp.size).to(dev)
+    return ops.logits_sample_sharded(x.to(dev), scale.to(dev), local, tp=tp).cpu()
+
+
+def all_reduce_rank(tp, shape, reps: int) -> float:
+    """Milliseconds per ``all_reduce_sum`` of a bf16 tensor of ``shape``
+    on this rank's device: host clock around ``reps`` calls that end in a
+    device synchronisation.  The cost of one row-split projection's sum."""
+    t = torch.ones(shape, dtype=torch.bfloat16, device=tp.device)
+    tp.all_reduce_sum(t)
+    if tp.device.type == "cuda":
+        torch.cuda.synchronize(tp.device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tp.all_reduce_sum(t)
+    if tp.device.type == "cuda":
+        torch.cuda.synchronize(tp.device)
+    return (time.perf_counter() - t0) * 1e3 / reps

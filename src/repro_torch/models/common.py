@@ -11,8 +11,10 @@ Conventions, as in the reference:
 * serving caches and recurrent states are grid trees whose leaves carry
   the instances and batch dims side by side; a logical-axes tree names
   them (and the context dim, where there is one) on every leaf, as in
-  the reference.  The port is single-device, so the axes trees drive
-  slot and lane surgery only, not sharding.
+  the reference.  The axes trees drive slot and lane surgery only, not
+  sharding: under tensor parallelism every rank holds its own shard of
+  the params and caches (``models/shardings.py``) and the surgery runs
+  on that shard.
 """
 from __future__ import annotations
 
@@ -20,7 +22,51 @@ import math
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the explicit handle of the "model" mesh axis
+# ---------------------------------------------------------------------------
+
+
+class TensorParallel:
+    """This process's place on the "model" axis of a (data=1, model=T)
+    mesh: its rank, the number of ranks, the process group, its device
+    and the group's backend.  The port's counterpart of the reference's
+    ``Rules`` / ``active_rules``: it is passed down from the engine
+    through ``api`` into the model as an argument, never held in a
+    global, and the model code calls its collectives explicitly after
+    each row-split projection (Megatron style)."""
+
+    def __init__(self, rank: int, size: int, group, device: torch.device, backend: str):
+        self.rank = rank
+        self.size = size
+        self.group = group
+        self.device = device
+        self.backend = backend
+
+    def all_reduce_sum(self, part: torch.Tensor) -> torch.Tensor:
+        """Sum of the ranks' partials: an f32 sum of the partials, each
+        already rounded to its dtype, rounded once to that dtype.  At two
+        ranks this is the reference's psum bit for bit; it is the same on
+        either backend, and no backend needs to sum in bf16."""
+        s = part.to(torch.float32, copy=True)
+        dist.all_reduce(s, group=self.group)
+        return s.to(part.dtype)
+
+    def all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        """``t`` reduced over the ranks with ``op`` (a ``dist.ReduceOp``),
+        in place."""
+        dist.all_reduce(t, op=op, group=self.group)
+        return t
+
+    def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along ``dim`` in rank order."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
 
 # ---------------------------------------------------------------------------
 # parameter factory (the distributions of the reference's Factory)

@@ -9,6 +9,14 @@ plain versions on CPU tensors); the other matrix products are
 ``torch.matmul``, as the reference leaves them to XLA.
 
 Caches are updated in place.
+
+Tensor parallelism: with a ``TensorParallel`` handle ``tp`` the params
+and caches are this rank's shard (``models/shardings.py``): the rank's
+query and kv heads, its slice of d_ff and of the vocab.  Column-split
+projections need nothing; the sum over the ranks follows each row-split
+one (``wo``, ``w_down``), and greedy sampling combines the ranks' vocab
+slices.  ``shardings.layer_group`` / ``vocab_group`` say whether a split
+applies; layers held whole run as on one device.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
+from repro_torch.models import shardings as S
 from repro_torch.models.common import Factory, MergedParams
 from repro_torch.models.layers import KVCache
 
@@ -99,21 +108,29 @@ def _layer(params, i: int) -> dict:
     return {k: lay[k][i] for k in lay.keys()}
 
 
-def _head(cfg, params):
-    return (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
-            else params["lm_head"])
+def _head(cfg, params, vtp=None):
+    """The unembedding (M, D, V/T) of this rank's vocab slice under the
+    vocab group ``vtp``, or the whole (M, D, V) without one."""
+    if not cfg.tie_embeddings:
+        return params["lm_head"]
+    e = params["embed"]
+    if vtp is not None:
+        v_l = cfg.vocab_size // vtp.size
+        e = e.narrow(1, vtp.rank * v_l, v_l)
+    return e.transpose(-1, -2)
 
 
 def _embed_in(cfg, params, tokens, instances=None):
     return L.embed(tokens, params["embed"], torch_dtype(cfg.dtype), instances)
 
 
-def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device) -> dict:
-    return {"cache": make_cache(cfg, m, b, cache_len, device)}
+def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device,
+                     tp=None) -> dict:
+    return {"cache": make_cache(cfg, m, b, cache_len, device, tp)}
 
 
 def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
-                  instances: list[int] | None = None) -> dict:
+                  instances: list[int] | None = None, tp=None) -> dict:
     """One chunk of a state-carrying prefill (serving admission).
 
     batch["tokens"]: (M, B, C) tokens at absolute positions
@@ -127,22 +144,27 @@ def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
     views; default: row i)."""
     x = _embed_in(cfg, params, batch["tokens"], instances)
     return _prefill_chunk_embeds(cfg, params, x, carry, offset,
-                                 valid=batch.get("valid"), instances=instances)
+                                 valid=batch.get("valid"), instances=instances, tp=tp)
 
 
 def _prefill_chunk_embeds(cfg: ModelConfig, params, x, carry, offset, valid=None,
-                          instances=None) -> dict:
+                          instances=None, tp=None) -> dict:
     """Chunk body on precomputed input embeddings.  What every layer
     shares -- RoPE tables, cache slots, per-lane norm and bias rows -- is
-    computed once per call."""
+    computed once per call.  Under a layer split the chunk attention
+    runs on this rank's heads and a sum over the ranks follows ``wo``
+    and ``w_down``."""
     cache = carry["cache"]
     m, b, c, _ = x.shape
     positions = offset[..., None] + torch.arange(c, dtype=offset.dtype,
                                                  device=offset.device)
     s_cache = cache.k.shape[3]
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    eps = cfg.norm_eps
+    hd, eps = cfg.head_dim, cfg.norm_eps
     lay = params["layers"]
+    ltp = S.layer_group(cfg, tp)
+    n_split = 1 if ltp is None else ltp.size
+    h, kvh = cfg.num_heads // n_split, cfg.num_kv_heads // n_split
+    psum = (lambda t: t) if ltp is None else ltp.all_reduce_sum
     groups = None
     if instances is not None:
         groups = L.LaneGroups(instances, lay["wq"].shape[1], x.device)
@@ -164,44 +186,53 @@ def _prefill_chunk_embeds(cfg: ModelConfig, params, x, carry, offset, valid=None
         v_all = torch.cat([cv, v.to(cv.dtype)], dim=2)
         o = K.chunk_prefill_attention(q, k_all, v_all, offset, s_cache=s_cache,
                                       window=cfg.sliding_window)
-        x = x + L.linear(o.reshape(m, b, c, h * hd), lp["wo"], groups=groups)
+        x = x + psum(L.linear(o.reshape(m, b, c, h * hd), lp["wo"], groups=groups))
         nn_ = L.rms_norm(x, pl["mlp_norm"], eps)
-        x = x + L.swiglu_mlp(nn_, lp["w_gate"], lp["w_up"], lp["w_down"], groups)
+        x = x + psum(L.swiglu_mlp(nn_, lp["w_gate"], lp["w_up"], lp["w_down"], groups))
         L.cache_append_chunk(ck, k, positions, index=index)
         L.cache_append_chunk(cv, v, positions, index=index)
     return carry
 
 
-def _decode_layers(cfg: ModelConfig, params, cache: KVCache, x, pos, alive=None):
-    """The decode-layer kernel over the stack; x (M, B, D) residual."""
+def _decode_layers(cfg: ModelConfig, params, cache: KVCache, x, pos, alive=None, tp=None):
+    """The decode-layer kernels over the stack; x (M, B, D) residual."""
+    ltp = S.layer_group(cfg, tp)
     for i in range(cfg.num_layers):
-        x, _, _ = K.decode_layer(
-            _layer(params, i), x, cache.k[i], cache.v[i], pos,
+        x, _, _ = K.decode_layer_sharded(
+            _layer(params, i), x, cache.k[i], cache.v[i], pos, tp=ltp,
             num_heads=cfg.num_heads, head_dim=cfg.head_dim,
             rope_theta=cfg.rope_theta, window=cfg.sliding_window,
             eps=cfg.norm_eps, alive=alive)
     return x
 
 
-def decode_step(cfg: ModelConfig, params, cache: KVCache, tokens, pos, *, alive=None):
+def decode_step(cfg: ModelConfig, params, cache: KVCache, tokens, pos, *, alive=None,
+                tp=None):
     """One decode step.  tokens (M, B, 1); pos (M, B) int32 = index of
-    this token.  Returns (logits (M, B, V) f32, cache updated in place)."""
+    this token.  Returns (logits (M, B, V) f32, cache updated in place);
+    under tensor parallelism every rank gets the whole vocab's logits."""
     x = _embed_in(cfg, params, tokens)[:, :, 0]
-    x = _decode_layers(cfg, params, cache, x, pos, alive)
+    x = _decode_layers(cfg, params, cache, x, pos, alive, tp)
     n = L.rms_norm(x[:, :, None], params["final_norm"], cfg.norm_eps)
-    return L.unembed(n, _head(cfg, params))[:, :, 0], cache
+    vtp = S.vocab_group(cfg, tp)
+    logits = L.unembed(n, _head(cfg, params, vtp))[:, :, 0]
+    if vtp is not None:
+        logits = vtp.all_gather(logits, dim=-1)
+    return logits, cache
 
 
 def decode_step_sample(cfg: ModelConfig, params, cache: KVCache, tokens, pos, *,
-                       alive=None):
+                       alive=None, tp=None):
     """Greedy decode step: (next token (M, B) int32, cache updated in
-    place).  Final norm, logits and argmax are one fused kernel."""
+    place).  Final norm, logits and argmax are one fused kernel (per
+    vocab slice under tensor parallelism, then a cross-rank combine)."""
     x = _embed_in(cfg, params, tokens)[:, :, 0]
-    x = _decode_layers(cfg, params, cache, x, pos, alive)
-    head = _head(cfg, params)
+    x = _decode_layers(cfg, params, cache, x, pos, alive, tp)
+    vtp = S.vocab_group(cfg, tp)
+    head = _head(cfg, params, vtp)
     if not head.is_contiguous():
         head = head.contiguous()
-    tok = K.logits_sample(x, params["final_norm"], head, eps=cfg.norm_eps)
+    tok = K.logits_sample_sharded(x, params["final_norm"], head, tp=vtp, eps=cfg.norm_eps)
     return tok, cache
 
 
@@ -215,7 +246,11 @@ def chunk_carry_axes(cfg: ModelConfig) -> dict:
     return {"cache": cache_axes(cfg)}
 
 
-def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device) -> KVCache:
+def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device,
+               tp=None) -> KVCache:
+    """The grid's KV cache, (L, M, B, S, KVH, hd); a rank's shard holds its
+    kv heads."""
     s_cache = cfg.sliding_window if cfg.sliding_window else context_len
-    return L.make_kv_cache(cfg.num_layers, m, b, s_cache, cfg.num_kv_heads,
+    kvh = cfg.num_kv_heads if tp is None else S.local_kv_heads(cfg, tp.size)
+    return L.make_kv_cache(cfg.num_layers, m, b, s_cache, kvh,
                            cfg.head_dim, torch_dtype(cfg.dtype), device)

@@ -1,5 +1,6 @@
 """Multi-model serving engine — the paper's deployment scenario (port of
-``repro.serving.engine``, dense, ssm and hybrid families, single device).
+``repro.serving.engine``, dense, ssm and hybrid families; tensor
+parallelism for dense).
 
 M fine-tuned instances of one architecture, merged on a leading
 instances axis, are served from one program over a fixed (M, B) slot
@@ -23,6 +24,14 @@ ssm cells and the hybrid mamba branch keep its recurrent state), so K=1
 and K>1 greedy streams are identical.  An
 adaptive horizon shrinks k while prefill lanes are in flight or requests
 wait.
+
+Under tensor parallelism (``tp``, the reference's ``mesh=``/``rules=``)
+every rank builds the same server on the same requests: it shards the
+params and the caches at construction, the model sums the partials
+across the ranks, and slot and lane surgery runs on the rank's shard.
+Every host decision depends on the requests and the tokens only, never
+on time or on anything one rank holds alone, so the ranks make the same
+device calls in the same order and end with the same tokens.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import torch
 
 from repro_torch import api
 from repro_torch.models import hybrid as H
+from repro_torch.models.shardings import shard_params
 from repro_torch.serving.metrics import ServerMetrics
 from repro_torch.serving.prefill import ChunkedPrefill
 from repro_torch.serving.sampling import make_grid_sampler
@@ -47,7 +57,7 @@ class MultiModelServer:
     def __init__(
         self,
         cfg,
-        params,                    # merged params (instances axis = M)
+        params,                    # merged params (instances axis = M), whole
         *,
         slots_per_instance: int,
         max_context: int,
@@ -61,6 +71,7 @@ class MultiModelServer:
         chunk_budget: int = 4,
         decode_steps: int = 1,
         device=None,
+        tp=None,                   # a TensorParallel handle: this rank's shard
     ):
         if cfg.family not in SERVABLE_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
@@ -70,6 +81,7 @@ class MultiModelServer:
                 raise ValueError(f"hybrid serving needs max_context >= meta+window = "
                                  f"{need}, got {max_context}")
         self.device = api.resolve_device(device)
+        self.tp = tp
         self.cfg = cfg
         self.m = cfg.num_instances
         self.b = slots_per_instance
@@ -80,10 +92,12 @@ class MultiModelServer:
         self.metrics = ServerMetrics(self.m)
         self.prefill = ChunkedPrefill(cfg, max_context=max_context, device=self.device,
                                       chunk=prefill_chunk, lanes=prefill_lanes,
-                                      metrics=self.metrics)
+                                      metrics=self.metrics, tp=tp)
         self.chunk_budget = max(1, chunk_budget)
+        if tp is not None:         # shard where the params lie, move the shard only
+            params = shard_params(cfg, params, tp.rank, tp.size)
         self.params = params.to(self.device)
-        self.cache = api.make_cache(cfg, self.m, self.b, max_context, self.device)
+        self.cache = api.make_cache(cfg, self.m, self.b, max_context, self.device, tp=tp)
         self.pos = np.zeros((self.m, self.b), np.int32)
         self.cur_tok = np.zeros((self.m, self.b), np.int32)
         self.slot_busy = np.zeros((self.m, self.b), bool)
@@ -116,10 +130,10 @@ class MultiModelServer:
         for _ in range(k):
             if self._greedy:
                 picked, _ = api.decode_step_sample(cfg, params, cache, tok[..., None],
-                                                   pos, alive=alive)
+                                                   pos, alive=alive, tp=self.tp)
             else:
                 logits, _ = api.decode_step(cfg, params, cache, tok[..., None], pos,
-                                            alive=alive)
+                                            alive=alive, tp=self.tp)
                 picked = self._sample(logits, self._generator)
             nxt = torch.where(alive, picked, tok)
             new_pos = torch.where(alive, pos + 1, pos)

@@ -1,5 +1,6 @@
 """Chunked prefill for serving admission (port of
-``repro.serving.prefill``, dense, ssm and hybrid families, single device).
+``repro.serving.prefill``, dense, ssm and hybrid families; tensor
+parallelism for dense: ``tp`` makes the carry a rank's shard).
 
 Every prompt streams through ``api.prefill_chunk`` in fixed-size chunks;
 the final partial chunk is padded and masked per position (tail
@@ -68,9 +69,10 @@ class _Lane:
 
 class ChunkedPrefill:
     def __init__(self, cfg, *, max_context: int, device, chunk: int = DEFAULT_CHUNK,
-                 lanes: int = DEFAULT_LANES, metrics=None):
+                 lanes: int = DEFAULT_LANES, metrics=None, tp=None):
         api.family_module(cfg)                # raises for a family not ported
         self.cfg = cfg
+        self.tp = tp
         self.device = torch.device(device)
         self.max_context = max_context
         self.metrics = metrics
@@ -81,10 +83,10 @@ class ChunkedPrefill:
         self.prefix = api.prefill_prefix_len(cfg)
         if self.max_prompt_len() <= 0:
             raise ValueError(f"max_context={max_context} leaves no room for a prompt")
-        self._carry = api.init_chunk_carry(cfg, self.lanes, 1, max_context, self.device)
+        self._carry = api.init_chunk_carry(cfg, self.lanes, 1, max_context, self.device, tp=tp)
         self._carry_axes = api.chunk_carry_axes(cfg)
         # one lane of initial carry: the rows a fresh lane starts from
-        self._init_lane = api.init_chunk_carry(cfg, 1, 1, max_context, self.device)
+        self._init_lane = api.init_chunk_carry(cfg, 1, 1, max_context, self.device, tp=tp)
         self._lanes = [_Lane() for _ in range(self.lanes)]
         self.device_calls = 0               # chunk calls
         self.admitted = 0                   # lanes ever started
@@ -214,7 +216,7 @@ class ChunkedPrefill:
         batch = {"tokens": torch.from_numpy(toks).to(dev),
                  "valid": torch.from_numpy(pvalid).to(dev)}
         api.prefill_chunk(self.cfg, params, batch, self._carry,
-                          torch.from_numpy(offset).to(dev), instances=inst)
+                          torch.from_numpy(offset).to(dev), instances=inst, tp=self.tp)
         self.device_calls += 1
         for lane, adv in staged:
             lane.next_pos += adv

@@ -42,6 +42,13 @@ def _err(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
 
 
+def _part_err(got, want):
+    """Relative to the largest magnitude of ``want`` with no floor: for a
+    partial with no residual, whose values lie far below 1."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
 def _tol(dt):
     return 1e-4 if dt == torch.float32 else 3e-2
 
@@ -92,6 +99,42 @@ def test_decode_layer_kernel_alive(dev):
     torch.cuda.synchronize()
     assert torch.equal(k1[0, 1], k0[0, 1]) and torch.equal(k1[1, 0], k0[1, 0])
     assert not torch.equal(k1[0, 0], k0[0, 0])
+
+
+# per-rank widths under tensor parallelism: (d, h, kvh, hd, ff, bias)
+PHASE_WIDTHS = {
+    "tinyllama-T2": (2048, 16, 2, 64, 2816, False),
+    "tinyllama-T4": (2048, 8, 1, 64, 1408, False),
+    "qwen1.5-T2": (1024, 8, 8, 64, 1408, True),
+}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", sorted(PHASE_WIDTHS))
+def test_decode_layer_phase_kernels(dev, dt, width):
+    """The attention phase (wrapped ring, lanes frozen by ``alive``) and
+    the FFN phase at a rank's widths, against their plain versions.  The
+    partials are held relative to their own largest magnitude."""
+    d, h, kvh, hd, ff, bias = PHASE_WIDTHS[width]
+    m, b, s = 2, 3, 300
+    lp, x, ck, cv = _layer(dev, dt, m, b, d, h, kvh, hd, ff, s, bias)
+    pos = (2 * s - 4 + torch.arange(m * b, device=dev, dtype=torch.int32)).reshape(m, b)
+    alive = torch.tensor([[True, False, True], [False, True, True]], device=dev)
+    kw = dict(num_heads=h, head_dim=hd, rope_theta=10000.0, alive=alive)
+    want = dl.decode_layer_attn_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    ops.reset_launches()
+    got = ops.decode_layer_attn(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    torch.cuda.synchronize()
+    for gt, wt, name, err in zip(got, want, ("partial", "k", "v"), (_part_err, _err, _err)):
+        assert gt.dtype == dt and err(gt, wt) <= _tol(dt), name
+    assert torch.equal(got[1][0, 1], ck[0, 1]) and torch.equal(got[2][1, 0], cv[1, 0])
+    assert not torch.equal(got[1][0, 0], ck[0, 0])
+    ffn = [lp[k] for k in ("mlp_norm", "w_gate", "w_up", "w_down")]
+    got = ops.decode_layer_ffn(x, *ffn)
+    want = dl.ffn_plain(x, *ffn)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and _part_err(got, want) <= _tol(dt)
+    assert ops.launches()["decode_layer_attn"] == ops.launches()["decode_layer_ffn"] == 1
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

@@ -159,6 +159,13 @@ def test_cpu_tensors_route_to_plain_without_launches():
                                  num_heads=4, head_dim=16, rope_theta=10000.0)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    part, _, _ = ops.decode_layer_attn(tlp, _t(x), _t(ck).clone(), _t(cv).clone(), _t(pos),
+                                       num_heads=4, head_dim=16, rope_theta=10000.0)
+    assert torch.equal(part, dl.decode_layer_attn_plain(
+        tlp, _t(x), _t(ck).clone(), _t(cv).clone(), _t(pos), num_heads=4, head_dim=16,
+        rope_theta=10000.0)[0])
+    ffn = [tlp[k] for k in ("mlp_norm", "w_gate", "w_up", "w_down")]
+    assert torch.equal(ops.decode_layer_ffn(_t(x), *ffn), dl.ffn_plain(_t(x), *ffn))
     q = torch.randn(1, 1, 4, 4, 8)
     kv = torch.randn(1, 1, 20, 2, 8)
     off = torch.tensor([[3]], dtype=torch.int32)
@@ -183,7 +190,8 @@ def test_cpu_tensors_route_to_plain_without_launches():
     assert ops.launches() == {"decode_layer": 0, "logits_sample": 0,
                               "chunk_prefill_attention": 0, "slstm_cell": 0,
                               "decode_attention": 0, "fused_matmul": 0,
-                              "group_rms_norm": 0, "mlstm_chunkwise": 0}
+                              "group_rms_norm": 0, "mlstm_chunkwise": 0,
+                              "decode_layer_attn": 0, "decode_layer_ffn": 0}
 
 
 @pytest.mark.parametrize("m,t,d,f,bias", [(2, 5, 16, 24, False), (3, 1, 32, 8, True),
