@@ -30,7 +30,11 @@ non-zero before the result line is printed):
               and junk in the padded steps changing nothing bit for bit;
               the attention and FFN phases of the sharded decode layer at a
               rank's widths of tinyllama-1.1b at TP=2 (H=16, KVH=2, F=2816)
-              over a wrapped ring with lanes frozen by ``alive``;
+              over a wrapped ring with lanes frozen by ``alive``; the
+              sharded decode attention at the hymba-1.5b width for the
+              plan of each rank count (None at TP=2, "kv" at TP=5,
+              "expand" at TP=25, also against the repeat form), every
+              rank's block through the wrapper in this process;
               all in bf16 and f32;
 4. serve   -- three main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
@@ -55,7 +59,18 @@ non-zero before the result line is printed):
               K=8 at 4 layers; the f32 smoke config's cache shards, gathered
               logits and greedy tokens against the single-device plain path
               on the CPU;
-7. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
+7. tp_hybrid -- tensor-parallel hybrid serving over 2 ranks sharing the
+              card (gloo): the full hymba-1.5b (M=4, 16 requests of 16-512
+              tokens, 32 new, K=8, max_context 1536; the attention whole on
+              each rank, FFN and mamba branch split) with every launch
+              counter set to 0 just before and read just after on each
+              rank -- decode_attention_sharded 3 times per decode step,
+              the chunk kernel 32 times per chunk call, the logits once
+              per step; the ranks' streams identical; K=1 == K=8 at 4
+              layers; the "kv" plan end to end over 5 ranks (4 layers,
+              M=2); the f32 smoke config's streams at TP=2 and TP=4
+              ("expand") equal to the single-device plain path on the CPU;
+8. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
               at full width: bert-base and xlnet-base at S=128, resnet50
               and resnext50 at 224x224, bs=1, M in {1, 8, 32} under
               sequential, concurrent (one CUDA stream per instance),
@@ -65,18 +80,19 @@ non-zero before the result line is printed):
               concurrent and hybrid (P=4) element by element against
               sequential (the dtype's kernel tolerance); peak memory per
               strategy and the merge time at M=32;
-8. profile -- the port's kernel profiler on each kernel at the
+9. profile -- the port's kernel profiler on each kernel at the
               architecture that launches it (dense kernels at
               tinyllama-1.1b, sLSTM and mLSTM at xlstm-1.3b, decode
               attention at hymba-1.5b, M=4; the merged matmul also and
               the group RMS norm at bert-base, M=32), every launch counter
               set to 0 just before and read just after: the three kernels
               of this path must have launched;
-9. times   -- each kernel, its plain version and, where one PyTorch call
+10. times  -- each kernel, its plain version and, where one PyTorch call
               computes the same function, that call (SDPA for chunk and
               decode attention, ``torch.bmm`` for the merged matmul) timed
               with CUDA events at the serving / profiler shapes (the two
-              phase kernels at a rank's shapes at TP=2), beside the bound
+              phase kernels at a rank's shapes at TP=2, the sharded decode
+              attention at each plan's per-rank shape), beside the bound
               from bytes and FLOPs.
 
 The line before the last is the per-kernel JSON; the last line is
@@ -114,6 +130,10 @@ TH, TKVH, TF = H // TP, KVH // TP, F // TP
 # requests of the TP serve cell (cut before anything else to keep the script
 # inside its time)
 TP_REQUESTS = 16
+# hymba-1.5b under TP: TP=2 keeps its 25 q heads whole on every rank
+# (plan None), TP=5 splits its 5 kv heads ("kv"), TP=25 gives each rank one
+# q head over the kv head it reads ("expand")
+HYBRID_TPS = (2, 5, 25)
 
 # bf16 tolerance, relative to the largest magnitude of the plain output:
 # one bf16 ulp is 2^-8 = 3.9e-3; the kernels sum in another order than
@@ -215,14 +235,15 @@ def logits_inputs(torch, dev, xdt, seed, dup=True, d=None, v=None):
     return x, scale, head
 
 
-def decode_attn_inputs(torch, dev, dt, seed, lens=None):
-    """q (M,B,25,64), k/v (M,B,1536,5,64) at the hymba-1.5b width and
-    kv_len (M,B): the edges 1, 128 (one split), 129, 1536 and random
-    lengths, unless ``lens`` gives its own range [lo, hi)."""
+def decode_attn_inputs(torch, dev, dt, seed, lens=None, h=YH, kvh=YKVH):
+    """q (M,B,25,64), k/v (M,B,1536,5,64) at the hymba-1.5b width (or a
+    rank's ``h`` q heads over ``kvh`` kv heads) and kv_len (M,B): the
+    edges 1, 128 (one split), 129, 1536 and random lengths, unless
+    ``lens`` gives its own range [lo, hi)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(M, B, YH, HD, generator=g, device=dev).to(dt)
-    k = torch.randn(M, B, YS, YKVH, HD, generator=g, device=dev).to(dt)
-    v = torch.randn(M, B, YS, YKVH, HD, generator=g, device=dev).to(dt)
+    q = torch.randn(M, B, h, HD, generator=g, device=dev).to(dt)
+    k = torch.randn(M, B, YS, kvh, HD, generator=g, device=dev).to(dt)
+    v = torch.randn(M, B, YS, kvh, HD, generator=g, device=dev).to(dt)
     lo, hi = lens or (1, YS + 1)
     kv_len = torch.randint(lo, hi, (M, B), generator=g, device=dev, dtype=torch.int32)
     if lens is None:
@@ -409,6 +430,7 @@ def phase_kernels(torch, dev):
         del pre, r
     errs.update(new_kernel_cases(torch, dev))
     errs.update(phase_kernel_cases(torch, dev))
+    errs.update(sharded_attn_cases(torch, dev))
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
@@ -446,6 +468,59 @@ def phase_kernel_cases(torch, dev):
         assert e <= TOL[dtn], f"decode_layer_ffn {dtn}: {e}"
         errs[f"decode_layer_ffn/{dtn}/TP{TP}"] = e
         del lp, x, ck, cv, got, want
+    return errs
+
+
+def rank_blocks(torch, q, k, v, kv_len, n):
+    """Every rank's output of ``decode_attention_sharded`` over ``n``
+    ranks, each on its block: its q heads and the kv heads it reads (all
+    heads under plan None).  Returns (plan, the outputs in rank order)."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_layer import tp_head_plan
+
+    h, kvh = q.shape[2], k.shape[3]
+    plan = tp_head_plan(h, kvh, n)
+    outs = []
+    for r in range(n):
+        lo, hi, _ = da.rank_kv_heads(h, kvh, n, r) if plan else (0, kvh, None)
+        outs.append(ops.decode_attention_sharded(
+            q.chunk(n, 2)[r].contiguous() if plan else q, k[:, :, :, lo:hi].contiguous(),
+            v[:, :, :, lo:hi].contiguous(), kv_len, plan=plan,
+            tp=SimpleNamespace(rank=r, size=n), num_kv_heads=kvh))
+    return plan, outs
+
+
+def sharded_attn_cases(torch, dev):
+    """``decode_attention_sharded`` at the hymba-1.5b width (25 q heads
+    over 5 kv heads, S=1536, mixed kv_len) over each of HYBRID_TPS ranks,
+    bf16 and f32: every rank's block through the wrapper in this process,
+    the blocks concatenated over the heads against the plain version on
+    the whole heads, and under "expand" also against the plain version on
+    the reference's repeat form (KV repeated to one head per q head)."""
+    from repro_torch.kernels import decode_attn as da
+
+    errs = {}
+    for dtn in ("bfloat16", "float32"):
+        q, k, v, kv_len = decode_attn_inputs(torch, dev, getattr(torch, dtn), 15)
+        want = da.decode_attention_plain(q, k, v, kv_len)
+        for n in HYBRID_TPS:
+            plan, outs = rank_blocks(torch, q, k, v, kv_len, n)
+            got = torch.cat(outs, 2) if plan else outs[0]
+            torch.cuda.synchronize()
+            e = rel_err(got, want)
+            assert e <= TOL[dtn], f"decode_attention_sharded {dtn} T={n} plan={plan}: {e}"
+            errs[f"decode_attention_sharded/{dtn}/T{n}/{plan}"] = e
+            if plan == "expand":
+                g = YH // YKVH
+                rep = da.decode_attention_plain(q, k.repeat_interleave(g, 3),
+                                                v.repeat_interleave(g, 3), kv_len)
+                e = rel_err(got, rep)
+                assert e <= TOL[dtn], f"decode_attention_sharded {dtn} T={n} vs repeat: {e}"
+                errs[f"decode_attention_sharded/{dtn}/T{n}/{plan}/vs_repeat"] = e
+        del q, k, v, want
     return errs
 
 
@@ -908,6 +983,137 @@ def phase_tp(torch, dev):
     return full[0]["launches"]
 
 
+def check_hybrid_rank(cfg, out, n_req, new):
+    """One hybrid TP rank's serve: every request done with ``new`` tokens;
+    decode_attention_sharded 3 times per decode step (the global layers),
+    the plain-device decode_attention and the dense and ssm kernels never,
+    the chunk kernel once per layer and chunk call, the logits once per
+    step.  Returns (decode steps, chunk calls)."""
+    from repro_torch.models import hybrid
+
+    la, snap = out["launches"], out["snapshot"]
+    steps, chunks = snap["decode_steps"], snap["prefill_batches"]
+    n_global = len(hybrid.global_layers(cfg))
+    assert out["statuses"] == ["ok"] * n_req, out["statuses"]
+    assert all(len(t) == new for t in out["streams"].values())
+    assert la["decode_attention_sharded"] == n_global * steps, (la, n_global, steps)
+    assert la["chunk_prefill_attention"] == cfg.num_layers * chunks, (la, chunks)
+    assert la["logits_sample"] == steps, (la, steps)
+    assert la["decode_attention"] == la["decode_layer"] == la["decode_layer_attn"] == 0, la
+    assert la["slstm_cell"] == 0, la
+    return steps, chunks
+
+
+def phase_tp_hybrid(torch, dev):
+    """Tensor-parallel hybrid serving over ranks sharing the card
+    (``mesh.spawn``, gloo).  TP=2, in one spawn: the full hymba-1.5b
+    (M=4, TP_REQUESTS requests of 16-512 tokens, 32 new, K=8,
+    max_context 1536), every launch counter set to 0 just before and
+    read just after; the same model cut to 4 layers at K=1 and K=8; the
+    f32 smoke config (4 layers); the cost of one cross-rank sum at the
+    decode and prefill-chunk shapes.  TP=5: the "kv" plan end to end (4
+    layers, M=2, the widths kept).  TP=4: the f32 smoke config under
+    "expand".  Checked here: the launches of every rank
+    (``check_hybrid_rank``), the ranks' streams identical, K=1 == K=8,
+    and the smoke config's streams equal to the single-device plain path
+    on the CPU."""
+    from types import SimpleNamespace
+
+    from repro_torch import api
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh, serve, tp_parity
+    from repro_torch.models import shardings
+    from repro_torch.serving import MultiModelServer
+
+    cfg = registry.get_config("hymba-1.5b").with_(num_instances=M)
+    cut = cfg.with_(num_layers=4)
+    kv_cut = cfg.with_(num_instances=2, num_layers=4)
+    small = registry.get_smoke_config("hymba-1.5b").with_(num_instances=2, num_layers=4)
+    small_params = api.init(small, torch.Generator().manual_seed(0), "cpu")
+    small_reqs = requests(8, 2, 1, 48, 8, small.vocab_size, 3)
+    small_kw = dict(slots_per_instance=2, max_context=192, prefill_chunk=16, decode_steps=4)
+    serve_kw = dict(slots_per_instance=B, max_context=YS, prefill_chunk=C, prefill_lanes=4,
+                    decode_steps=8)
+    check_kw = dict(slots_per_instance=2, max_context=YS, prefill_chunk=C)
+    check_reqs = requests(12, M, 16, 200, 16, cut.vocab_size, 1)
+    kv_reqs = requests(8, 2, 16, 200, 16, kv_cut.vocab_size, 2)
+    for n, c in ((TP, cfg), (5, kv_cut), (4, small)):
+        sp = shardings.hybrid_split(c, SimpleNamespace(rank=0, size=n))
+        log("tp_hybrid", ranks=n, config=c.name, plan=sp.plan,
+            heads_split=sp.heads is not None, ffn_split=sp.ffn is not None,
+            ssm_split=sp.ssm is not None, rule=repr(mesh.describe(n, "cuda")))
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(
+        mesh.in_turn, TP,
+        (serve.serve_rank, cfg, 0, requests(TP_REQUESTS, M, 16, 512, 32, cfg.vocab_size, 0),
+         serve_kw),
+        (serve.serve_rank, cut, 1, check_reqs, dict(check_kw, decode_steps=1)),
+        (serve.serve_rank, cut, 1, check_reqs, dict(check_kw, decode_steps=8)),
+        (serve.serve_rank, small, small_params, small_reqs, small_kw),
+        (tp_parity.all_reduce_rank, (M, B, YD), 50),
+        (tp_parity.all_reduce_rank, (4, 1, C, YD), 20),
+        device="cuda")
+    log("tp_hybrid", ranks=TP, spawn_and_run_s=round(time.perf_counter() - t0, 1))
+    full = [r[0] for r in ranks]
+    sp = shardings.hybrid_split(cfg, SimpleNamespace(rank=0, size=TP))
+    sums = cfg.num_layers * sum(g is not None for g in (sp.heads, sp.ffn, sp.ssm))
+    for rank, (out, r) in enumerate(zip(full, ranks)):
+        steps, chunks = check_hybrid_rank(cfg, out, TP_REQUESTS, 32)
+        snap, la = out["snapshot"], out["launches"]
+        log("tp_hybrid", arch=cfg.name, rank=rank, device=out["device"],
+            backend=out["backend"], requests=TP_REQUESTS, tokens=snap["generated_tokens"],
+            wall_s=round(out["wall_s"], 3),
+            tok_per_s=round(snap["generated_tokens"] / out["wall_s"], 1),
+            ms_per_decode_step=round(snap["decode_ms_per_step"], 3), decode_steps=steps,
+            decode_blocks=snap["decode_device_calls"],
+            prefill_ms=round(1e3 * snap["prefill_wall_s"], 1), prefill_chunk_calls=chunks,
+            decode_attention_sharded_per_step=round(la["decode_attention_sharded"] / steps, 2),
+            chunk_launches_check=f"{cfg.num_layers}x{chunks}=={la['chunk_prefill_attention']}",
+            peak_gib_on_card=round(out["peak_gib"], 2),
+            launches=json.dumps(la).replace(" ", ""))
+        share = sums * r[4] / snap["decode_ms_per_step"]
+        log("tp_hybrid", rank=rank, all_reduce_ms_decode=round(r[4], 4),
+            all_reduce_ms_prefill_chunk=round(r[5], 4), sums_per_decode_step=sums,
+            sum_share_of_decode_step=f"{share:.1%}")
+    assert all(o["streams"] == full[0]["streams"] for o in full), "the ranks' streams differ"
+    k1, k8 = [r[1]["streams"] for r in ranks], [r[2]["streams"] for r in ranks]
+    assert all(s_ == k1[0] for s_ in k1 + k8), "greedy streams differ between K=1 and K=8"
+    for r in ranks:
+        check_hybrid_rank(cut, r[1], len(check_reqs), 16)
+    log("tp_hybrid", arch=cut.name, layers=cut.num_layers, streams="K1==K8, ranks equal",
+        requests=len(k1[0]), tokens=sum(len(t) for t in k1[0].values()))
+
+    cpu = MultiModelServer(small, small_params, device="cpu", **small_kw)
+    for q in requests(8, 2, 1, 48, 8, small.vocab_size, 3):
+        cpu.submit(q)
+    want = {q.request_id: q.tokens for q in cpu.run_until_drained()}
+    t0 = time.perf_counter()
+    kv_ranks = mesh.spawn(
+        mesh.in_turn, 5, (serve.serve_rank, kv_cut, 2, kv_reqs,
+                          dict(check_kw, decode_steps=8)), device="cuda")
+    expand_ranks = mesh.spawn(mesh.in_turn, 4, (serve.serve_rank, small, small_params,
+                                                small_reqs, small_kw), device="cuda")
+    log("tp_hybrid", ranks="5 and 4", spawn_and_run_s=round(time.perf_counter() - t0, 1))
+    kv = [r[0] for r in kv_ranks]
+    for out in kv:
+        check_hybrid_rank(kv_cut, out, len(kv_reqs), 16)
+    assert all(o["streams"] == kv[0]["streams"] for o in kv), "the kv-plan ranks differ"
+    log("tp_hybrid", arch=kv_cut.name, ranks=5, plan=shardings.head_plan(kv_cut, 5),
+        layers=kv_cut.num_layers,
+        instances=kv_cut.num_instances, streams="ranks equal",
+        tokens=sum(len(t) for t in kv[0]["streams"].values()),
+        ms_per_decode_step=round(kv[0]["snapshot"]["decode_ms_per_step"], 3),
+        launches=json.dumps(kv[0]["launches"]).replace(" ", ""))
+    for n, outs in ((TP, [r[3] for r in ranks]), (4, [r[0] for r in expand_ranks])):
+        for out in outs:
+            check_hybrid_rank(small, out, len(small_reqs), 8)
+            assert out["streams"] == want, f"smoke TP={n}: streams differ from the CPU path"
+        log("tp_hybrid", reference="cpu-plain single device", config=small.name, ranks=n,
+            plan=shardings.head_plan(small, n), requests=len(want),
+            tokens=sum(len(t) for t in want.values()), streams="equal")
+    return full[0]["launches"]
+
+
 def phase_check(torch, dev):
     import numpy as np
 
@@ -1176,6 +1382,7 @@ def phase_times(torch, dev, by_path, profile_launches):
 
     rows += new_time_rows(torch, dev, profile_launches)
     rows += phase_time_rows(torch, dev, launches, per_path)
+    rows.append(sharded_attn_time_row(torch, dev, launches, per_path))
     for r in rows:
         log("times", name=r["name"], ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
@@ -1316,6 +1523,68 @@ def phase_time_rows(torch, dev, launches, per_path):
     return rows
 
 
+def sharded_attn_time_row(torch, dev, launches, per_path):
+    """The times row of ``decode_attention_sharded`` at each plan's
+    per-rank shape of hymba-1.5b (M=4 x B=4 slots, bf16, kv_len inside the
+    served positions, 8 input copies rotating so K/V come from HBM): the
+    main fields at TP=2 (plan None, the TP serve's), the others beside
+    them.  ``launches`` include the hybrid TP serve (rank 0)."""
+    from types import SimpleNamespace
+
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_layer import tp_head_plan
+
+    per_plan = {}
+    for n in HYBRID_TPS:
+        plan = tp_head_plan(YH, YKVH, n)
+        lo, hi, _ = da.rank_kv_heads(YH, YKVH, n, 0) if plan else (0, YKVH, None)
+        h, kvh = (YH // n if plan else YH), hi - lo
+        sets = [decode_attn_inputs(torch, dev, torch.bfloat16, 50 + i, lens=(144, 673),
+                                   h=h, kvh=kvh) for i in range(8)]
+        kw = dict(plan=plan, tp=SimpleNamespace(rank=0, size=n), num_kv_heads=YKVH)
+        got = ops.decode_attention_sharded(*sets[0], **kw)
+        err = abs_err(got, da.decode_attention_plain(*sets[0]))
+        it = iter(range(10 ** 9))
+        ms = time_ms(torch, lambda: ops.decode_attention_sharded(*sets[next(it) % 8], **kw))
+        device_ms = time_queued_ms(
+            torch, lambda: ops.decode_attention_sharded(*sets[next(it) % 8], **kw))
+        plain = time_ms(torch, lambda: da.decode_attention_plain(*sets[next(it) % 8]), reps=5)
+        lib_in = []
+        for q_, k_, v_, l_ in sets:
+            mask = (torch.arange(YS, device=dev) < l_[..., None]).reshape(M * B, 1, 1, YS)
+            lib_in.append((q_.reshape(M * B, h, 1, HD),
+                           k_.reshape(M * B, YS, kvh, HD).transpose(1, 2),
+                           v_.reshape(M * B, YS, kvh, HD).transpose(1, 2), mask))
+        lib = lambda i: Fn.scaled_dot_product_attention(
+            *lib_in[i % 8][:3], attn_mask=lib_in[i % 8][3], enable_gqa=True)
+        assert abs_err(lib(0).reshape(M, B, h, HD), got) < 0.05
+        library = time_ms(torch, lambda: lib(next(it)))
+        valid = sets[0][3].sum().item()
+        nbytes = 2 * M * B * h * HD * 2 + valid * kvh * HD * 2 * 2 + M * B * 4
+        bms, by = bound_ms(nbytes, 4 * h * HD * valid, "bfloat16")
+        per_plan[f"T{n}/{plan}"] = dict(shape=f"q heads {h} over kv heads {kvh}",
+                                       max_abs_err=err, ms=ms, device_ms=device_ms,
+                                       plain_ms=plain, bound_ms=bms, bound_by=by,
+                                       library_ms=library)
+        log("times", name="decode_attention_sharded", ranks=n, plan=plan,
+            shape=f"M={M},B={B},S={YS},H={h},KVH={kvh}", ms=f"{ms:.4f}",
+            device_ms=f"{device_ms:.4f}", plain_ms=f"{plain:.4f}",
+            library_ms=f"{library:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+            of_bound=f"{bms / device_ms:.1%}")
+        del sets, lib_in
+    main = per_plan[f"T{TP}/None"]
+    return dict(name="decode_attention_sharded", route="cuda",
+                source="src/repro_torch/csrc/decode_attn.cu",
+                replaces="src/repro/kernels/decode_attn.py:114",
+                launches=launches["decode_attention_sharded"],
+                launches_by_path=per_path("decode_attention_sharded"),
+                **{k: v for k, v in main.items() if k != "shape"},
+                shape=f"rank of TP={TP}: " + main["shape"], per_plan=per_plan)
+
+
 def main() -> int:
     import torch
 
@@ -1341,6 +1610,7 @@ def main() -> int:
     launches = timed("serve", phase_serve, torch, dev)
     timed("check", phase_check, torch, dev)
     launches[f"tinyllama-1.1b/tp{TP}-rank0"] = timed("tp", phase_tp, torch, dev)
+    launches[f"hymba-1.5b/tp{TP}-rank0"] = timed("tp_hybrid", phase_tp_hybrid, torch, dev)
     timed("paper", phase_paper, torch, dev)
     profile_launches = timed("profile", phase_profile, torch, dev)
     rows = timed("times", phase_times, torch, dev, launches, profile_launches)

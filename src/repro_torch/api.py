@@ -6,7 +6,7 @@ Entry points run on the CUDA device unless the caller asks for the CPU
 instead of carrying on on the CPU.  Families not ported yet raise.
 
 ``tp`` (a ``models.common.TensorParallel``) runs an entry on this rank's
-shard under tensor parallelism; only the dense family takes it.
+shard under tensor parallelism; the dense and hybrid families take it.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
 from repro_torch.models import dense, hybrid, ssm
+from repro_torch.models import shardings as S
 
 _FAMILY = {"dense": dense, "ssm": ssm, "hybrid": hybrid}
 
@@ -44,9 +45,10 @@ def _tp(cfg: ModelConfig, tp) -> dict:
     """The ``tp`` keyword for the family's entry, where there is a handle."""
     if tp is None:
         return {}
-    if cfg.family != "dense":
+    if cfg.family not in S.FAMILIES:
         raise NotImplementedError(
-            f"tensor parallelism is ported for the dense family, not {cfg.family!r}")
+            f"tensor parallelism is ported for the dense and hybrid families, "
+            f"not {cfg.family!r}")
     return {"tp": tp}
 
 

@@ -11,6 +11,10 @@ Contract: ``1 <= kv_len[m, b] <= S``.  The serving path appends the new
 token before it attends, so ``kv_len = min(pos + 1, S)`` is never 0.  At
 ``kv_len = 0`` the reference returns the mean of V over all S slots (a
 uniform softmax over -1e30 scores); the kernel is not defined there.
+
+Under tensor parallelism ``rank_kv_heads`` says which kv heads a rank's
+block of query heads reads; ``ops.decode_attention_sharded`` runs the
+kernel on that block.
 """
 from __future__ import annotations
 
@@ -32,6 +36,23 @@ def _check(q, k, v, kv_len):
         raise ValueError(f"{h} query heads do not group over {k.shape[3]} kv heads")
     if tuple(kv_len.shape) != (m, b):
         raise ValueError(f"kv_len must be ({m}, {b}); got {tuple(kv_len.shape)}")
+
+
+def rank_kv_heads(h: int, kvh: int, n: int, rank: int):
+    """The kv heads that rank ``rank``'s contiguous block of ``h / n``
+    query heads reads (q heads are laid out kvh-major: q head j reads kv
+    head j // (h / kvh)).  Returns (lo, hi, index): the block reads kv
+    heads [lo, hi); ``index`` is None when its q heads group evenly over
+    them, the kernel's layout, else the local kv head of each q head
+    (the block straddles a group boundary unevenly, and attention takes
+    the reference's repeat form).  One device is ``n = 1``."""
+    g, hl = h // kvh, h // n
+    kv = [(rank * hl + j) // g for j in range(hl)]
+    lo, hi = kv[0], kv[-1] + 1
+    local = [i - lo for i in kv]
+    per = hl // (hi - lo)
+    even = per * (hi - lo) == hl and local == [j // per for j in range(hl)]
+    return lo, hi, None if even else local
 
 
 def decode_attention_plain(q, k, v, kv_len):

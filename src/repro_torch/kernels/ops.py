@@ -9,10 +9,12 @@ its main path went through the kernels.
 
 The ``*_sharded`` functions are the tensor-parallel forms (the
 reference's ``shard_map`` wrappers) over a rank's shard and its
-``TensorParallel`` handle, with the collectives written out.  The
-reference's ``chunk_prefill_attention_sharded`` needs none of its own:
-the model computes q, k and v for the rank's heads and calls
-:func:`chunk_prefill_attention` on them.
+``TensorParallel`` handle, with the collectives written out.  Two of
+the reference's wrappers are rank-local: ``decode_attention_sharded``
+launches the decode-attention kernel on a rank's block of heads, and
+``chunk_prefill_attention_sharded`` needs no function of its own (the
+model computes q, k and v for the rank's heads and calls
+:func:`chunk_prefill_attention` on them).
 """
 from __future__ import annotations
 
@@ -58,13 +60,15 @@ _chunk = Kernel("chunk_prefill_attention", _cpa.chunk_prefill_attention_plain,
 _slstm = Kernel("slstm_cell", _sc.slstm_cell_plain, _sc.slstm_cell_cuda)
 _decode_attn = Kernel("decode_attention", _da.decode_attention_plain,
                       _da.decode_attention_cuda)
+_decode_attn_sh = Kernel("decode_attention_sharded", _da.decode_attention_plain,
+                         _da.decode_attention_cuda)
 
 _fused_matmul = Kernel("fused_matmul", _fm.fused_matmul_plain, _fm.fused_matmul_cuda)
 _group_rms = Kernel("group_rms_norm", _gn.group_rms_norm_plain, _gn.group_rms_norm_cuda)
 _mlstm = Kernel("mlstm_chunkwise", _ml.mlstm_chunkwise_plain, _ml.mlstm_chunkwise_cuda)
 
 KERNELS = (_decode_layer, _logits, _chunk, _slstm, _decode_attn, _fused_matmul, _group_rms,
-           _mlstm, _attn_phase, _ffn_phase)
+           _mlstm, _attn_phase, _ffn_phase, _decode_attn_sh)
 
 
 def reset_launches() -> None:
@@ -162,6 +166,38 @@ def decode_attention(q, k, v, kv_len):
     """Single-token GQA attention over the first ``kv_len`` (M, B) slots
     of k, v (M, B, S, KVH, hd); 1 <= kv_len <= S.  Returns (M, B, H, hd)."""
     return _decode_attn(q, q, k, v, kv_len)
+
+
+def decode_attention_sharded(q, k, v, kv_len, *, plan, tp, num_kv_heads: int):
+    """``decode_attention`` on a rank's block (the reference's
+    ``decode_attention_sharded``): rank-local, no collective.  ``tp`` is
+    the ``TensorParallel`` handle (only its rank and size are read), or
+    None on one device, where this is :func:`decode_attention`.  ``plan``
+    is ``tp_head_plan`` of the model's heads over the ranks:
+
+    * None: the q heads do not split; q and k, v hold every head;
+    * "kv": q (M, B, H/T, hd) the rank's heads, k, v its KVH/T kv heads;
+    * "expand": q the rank's H/T heads, k, v (M, B, S, hi - lo, hd) the
+      kv heads [lo, hi) they read (``decode_attn.rank_kv_heads``).  Where
+      the q heads group evenly over them (every rank of hymba-1.5b and
+      hymba-smoke: all its q heads share one kv head) the kernel reads
+      the cache shard as it is; where they straddle a group boundary
+      unevenly, k and v are repeated to one head per q head, the
+      reference's ``jnp.repeat``, a contiguous copy.
+
+    Under a handle the launch counts as ``decode_attention_sharded``."""
+    if tp is None:
+        return decode_attention(q, k, v, kv_len)
+    if plan == "expand":
+        lo, hi, index = _da.rank_kv_heads(q.shape[2] * tp.size, num_kv_heads, tp.size,
+                                          tp.rank)
+        if k.shape[3] != hi - lo:
+            raise ValueError(f"rank {tp.rank} reads kv heads [{lo}, {hi}); its cache shard "
+                             f"holds {k.shape[3]}")
+        if index is not None:
+            idx = torch.tensor(index, device=k.device)
+            k, v = k.index_select(3, idx), v.index_select(3, idx)
+    return _decode_attn_sh(q, q, k, v, kv_len)
 
 
 def fused_matmul(x, w, b=None):

@@ -1,5 +1,5 @@
 """Serving launcher (port of ``repro.launch.serve``, dense, ssm and hybrid
-families; tensor parallelism for dense).
+families; tensor parallelism for dense and hybrid).
 
 Initialises M "fine-tuned" instances as M random initialisations from a
 seed, merges them (the paper's offline merge step, timed), and serves a
@@ -14,6 +14,8 @@ program.  Runs on the CUDA device unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --smoke --device cpu --decode-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --smoke --device cpu --mesh-shape 1x2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --smoke --device cpu --mesh-shape 1x2
 
 ``--mesh-shape 1xT`` serves under tensor parallelism over T ranks, one

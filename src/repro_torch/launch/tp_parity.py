@@ -1,7 +1,9 @@
-"""Rank programs that hold the tensor-parallel dense path against the
+"""Rank programs that hold the tensor-parallel path against the
 single-device one: targets of ``mesh.spawn``, run by the tests on the
-CPU and by ``chip_smoke.py`` on the card.  Each takes the whole model,
-shards it for its rank and returns what it computed, on the CPU.
+CPU and by ``chip_smoke.py`` on the card.  Each takes the whole model
+(``chunk_decode_rank``: a dense one), shards it for its rank and returns
+what it computed, on the CPU.  The hybrid family is held through
+``launch/serve.serve_rank``'s streams.
 """
 from __future__ import annotations
 

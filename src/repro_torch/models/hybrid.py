@@ -21,6 +21,16 @@ through XLA too).  Greedy decode ends in the fused logits kernel.  The
 Mamba branch is plain PyTorch: the SSD chunk scan for a chunk, the
 one-step update for decode.
 
+Tensor parallelism: with a ``TensorParallel`` handle ``tp`` the params
+and caches are this rank's shard (``models/shardings.py`` decides the
+attention heads, the FFN and the mamba branch apart).  A part that
+splits ends in its row-split projection (``wo``, ``w_ssm_out``,
+``w_down``), and the sum over the ranks follows it, before the branch's
+norm: at most three sums per block.  Decode attention of the global
+groups goes through ``decode_attention_sharded`` on the rank's heads,
+the SWA groups' plain attention and the prefill chunk kernel run on the
+rank's heads, and the logits stay whole on every rank.
+
 Caches and states are updated in place.  ``valid`` (M, B, C) marks the
 junk suffix of a padded final chunk: its rows never reach a KV cache and
 take gate-neutral Mamba steps.  ``alive`` (M, B) freezes a stopped decode
@@ -36,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
+from repro_torch.models import shardings as S
 from repro_torch.models.common import Factory, MergedParams, tree_put_slot, tree_take_slot
 from repro_torch.models.layers import KVCache
 from repro_torch.models.ssm import _causal_conv, _lane_rows
@@ -213,7 +224,8 @@ def _ssd_chunk_scan(u, da, b_in, c_out, h0, *, chunk: int = 64):
     return (y_intra + y_inter).reshape(m, b, s, h, hd), hst
 
 
-def mamba_branch(cfg: ModelConfig, lp, xn, *, state=None, valid=None, groups=None):
+def mamba_branch(cfg: ModelConfig, lp, xn, *, state=None, valid=None, groups=None,
+                 tp=None):
     """Selective SSM in SSD (head-shared decay) form.  xn (M, B, S, D);
     state {"h": (M, B, Di, N) f32, "conv": (M, B, K-1, Di)} or None (a
     zero state).  ``valid`` (M, B, S) bool: junk steps are gate-neutral
@@ -221,14 +233,22 @@ def mamba_branch(cfg: ModelConfig, lp, xn, *, state=None, valid=None, groups=Non
     the last valid inputs, so the carried state equals the exact-length
     pass.  S == 1 with a state is the one-step decode update, S > 1 the
     chunk scan.  Returns (out (M, B, S, D), new state); the caller keeps
-    the state."""
+    the state.
+
+    ``tp``, where the branch splits over its ranks: ``lp`` and the state
+    hold this rank's SSM heads (``shardings``: ``w_ssm_in`` is the whole
+    ``xi`` half and the rank's ``z`` half), the conv, B, C and dt are
+    computed whole, and ``out`` is the rank's partial of
+    ``w_ssm_out``."""
     m, b, s, d = xn.shape
     di, n = d_inner(cfg), cfg.ssm_state
-    nh = ssm_heads(cfg)
-    hd = di // nh
+    hd = di // ssm_heads(cfg)
 
-    up = L.linear(xn, lp["w_ssm_in"], groups=groups)               # (M,B,S,2Di)
+    up = L.linear(xn, lp["w_ssm_in"], groups=groups)               # (M,B,S,Di+Di_l)
     xi, z = up[..., :di], up[..., di:]
+    nh = z.shape[-1] // hd                                          # this rank's SSM heads
+    h_lo = 0 if tp is None else tp.rank * nh
+    heads, chans = slice(h_lo, h_lo + nh), slice(h_lo * hd, (h_lo + nh) * hd)
     conv_state = (state["conv"] if state is not None else
                   torch.zeros(m, b, cfg.conv_kernel - 1, di, dtype=xn.dtype,
                               device=xn.device))
@@ -239,9 +259,10 @@ def mamba_branch(cfg: ModelConfig, lp, xn, *, state=None, valid=None, groups=Non
     bcp = L.linear(xc, lp["w_bc"], groups=groups).float()          # (M,B,S,2N)
     b_in, c_out = bcp[..., :n], bcp[..., n:]
     dt = F.softplus(L.linear(xc, lp["w_dt"], groups=groups).float()
-                    + lp["b_dt"][:, None, None, :].float())        # (M,B,S,H)
-    a = -torch.exp(lp["a_log"].float())                            # (M,H)
+                    + lp["b_dt"][:, None, None, :].float())[..., heads]   # (M,B,S,H)
+    a = -torch.exp(lp["a_log"].float())[:, heads]                  # (M,H)
     da = dt * a[:, None, None, :]                                  # <= 0
+    xc = xc[..., chans]
     u = dt[..., None] * xc.reshape(m, b, s, nh, hd).float()        # (M,B,S,H,hd)
     if valid is not None:
         da = torch.where(valid[..., None], da, torch.zeros_like(da))
@@ -251,16 +272,16 @@ def mamba_branch(cfg: ModelConfig, lp, xn, *, state=None, valid=None, groups=Non
         h0 = (state["h"].reshape(m, b, nh, hd, n) if state is not None else
               torch.zeros(m, b, nh, hd, n, device=xn.device))
         y, h_fin = _ssd_chunk_scan(u, da, b_in, c_out, h0)
-        y = y.reshape(m, b, s, di)
+        y = y.reshape(m, b, s, nh * hd)
     else:
         h0 = state["h"].reshape(m, b, nh, hd, n)
         h_fin = (torch.exp(da[:, :, 0])[..., None, None] * h0
                  + u[:, :, 0][..., None] * b_in[:, :, 0][:, :, None, None, :])
-        y = torch.einsum("mbhdn,mbn->mbhd", h_fin, c_out[:, :, 0]).reshape(m, b, 1, di)
+        y = torch.einsum("mbhdn,mbn->mbhd", h_fin, c_out[:, :, 0]).reshape(m, b, 1, nh * hd)
 
     y = y.to(xn.dtype) + xc * lp["d_skip"][:, None, None, :].to(xn.dtype)
     out = L.linear(y * F.silu(z), lp["w_ssm_out"], groups=groups)
-    return out, {"h": h_fin.reshape(m, b, di, n), "conv": new_conv}
+    return out, {"h": h_fin.reshape(m, b, nh * hd, n), "conv": new_conv}
 
 
 # ---------------------------------------------------------------------------
@@ -268,27 +289,34 @@ def mamba_branch(cfg: ModelConfig, lp, xn, *, state=None, valid=None, groups=Non
 # ---------------------------------------------------------------------------
 
 
-def hymba_block(cfg: ModelConfig, lp, x, attend, ssm_state: dict, *, valid=None,
-                groups=None):
+def hymba_block(cfg: ModelConfig, lp, x, attend, ssm_state: dict, *, split: S.HybridSplit,
+                valid=None, groups=None):
     """One hybrid block on x (M, B, S, D).  ``attend(xn)`` is the attention
     branch (projections, cache write, attention, out-projection) of this
-    layer's cache; ``ssm_state`` {"h", "conv"} is updated in place."""
+    layer's cache; ``ssm_state`` {"h", "conv"} is updated in place.
+    ``split`` (``shardings.hybrid_split``) names the parts that split
+    over the ranks: each one's partial is summed before its norm."""
     eps = cfg.norm_eps
     xn = L.rms_norm(x, lp["norm"], eps)
-    attn_out = attend(xn)
-    ssm_out, new = mamba_branch(cfg, lp, xn, state=ssm_state, valid=valid, groups=groups)
+    attn_out = S.sum_over(split.heads, attend(xn))
+    ssm_out, new = mamba_branch(cfg, lp, xn, state=ssm_state, valid=valid, groups=groups,
+                                tp=split.ssm)
+    ssm_out = S.sum_over(split.ssm, ssm_out)
     ssm_state["h"].copy_(new["h"])
     ssm_state["conv"].copy_(new["conv"])
     fused = 0.5 * (L.rms_norm(attn_out, lp["attn_out_norm"], eps)
                    + L.rms_norm(ssm_out, lp["ssm_out_norm"], eps))
     x = x + fused
     nrm = L.rms_norm(x, lp["mlp_norm"], eps)
-    return x + L.swiglu_mlp(nrm, lp["w_gate"], lp["w_up"], lp["w_down"], groups)
+    return x + S.sum_over(split.ffn, L.swiglu_mlp(nrm, lp["w_gate"], lp["w_up"],
+                                                  lp["w_down"], groups))
 
 
 def _qkv(cfg, lp, xn, cos, sin, groups=None):
+    """q, k, v of the heads ``lp`` holds (a rank's share under a split)."""
     m, b, s, _ = xn.shape
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h, kvh = lp["wq"].shape[-1] // hd, lp["wk"].shape[-1] // hd
     q = L.linear(xn, lp["wq"], groups=groups).reshape(m, b, s, h, hd)
     k = L.linear(xn, lp["wk"], groups=groups).reshape(m, b, s, kvh, hd)
     v = L.linear(xn, lp["wv"], groups=groups).reshape(m, b, s, kvh, hd)
@@ -304,23 +332,38 @@ def _ssm_layer(cache, i: int) -> dict:
     return {k: v[i] for k, v in cache["ssm"].items()}
 
 
+def _kv_for_q(split: S.HybridSplit, device):
+    """Where a rank's q heads straddle kv groups unevenly, the function
+    that repeats k, v (..., KVH_l, hd) to one head per q head (the
+    reference's repeat form, a copy); else the identity."""
+    if split.kv_index is None:
+        return lambda t: t
+    idx = torch.tensor(split.kv_index, device=device)
+    return lambda t: t.index_select(-2, idx)
+
+
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
 
 
-def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device) -> dict:
+def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device,
+               tp=None) -> dict:
     """Per decode group a KV cache (meta + SWA ring for SWA groups, the
-    whole context for global groups) and per layer the mamba state."""
+    whole context for global groups) and per layer the mamba state; a
+    rank's shard holds the kv heads its q heads read and the state of
+    its SSM heads (the conv window stays whole)."""
     w = swa_window(cfg)
     act = torch_dtype(cfg.dtype)
+    sp = S.hybrid_split(cfg, tp)
     kv = []
     for (i0, i1, is_global) in decode_groups(cfg):
         s_cache = context_len if is_global else min(NUM_META_TOKENS + w, context_len)
-        kv.append(L.make_kv_cache(i1 - i0, m, b, s_cache, cfg.num_kv_heads,
+        kv.append(L.make_kv_cache(i1 - i0, m, b, s_cache, sp.kv_hi - sp.kv_lo,
                                   cfg.head_dim, act, device))
     di, nl = d_inner(cfg), cfg.num_layers
-    ssm = {"h": torch.zeros(nl, m, b, di, cfg.ssm_state, device=device),
+    di_l = di if sp.ssm is None else di // sp.ssm.size
+    ssm = {"h": torch.zeros(nl, m, b, di_l, cfg.ssm_state, device=device),
            "conv": torch.zeros(nl, m, b, cfg.conv_kernel - 1, di, dtype=act, device=device)}
     return {"kv": kv, "ssm": ssm}
 
@@ -336,8 +379,9 @@ def _swa_slot_positions(pos, s_cache: int):
     return torch.cat([meta, ring], dim=-1)
 
 
-def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device) -> dict:
-    return {"cache": make_cache(cfg, m, b, cache_len, device)}
+def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device,
+                     tp=None) -> dict:
+    return {"cache": make_cache(cfg, m, b, cache_len, device, tp)}
 
 
 def cache_axes(cfg: ModelConfig) -> dict:
@@ -373,7 +417,7 @@ def put_state(cfg: ModelConfig, grid, one, m: int, b: int):
 
 
 def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
-                  instances: list[int] | None = None) -> dict:
+                  instances: list[int] | None = None, tp=None) -> dict:
     """One chunk of a state-carrying prefill.  Positions [0, R) are the
     meta tokens (embeddings from ``params["meta_tokens"]``; the chunk's
     token ids there are ignored), prompt tokens follow at R + i.  Per
@@ -381,7 +425,8 @@ def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
     chunk] through the chunk-attention kernel with the group's ``pin``,
     ``window`` and the meta ``sink``, then appends its k/v in place;
     mamba states thread through ``mamba_branch``.  ``instances`` maps row
-    i of the batch to row ``instances[i]`` of the merged model."""
+    i of the batch to row ``instances[i]`` of the merged model.  Under
+    ``tp`` the chunk kernel runs on the rank's q and kv heads."""
     tokens, valid = batch["tokens"], batch.get("valid")
     cache = carry["cache"]
     m, b, c = tokens.shape
@@ -400,7 +445,8 @@ def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
     x = torch.where((positions < r)[..., None], meta_x, tok_x)
     cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, act)
     w = swa_window(cfg)
-    h, hd = cfg.num_heads, cfg.head_dim
+    split = S.hybrid_split(cfg, tp)
+    per_q = _kv_for_q(split, x.device)
 
     for gi, (i0, i1, is_global) in enumerate(decode_groups(cfg)):
         kv = cache["kv"][gi]
@@ -417,20 +463,22 @@ def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
                 q, k, v = _qkv(cfg, lp, xn, cos, sin, groups)
                 k_all = torch.cat([ck, k.to(ck.dtype)], dim=2)
                 v_all = torch.cat([cv, v.to(cv.dtype)], dim=2)
-                o = K.chunk_prefill_attention(q, k_all, v_all, offset, s_cache=s_cache,
-                                              pin=pin, window=win, sink=r)
+                o = K.chunk_prefill_attention(q, per_q(k_all), per_q(v_all), offset,
+                                              s_cache=s_cache, pin=pin, window=win, sink=r)
                 L.cache_append_chunk(ck, k, positions, index=index)
                 L.cache_append_chunk(cv, v, positions, index=index)
-                return L.linear(o.reshape(m, b, c, h * hd), lp["wo"], groups=groups)
+                return L.linear(o.reshape(m, b, c, -1), lp["wo"], groups=groups)
 
             x = hymba_block(cfg, lp, x, attend, _ssm_layer(cache, li), valid=valid,
-                            groups=groups)
+                            groups=groups, split=split)
     return carry
 
 
-def _decode_trunk(cfg: ModelConfig, params, cache, tokens, pos, alive=None):
+def _decode_trunk(cfg: ModelConfig, params, cache, tokens, pos, alive=None, tp=None):
     """Every block over one token per lane; tokens (M, B, 1), pos (M, B)
-    the absolute position including the meta offset."""
+    the absolute position including the meta offset.  The global groups'
+    attention is ``decode_attention_sharded`` under ``tp`` (the rank's
+    block, every plan), ``decode_attention`` on one device."""
     m, b, _ = tokens.shape
     r = NUM_META_TOKENS
     act = torch_dtype(cfg.dtype)
@@ -439,7 +487,8 @@ def _decode_trunk(cfg: ModelConfig, params, cache, tokens, pos, alive=None):
     cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, act)
     valid = alive[..., None] if alive is not None else None
     w = swa_window(cfg)
-    h, hd = cfg.num_heads, cfg.head_dim
+    split = S.hybrid_split(cfg, tp)
+    per_q = _kv_for_q(split, x.device)
 
     for gi, (i0, i1, is_global) in enumerate(decode_groups(cfg)):
         kv = cache["kv"][gi]
@@ -461,30 +510,35 @@ def _decode_trunk(cfg: ModelConfig, params, cache, tokens, pos, alive=None):
                 L.cache_update_one(ck, k, slot, alive)
                 L.cache_update_one(cv, v, slot, alive)
                 if is_global:
-                    o = K.decode_attention(q[:, :, 0], ck, cv, kv_len)[:, :, None]
+                    o = K.decode_attention_sharded(q[:, :, 0], ck, cv, kv_len,
+                                                   plan=split.plan, tp=tp,
+                                                   num_kv_heads=cfg.num_kv_heads)[:, :, None]
                 else:
-                    o = L.flash_attention_plain(q, ck, cv, positions, kv_pos, window=w,
-                                                sink=r)
-                return L.linear(o.reshape(m, b, 1, h * hd), lp["wo"])
+                    o = L.flash_attention_plain(q, per_q(ck), per_q(cv), positions, kv_pos,
+                                                window=w, sink=r)
+                return L.linear(o.reshape(m, b, 1, -1), lp["wo"])
 
-            x = hymba_block(cfg, lp, x, attend, _ssm_layer(cache, li), valid=valid)
+            x = hymba_block(cfg, lp, x, attend, _ssm_layer(cache, li), valid=valid,
+                            split=split)
     return x
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None):
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None, tp=None):
     """tokens (M, B, 1); pos (M, B) absolute position including the meta
     offset (the first generated token decodes at pos = R + len(prompt) - 1
     with the last prompt token).  Returns (logits (M, B, V) f32, cache
-    updated in place)."""
-    x = _decode_trunk(cfg, params, cache, tokens, pos, alive)
+    updated in place); under ``tp`` every rank computes the whole."""
+    x = _decode_trunk(cfg, params, cache, tokens, pos, alive, tp)
     n = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(n, params["lm_head"])[:, :, 0], cache
 
 
-def decode_step_sample(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None):
+def decode_step_sample(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None,
+                       tp=None):
     """Greedy decode step: (next token (M, B) int32, cache updated in
-    place).  Final norm, logits and argmax are the fused logits kernel."""
-    x = _decode_trunk(cfg, params, cache, tokens, pos, alive)
-    tok = K.logits_sample(x[:, :, 0], params["final_norm"], params["lm_head"],
-                          eps=cfg.norm_eps)
+    place).  Final norm, logits and argmax are the fused logits kernel,
+    over the whole vocab on every rank (V is odd: it never splits)."""
+    x = _decode_trunk(cfg, params, cache, tokens, pos, alive, tp)
+    tok = K.logits_sample_sharded(x[:, :, 0], params["final_norm"], params["lm_head"],
+                                  tp=None, eps=cfg.norm_eps)
     return tok, cache

@@ -1,6 +1,6 @@
 """Multi-model serving engine — the paper's deployment scenario (port of
 ``repro.serving.engine``, dense, ssm and hybrid families; tensor
-parallelism for dense).
+parallelism for dense and hybrid).
 
 M fine-tuned instances of one architecture, merged on a leading
 instances axis, are served from one program over a fixed (M, B) slot

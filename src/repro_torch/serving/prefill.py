@@ -1,6 +1,7 @@
 """Chunked prefill for serving admission (port of
 ``repro.serving.prefill``, dense, ssm and hybrid families; tensor
-parallelism for dense: ``tp`` makes the carry a rank's shard).
+parallelism for dense and hybrid: ``tp`` makes the carry a rank's
+shard).
 
 Every prompt streams through ``api.prefill_chunk`` in fixed-size chunks;
 the final partial chunk is padded and masked per position (tail

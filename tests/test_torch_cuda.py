@@ -240,6 +240,40 @@ def test_decode_attention_kernel(dev, dt, h, kvh, hd, s):
     assert torch.equal(ops.decode_attention(q, k2, v2, kv_len), got)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,n", [(25, 5, 2), (25, 5, 5), (25, 5, 25), (4, 2, 4),
+                                     (12, 3, 2)])
+def test_decode_attention_sharded_kernel(dev, dt, h, kvh, n):
+    """Each rank's block through the sharded wrapper (plans None, "kv",
+    "expand" and an uneven straddle), concatenated over the heads,
+    against the plain version on the whole heads; one launch per rank."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.decode_layer import tp_head_plan
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    m, b, hd, s = 2, 3, 64, 300
+    q = torch.randn(m, b, h, hd, generator=g, device=dev).to(dt)
+    k = torch.randn(m, b, s, kvh, hd, generator=g, device=dev).to(dt)
+    v = torch.randn(m, b, s, kvh, hd, generator=g, device=dev).to(dt)
+    kv_len = torch.tensor([[1, s, 129], [s - 1, 77, 200]], dtype=torch.int32, device=dev)
+    plan = tp_head_plan(h, kvh, n)
+    ops.reset_launches()
+    outs = []
+    for r in range(n):
+        lo, hi, _ = da.rank_kv_heads(h, kvh, n, r) if plan else (0, kvh, None)
+        outs.append(ops.decode_attention_sharded(
+            q.chunk(n, 2)[r].contiguous() if plan else q, k[:, :, :, lo:hi].contiguous(),
+            v[:, :, :, lo:hi].contiguous(), kv_len, plan=plan,
+            tp=SimpleNamespace(rank=r, size=n), num_kv_heads=kvh))
+    got = torch.cat(outs, 2) if plan else outs[0]
+    want = da.decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert ops.launches()["decode_attention_sharded"] == n
+    assert ops.launches()["decode_attention"] == 0
+    assert got.dtype == dt and _err(got, want) <= _tol(dt)
+
+
 def _cell(dev, dt, rdt, m, b, s, h, hd, seed=3):
     """Gate pre-activations with neutral (junk) steps on some lanes and a
     non-zero carried state."""

@@ -6,6 +6,8 @@ the same rounding points; what is left is summation order (XLA's vs
 torch's matmul and softmax reductions), a few ulps over these widths.
 Greedy tokens are compared exactly, ties included.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -179,6 +181,12 @@ def test_cpu_tensors_route_to_plain_without_launches():
     assert torch.equal(
         ops.decode_attention(q[:, :, 0], kv, kv, torch.tensor([[5]], dtype=torch.int32)),
         da.decode_attention_plain(q[:, :, 0], kv, kv, torch.tensor([[5]], dtype=torch.int32)))
+    assert torch.equal(
+        ops.decode_attention_sharded(q[:, :, 0, :2], kv[:, :, :, :1], kv[:, :, :, :1],
+                                     torch.tensor([[5]], dtype=torch.int32), plan="kv",
+                                     tp=types.SimpleNamespace(rank=0, size=2), num_kv_heads=2),
+        da.decode_attention_plain(q[:, :, 0, :2], kv[:, :, :, :1], kv[:, :, :, :1],
+                                  torch.tensor([[5]], dtype=torch.int32)))
     x, w = torch.randn(2, 3, 8), torch.randn(2, 8, 4)
     assert torch.equal(ops.fused_matmul(x, w), fm.fused_matmul_plain(x, w))
     assert torch.equal(ops.group_rms_norm(x, torch.ones(2, 8)),
@@ -191,7 +199,8 @@ def test_cpu_tensors_route_to_plain_without_launches():
                               "chunk_prefill_attention": 0, "slstm_cell": 0,
                               "decode_attention": 0, "fused_matmul": 0,
                               "group_rms_norm": 0, "mlstm_chunkwise": 0,
-                              "decode_layer_attn": 0, "decode_layer_ffn": 0}
+                              "decode_layer_attn": 0, "decode_layer_ffn": 0,
+                              "decode_attention_sharded": 0}
 
 
 @pytest.mark.parametrize("m,t,d,f,bias", [(2, 5, 16, 24, False), (3, 1, 32, 8, True),
