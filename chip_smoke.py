@@ -30,12 +30,18 @@ non-zero before the result line is printed):
               and junk in the padded steps changing nothing bit for bit;
               the attention and FFN phases of the sharded decode layer at a
               rank's widths of tinyllama-1.1b at TP=2 (H=16, KVH=2, F=2816)
-              over a wrapped ring with lanes frozen by ``alive``; the
+              over a wrapped ring with lanes frozen by ``alive``, at M=4
+              and at a data rank's M_L=2, and the whole layer and the
+              logits (V and a rank's V/2) at M_L=2; the
               sharded decode attention at the hymba-1.5b width for the
               plan of each rank count (None at TP=2, "kv" at TP=5,
               "expand" at TP=25, also against the repeat form), every
               rank's block through the wrapper in this process;
-              all in bf16 and f32;
+              ``fused_matmul_sharded`` on every rank's block at meshes
+              1x2, 2x1 and 2x2 at (4, 4, 2048, 5632) and (32, 128, 768,
+              3072) with and without bias and at M=3, F=77 (replicated),
+              each block and the reassembled output against the plain
+              version; all in bf16 and f32;
 4. serve   -- three main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
               the full tinyllama-1.1b config (dense: decode layer, chunk
@@ -70,7 +76,24 @@ non-zero before the result line is printed):
               layers; the "kv" plan end to end over 5 ranks (4 layers,
               M=2); the f32 smoke config's streams at TP=2 and TP=4
               ("expand") equal to the single-device plain path on the CPU;
-8. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
+8. data    -- serving on a (data=D, model=T) mesh, the D*T ranks sharing
+              the card (gloo), at 2x1 and 2x2: the full tinyllama-1.1b (M=4,
+              16 requests of 16-512 tokens, 32 new, K=8), every launch
+              counter set to 0 just before and read just after on each rank
+              -- at 2x1 the whole-layer kernel 22 times per decode step, at
+              2x2 the attention and FFN phases 22 times each, the chunk
+              kernel and the logits in both; the ranks' streams identical;
+              the f32 smoke config's streams equal to the single-device
+              plain path on the CPU; the 2x1 streams equal to one device
+              serving each data rank's instance rows at M_L=2 (bf16:
+              rounding depends on the instance count a call holds, not on
+              the mesh); at 2x2 K=1 == K=8 at 4 layers and
+              ``fused_matmul_sharded`` on each rank's block of a seeded
+              (4, 4, 2048, 5632) problem with bias, reassembled against the
+              plain version, each rank's wrapper launched once per call;
+              reported: the data gather's and the model sums' ms, how many
+              2x1 streams equal the single-device ones at M=4;
+9. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
               at full width: bert-base and xlnet-base at S=128, resnet50
               and resnext50 at 224x224, bs=1, M in {1, 8, 32} under
               sequential, concurrent (one CUDA stream per instance),
@@ -80,20 +103,21 @@ non-zero before the result line is printed):
               concurrent and hybrid (P=4) element by element against
               sequential (the dtype's kernel tolerance); peak memory per
               strategy and the merge time at M=32;
-9. profile -- the port's kernel profiler on each kernel at the
+10. profile -- the port's kernel profiler on each kernel at the
               architecture that launches it (dense kernels at
               tinyllama-1.1b, sLSTM and mLSTM at xlstm-1.3b, decode
               attention at hymba-1.5b, M=4; the merged matmul also and
               the group RMS norm at bert-base, M=32), every launch counter
               set to 0 just before and read just after: the three kernels
               of this path must have launched;
-10. times  -- each kernel, its plain version and, where one PyTorch call
+11. times  -- each kernel, its plain version and, where one PyTorch call
               computes the same function, that call (SDPA for chunk and
               decode attention, ``torch.bmm`` for the merged matmul) timed
               with CUDA events at the serving / profiler shapes (the two
               phase kernels at a rank's shapes at TP=2, the sharded decode
-              attention at each plan's per-rank shape), beside the bound
-              from bytes and FLOPs.
+              attention at each plan's per-rank shape, the sharded merged
+              matmul at a rank's block at 2x2), beside the bound from bytes
+              and FLOPs.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -134,6 +158,13 @@ TP_REQUESTS = 16
 # (plan None), TP=5 splits its 5 kv heads ("kv"), TP=25 gives each rank one
 # q head over the kv head it reads ("expand")
 HYBRID_TPS = (2, 5, 25)
+# the data axis: the (data, model) meshes of the data phase, all ranks on the
+# one card over gloo; fused_matmul_sharded's blocks are checked on these and
+# on 1x2
+DATA_MESHES = ((2, 1), (2, 2))
+MATMUL_MESHES = ((1, 2), (2, 1), (2, 2))
+# a data rank's instance rows at D=2: the decode kernels run at M_L, not M
+M_L = M // 2
 
 # bf16 tolerance, relative to the largest magnitude of the plain output:
 # one bf16 ulp is 2^-8 = 3.9e-3; the kernels sum in another order than
@@ -183,24 +214,25 @@ def bound_ms(nbytes, flops, dtype):
 # ---------------------------------------------------------------------------
 
 
-def layer_inputs(torch, dev, dt, seed, bias=False, h=H, kvh=KVH, ff=F):
-    """One layer's weights, x and ring at the tinyllama width (default) or
-    at a rank's share of the heads and FFN (``h``, ``kvh``, ``ff``)."""
+def layer_inputs(torch, dev, dt, seed, bias=False, h=H, kvh=KVH, ff=F, m=M):
+    """One layer's weights, x and ring of ``m`` instances at the tinyllama
+    width (default) or at a rank's share of the heads and FFN (``h``,
+    ``kvh``, ``ff``)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *shp, sc=1.0: torch.randn(shp, generator=g, device=dev) * sc
     lp = {
-        "attn_norm": 1 + 0.1 * r(M, D), "mlp_norm": 1 + 0.1 * r(M, D),
-        "wq": r(M, D, h * HD, sc=D ** -0.5).to(dt), "wk": r(M, D, kvh * HD, sc=D ** -0.5).to(dt),
-        "wv": r(M, D, kvh * HD, sc=D ** -0.5).to(dt),
-        "wo": r(M, h * HD, D, sc=(H * HD) ** -0.5).to(dt),
-        "w_gate": r(M, D, ff, sc=D ** -0.5).to(dt), "w_up": r(M, D, ff, sc=D ** -0.5).to(dt),
-        "w_down": r(M, ff, D, sc=F ** -0.5).to(dt),
+        "attn_norm": 1 + 0.1 * r(m, D), "mlp_norm": 1 + 0.1 * r(m, D),
+        "wq": r(m, D, h * HD, sc=D ** -0.5).to(dt), "wk": r(m, D, kvh * HD, sc=D ** -0.5).to(dt),
+        "wv": r(m, D, kvh * HD, sc=D ** -0.5).to(dt),
+        "wo": r(m, h * HD, D, sc=(H * HD) ** -0.5).to(dt),
+        "w_gate": r(m, D, ff, sc=D ** -0.5).to(dt), "w_up": r(m, D, ff, sc=D ** -0.5).to(dt),
+        "w_down": r(m, ff, D, sc=F ** -0.5).to(dt),
     }
     if bias:
-        lp.update(bq=r(M, h * HD, sc=0.1).to(dt), bk=r(M, kvh * HD, sc=0.1).to(dt),
-                  bv=r(M, kvh * HD, sc=0.1).to(dt))
-    x = r(M, B, D).to(dt)
-    ck, cv = r(M, B, S, kvh, HD).to(dt), r(M, B, S, kvh, HD).to(dt)
+        lp.update(bq=r(m, h * HD, sc=0.1).to(dt), bk=r(m, kvh * HD, sc=0.1).to(dt),
+                  bv=r(m, kvh * HD, sc=0.1).to(dt))
+    x = r(m, B, D).to(dt)
+    ck, cv = r(m, B, S, kvh, HD).to(dt), r(m, B, S, kvh, HD).to(dt)
     return lp, x, ck, cv
 
 
@@ -216,16 +248,16 @@ def chunk_inputs(torch, dev, dt, seed, m, b, offsets, s=None, h=None, kvh=None):
     return q, k, v, off
 
 
-def logits_inputs(torch, dev, xdt, seed, dup=True, d=None, v=None):
-    """x (M,B,d), scale (M,d), f32 head (M,d,v) (default: the tinyllama
-    width D, V).  With ``dup``, one column is made the clear winner for
-    every lane and copied to an earlier and a later index: the answer must
-    be the earlier copy, bit-exactly tied."""
+def logits_inputs(torch, dev, xdt, seed, dup=True, d=None, v=None, m=M):
+    """x (m,B,d), scale (m,d), f32 head (m,d,v) (default: M instances at
+    the tinyllama width D, V).  With ``dup``, one column is made the clear
+    winner for every lane and copied to an earlier and a later index: the
+    answer must be the earlier copy, bit-exactly tied."""
     d, v = d or D, v or V
     g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn(M, B, d, generator=g, device=dev).to(xdt)
-    scale = 1 + 0.1 * torch.randn(M, d, generator=g, device=dev)
-    head = torch.randn(M, d, v, generator=g, device=dev) * d ** -0.5
+    x = torch.randn(m, B, d, generator=g, device=dev).to(xdt)
+    scale = 1 + 0.1 * torch.randn(m, d, generator=g, device=dev)
+    head = torch.randn(m, d, v, generator=g, device=dev) * d ** -0.5
     if dup:
         xf = x.float()
         n = xf / xf.pow(2).mean(-1, keepdim=True).add(1e-5).sqrt() * scale[:, None]
@@ -431,6 +463,7 @@ def phase_kernels(torch, dev):
     errs.update(new_kernel_cases(torch, dev))
     errs.update(phase_kernel_cases(torch, dev))
     errs.update(sharded_attn_cases(torch, dev))
+    errs.update(sharded_matmul_cases(torch, dev))
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
@@ -441,33 +474,78 @@ def phase_kernel_cases(torch, dev):
     """The two halves of the sharded decode layer at a rank's widths of
     tinyllama-1.1b at TP=2 against their plain versions, bf16 and f32: the
     attention phase over a wrapped ring with lanes frozen by ``alive``
-    (their ring rows compared bit for bit with the input), the FFN phase.
-    The partials carry no residual and lie far below 1, so they are held
-    relative to their own largest magnitude (``part_err``)."""
+    (their ring rows compared bit for bit with the input), the FFN phase;
+    at M instances (the tp phase) and at a data rank's M_L (the 2x2 mesh
+    of the data phase).  The partials carry no residual and lie far below
+    1, so they are held relative to their own largest magnitude
+    (``part_err``).  Then the whole layer and the greedy logits at M_L
+    (the 2x1 mesh; the logits also on a rank's vocab slice at 2x2): the
+    decode matvec splits its sum by the instance count, so M_L is a
+    configuration of its own."""
     from repro_torch.kernels import decode_layer as dl
 
     errs = {}
     g = torch.Generator(device=dev).manual_seed(17)
-    for dtn in ("bfloat16", "float32"):
+    for m in (M, M_L):
+        for dtn in ("bfloat16", "float32"):
+            dt = getattr(torch, dtn)
+            lp, x, ck, cv = layer_inputs(torch, dev, dt, 18, h=TH, kvh=TKVH, ff=TF, m=m)
+            pos = (S + torch.randint(0, S, (m, B), generator=g, device=dev)).to(torch.int32)
+            alive = torch.rand(m, B, generator=g, device=dev) < 0.75
+            alive[0, 0] = False
+            kw = dict(num_heads=TH, head_dim=HD, rope_theta=10000.0, alive=alive)
+            want = dl.decode_layer_attn_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+            got = dl.decode_layer_attn_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+            torch.cuda.synchronize()
+            e = max(part_err(got[0], want[0]),
+                    *(rel_err(a, b) for a, b in zip(got[1:], want[1:])))
+            assert e <= TOL[dtn], f"decode_layer_attn {dtn} M={m}: {e}"
+            assert torch.equal(got[1][~alive], ck[~alive])
+            assert torch.equal(got[2][~alive], cv[~alive])
+            errs[f"decode_layer_attn/{dtn}/M{m}/TP{TP}/wrapped/alive"] = e
+            ffn = [lp[k] for k in ("mlp_norm", "w_gate", "w_up", "w_down")]
+            e = part_err(dl.ffn_cuda(x, *ffn), dl.ffn_plain(x, *ffn))
+            torch.cuda.synchronize()
+            assert e <= TOL[dtn], f"decode_layer_ffn {dtn} M={m}: {e}"
+            errs[f"decode_layer_ffn/{dtn}/M{m}/TP{TP}"] = e
+            del lp, x, ck, cv, got, want
+
+    for dtn, base, alive_share in (("bfloat16", 0, 1.0), ("bfloat16", S, 0.75),
+                                   ("float32", S, 0.75)):
         dt = getattr(torch, dtn)
-        lp, x, ck, cv = layer_inputs(torch, dev, dt, 18, h=TH, kvh=TKVH, ff=TF)
-        pos = (S + torch.randint(0, S, (M, B), generator=g, device=dev)).to(torch.int32)
-        alive = torch.rand(M, B, generator=g, device=dev) < 0.75
-        alive[0, 0] = False
-        kw = dict(num_heads=TH, head_dim=HD, rope_theta=10000.0, alive=alive)
-        want = dl.decode_layer_attn_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
-        got = dl.decode_layer_attn_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+        lp, x, ck, cv = layer_inputs(torch, dev, dt, 19, m=M_L)
+        pos = (base + torch.randint(0, S, (M_L, B), generator=g, device=dev)).to(torch.int32)
+        alive = torch.rand(M_L, B, generator=g, device=dev) < alive_share
+        kw = dict(num_heads=H, head_dim=HD, rope_theta=10000.0, alive=alive)
+        want = dl.decode_layer_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+        got = dl.decode_layer_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
         torch.cuda.synchronize()
-        e = max(part_err(got[0], want[0]), *(rel_err(a, b) for a, b in zip(got[1:], want[1:])))
-        assert e <= TOL[dtn], f"decode_layer_attn {dtn}: {e}"
-        assert torch.equal(got[1][~alive], ck[~alive]) and torch.equal(got[2][~alive], cv[~alive])
-        errs[f"decode_layer_attn/{dtn}/TP{TP}/wrapped/alive"] = e
-        ffn = [lp[k] for k in ("mlp_norm", "w_gate", "w_up", "w_down")]
-        e = part_err(dl.ffn_cuda(x, *ffn), dl.ffn_plain(x, *ffn))
-        torch.cuda.synchronize()
-        assert e <= TOL[dtn], f"decode_layer_ffn {dtn}: {e}"
-        errs[f"decode_layer_ffn/{dtn}/TP{TP}"] = e
+        e = max(rel_err(a, b) for a, b in zip(got, want))
+        assert e <= TOL[dtn], f"decode_layer {dtn} M={M_L} base={base}: {e}"
+        assert torch.equal(got[1][~alive], ck[~alive])
+        errs[f"decode_layer/{dtn}/M{M_L}/base{base}/alive{alive_share}"] = e
         del lp, x, ck, cv, got, want
+
+    for xdt in ("bfloat16", "float32"):
+        for v in (V, V // TP):
+            x, scale, head = logits_inputs(torch, dev, getattr(torch, xdt), 20, v=v, m=M_L)
+            tok, val = dl.logits_argmax_cuda(x, scale, head)
+            ptok, pval = dl.logits_argmax_plain(x, scale, head)
+            torch.cuda.synchronize()
+            assert (tok == 5).all(), f"logits M={M_L} V={v} {xdt}: {tok.tolist()}"
+            e = rel_err(val, pval)
+            assert e <= TOL["float32"], f"logits M={M_L} V={v} val {xdt}: {e}"
+            errs[f"logits/{xdt}/M{M_L}/V{v}/dup"] = e
+            x, scale, head = logits_inputs(torch, dev, getattr(torch, xdt), 21, dup=False,
+                                           v=v, m=M_L)
+            tok, val = dl.logits_argmax_cuda(x, scale, head)
+            ptok, pval = dl.logits_argmax_plain(x, scale, head)
+            torch.cuda.synchronize()
+            assert torch.equal(tok, ptok), f"logits M={M_L} V={v} {xdt}: tokens differ"
+            e = rel_err(val, pval)
+            assert e <= TOL["float32"], f"logits M={M_L} V={v} val {xdt}: {e}"
+            errs[f"logits/{xdt}/M{M_L}/V{v}/rand"] = e
+            del head
     return errs
 
 
@@ -521,6 +599,58 @@ def sharded_attn_cases(torch, dev):
                 assert e <= TOL[dtn], f"decode_attention_sharded {dtn} T={n} vs repeat: {e}"
                 errs[f"decode_attention_sharded/{dtn}/T{n}/{plan}/vs_repeat"] = e
         del q, k, v, want
+    return errs
+
+
+def matmul_rank_outs(torch, x, w, b, d, t):
+    """Every rank's output of ``fused_matmul_sharded`` on a (data=d,
+    model=t) mesh, each on its block (``fused_matmul.rank_block``) in this
+    process, each held against the plain version on its block.  Returns
+    (the outputs in global rank order, the largest block error)."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import ops
+
+    outs, err = [], 0.0
+    for r in range(d * t):
+        data, tp = SimpleNamespace(rank=r // t, size=d), SimpleNamespace(rank=r % t, size=t)
+        xl, wl, bl = fm.rank_block(x, w, b, data.rank, d, tp.rank, t)
+        out = ops.fused_matmul_sharded(xl, wl, bl, data=data, tp=tp)
+        err = max(err, rel_err(out, fm.fused_matmul_plain(xl, wl, bl)))
+        outs.append(out)
+    return outs, err
+
+
+def sharded_matmul_cases(torch, dev):
+    """``fused_matmul_sharded`` on every rank's block of the meshes
+    MATMUL_MESHES at the tinyllama serving shape and the BERT shape, with
+    and without bias, and at M=3, F=77, which divide neither 2-way axis
+    and replicate, bf16 and f32: each block against the plain version on
+    it, and the blocks reassembled against the plain version on the whole
+    arrays."""
+    from repro_torch.kernels import fused_matmul as fm
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(23)
+    for dtn in ("bfloat16", "float32"):
+        dt = getattr(torch, dtn)
+        for m, t, d, f, bias in ((M, B, D, F, False), (M, B, D, F, True),
+                                 (32, 128, 768, 3072, False), (32, 128, 768, 3072, True),
+                                 (3, B, 768, 77, True)):
+            x = torch.randn(m, t, d, generator=g, device=dev).to(dt)
+            w = (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
+            b = torch.randn(m, f, generator=g, device=dev) if bias else None
+            want = fm.fused_matmul_plain(x, w, b)
+            for dm, tm in MATMUL_MESHES:
+                outs, e = matmul_rank_outs(torch, x, w, b, dm, tm)
+                e = max(e, rel_err(fm.assemble(outs, m, f, dm, tm), want))
+                torch.cuda.synchronize()
+                key = f"fused_matmul_sharded/{dtn}/{dm}x{tm}/({m},{t},{d},{f})" + (
+                    "/bias" if bias else "")
+                assert e <= TOL[dtn], f"{key}: {e}"
+                errs[key] = e
+            del x, w, want, outs
     return errs
 
 
@@ -794,21 +924,21 @@ def serve_path(torch, dev, arch, kernels, max_context=S):
     del srv
     gc.collect()
     torch.cuda.empty_cache()
-    return cfg, snap, launches
+    return cfg, snap, launches, {r.request_id: r.tokens for r in results}
 
 
 def phase_serve(torch, dev):
     from repro_torch.models import ssm
 
-    cfg, snap, dense = serve_path(torch, dev, "tinyllama-1.1b",
-                                  ("decode_layer", "chunk_prefill_attention", "logits_sample"))
+    cfg, snap, dense, dense_streams = serve_path(
+        torch, dev, "tinyllama-1.1b", ("decode_layer", "chunk_prefill_attention", "logits_sample"))
     steps = snap["decode_steps"]
     log("serve", arch=cfg.name,
         decode_layer_launches_per_step=round(dense["decode_layer"] / steps, 2),
         logits_launches_per_step=round(dense["logits_sample"] / steps, 2),
         cuda_kernels_per_decode_step=10 * cfg.num_layers + 2)
 
-    cfg, snap, xlstm = serve_path(torch, dev, "xlstm-1.3b", ("slstm_cell", "logits_sample"))
+    cfg, snap, xlstm, _ = serve_path(torch, dev, "xlstm-1.3b", ("slstm_cell", "logits_sample"))
     n_slstm = len(ssm.mlstm_runs(cfg)) - 1
     calls = snap["prefill_batches"] + snap["decode_steps"]
     assert xlstm["slstm_cell"] == n_slstm * calls, (xlstm, n_slstm, calls)
@@ -818,7 +948,7 @@ def phase_serve(torch, dev):
         slstm_launches_check=f"{n_slstm}x{calls}=={xlstm['slstm_cell']}")
 
     from repro_torch.models import hybrid
-    cfg, snap, hymba = serve_path(torch, dev, "hymba-1.5b",
+    cfg, snap, hymba, _ = serve_path(torch, dev, "hymba-1.5b",
                                   ("chunk_prefill_attention", "decode_attention",
                                    "logits_sample"), max_context=YS)
     steps, chunks = snap["decode_steps"], snap["prefill_batches"]
@@ -831,7 +961,7 @@ def phase_serve(torch, dev):
         decode_attention_launches=hymba["decode_attention"],
         decode_attention_check=f"{n_global}x{steps}=={hymba['decode_attention']}",
         chunk_launches_check=f"{cfg.num_layers}x{chunks}=={hymba['chunk_prefill_attention']}")
-    return {"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm, "hymba-1.5b": hymba}
+    return {"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm, "hymba-1.5b": hymba}, dense_streams
 
 
 def device_us(e):
@@ -957,7 +1087,8 @@ def phase_tp(torch, dev):
             prefill_ms=round(1e3 * snap["prefill_wall_s"], 1), prefill_chunk_calls=chunks,
             attn_phase_launches_per_step=round(la["decode_layer_attn"] / steps, 2),
             ffn_phase_launches_per_step=round(la["decode_layer_ffn"] / steps, 2),
-            peak_gib_on_card=round(out["peak_gib"], 2),
+            serve_peak_gib_on_card=round(out["peak_gib"], 2),
+            setup_peak_gib_on_card=round(out["setup_peak_gib"], 2),
             launches=json.dumps(la).replace(" ", ""))
     assert all(o["streams"] == full[0]["streams"] for o in full), "the ranks' streams differ"
     k1, k8 = [r[1]["streams"] for r in ranks], [r[2]["streams"] for r in ranks]
@@ -1069,7 +1200,8 @@ def phase_tp_hybrid(torch, dev):
             prefill_ms=round(1e3 * snap["prefill_wall_s"], 1), prefill_chunk_calls=chunks,
             decode_attention_sharded_per_step=round(la["decode_attention_sharded"] / steps, 2),
             chunk_launches_check=f"{cfg.num_layers}x{chunks}=={la['chunk_prefill_attention']}",
-            peak_gib_on_card=round(out["peak_gib"], 2),
+            serve_peak_gib_on_card=round(out["peak_gib"], 2),
+            setup_peak_gib_on_card=round(out["setup_peak_gib"], 2),
             launches=json.dumps(la).replace(" ", ""))
         share = sums * r[4] / snap["decode_ms_per_step"]
         log("tp_hybrid", rank=rank, all_reduce_ms_decode=round(r[4], 4),
@@ -1112,6 +1244,183 @@ def phase_tp_hybrid(torch, dev):
             plan=shardings.head_plan(small, n), requests=len(want),
             tokens=sum(len(t) for t in want.values()), streams="equal")
     return full[0]["launches"]
+
+
+def check_dense_rank(cfg, out, n_req, new, split_layers):
+    """One dense rank's serve on a mesh: every request done with ``new``
+    tokens; per decode step the whole-layer kernel once per layer where
+    the layers are whole on the rank, else the attention and FFN phases
+    once each per layer; the chunk kernel once per layer and chunk call;
+    the logits once per step.  Returns (decode steps, chunk calls)."""
+    la, snap = out["launches"], out["snapshot"]
+    steps, chunks = snap["decode_steps"], snap["prefill_batches"]
+    n_layers = cfg.num_layers * steps
+    assert out["statuses"] == ["ok"] * n_req, out["statuses"]
+    assert all(len(t) == new for t in out["streams"].values())
+    if split_layers:
+        assert la["decode_layer"] == 0, la
+        assert la["decode_layer_attn"] == la["decode_layer_ffn"] == n_layers, (la, steps)
+    else:
+        assert la["decode_layer"] == n_layers, (la, steps)
+        assert la["decode_layer_attn"] == la["decode_layer_ffn"] == 0, la
+    assert la["chunk_prefill_attention"] == cfg.num_layers * chunks, (la, chunks)
+    assert la["logits_sample"] == steps, (la, steps)
+    return steps, chunks
+
+
+def rows_on_one_device(torch, dev, cfg, reqs, m_l, server_kw):
+    """``reqs`` served on one device by servers of ``m_l`` instances, one
+    for each data rank's instance rows (the same weights as the rank's:
+    ``serve.random_merged``'s seeds): the single-device run at a data
+    rank's instance count.  Streams keyed by the request's index in
+    ``reqs``, as the mesh's request ids are."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import MultiModelServer, Request
+
+    out = {}
+    for lo in range(0, cfg.num_instances, m_l):
+        params = serve.random_merged(cfg, 0, dev, rows=range(lo, lo + m_l))[0]
+        srv = MultiModelServer(cfg.with_(num_instances=m_l), params, device=dev, **server_kw)
+        del params
+        index = {srv.submit(Request(r.instance - lo, list(r.prompt), r.max_new_tokens)): j
+                 for j, r in enumerate(reqs) if lo <= r.instance < lo + m_l}
+        out.update({index[r.request_id]: r.tokens for r in srv.run_until_drained()})
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_data(torch, dev, single_streams):
+    """Serving on (data=D, model=T) meshes, the D*T ranks sharing the card
+    over gloo (``mesh.spawn(..., data=D)``): the data axis splits the
+    grid's instance rows over the D groups, each group splits its model
+    over T.  For each mesh of DATA_MESHES, in one spawn: the full
+    tinyllama-1.1b (M=4, TP_REQUESTS requests of 16-512 tokens, 32 new,
+    K=8), every launch counter set to 0 just before and read just after on
+    each rank; the f32 smoke config (M=4, vocab 256); the cost of the data
+    gather of one K-step block and of one model-group sum.  At 2x2 also:
+    the same model cut to 4 layers at K=1 and K=8, and
+    ``fused_matmul_sharded`` on each rank's block of a seeded (4, 4, 2048,
+    5632) problem with bias, bf16 and f32.  Checked here: the launches of
+    every rank (``check_dense_rank``: whole layers at 2x1, the phase
+    kernels at 2x2), the ranks' streams identical, K=1 == K=8, the smoke
+    config's streams equal to the single-device plain path on the CPU, the
+    2x1 streams equal to one device serving each data rank's instance rows
+    (``rows_on_one_device``), the reassembled matmul blocks against the
+    plain version on the whole problem, each rank's wrapper launched once
+    per call.  Reported, not gated: how many of the 2x1 streams equal the
+    serve phase's single-device streams at M (``single_streams``): bf16
+    rounds by the instance count a call holds.  Returns each mesh's rank 0
+    launches and the matmul wrapper's launches summed over the ranks."""
+    from types import SimpleNamespace
+
+    from repro_torch import api
+    from repro_torch.configs import registry
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.launch import mesh, serve, tp_parity
+    from repro_torch.models import shardings
+    from repro_torch.serving import MultiModelServer
+
+    cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=M)
+    cut = cfg.with_(num_layers=4)
+    small = registry.get_smoke_config("tinyllama-1.1b").with_(num_instances=M, vocab_size=256)
+    small_params = api.init(small, torch.Generator().manual_seed(0), "cpu")
+    small_reqs = requests(8, M, 1, 48, 8, small.vocab_size, 3)
+    small_kw = dict(slots_per_instance=2, max_context=64, prefill_chunk=8, decode_steps=4)
+    serve_kw = dict(slots_per_instance=B, max_context=S, prefill_chunk=C, prefill_lanes=4,
+                    decode_steps=8)
+    check_kw = dict(slots_per_instance=2, max_context=S, prefill_chunk=C)
+    check_reqs = requests(12, M, 16, 200, 16, cut.vocab_size, 1)
+    problems = [(5, M, B, D, F, dt, True) for dt in (torch.bfloat16, torch.float32)]
+    cpu = MultiModelServer(small, small_params, device="cpu", **small_kw)
+    for q in small_reqs:
+        cpu.submit(q)
+    want_small = {q.request_id: q.tokens for q in cpu.run_until_drained()}
+    out, matmul_launches = {}, 0
+    for d, t in DATA_MESHES:
+        rows = shardings.data_rows(M, B, SimpleNamespace(rank=0, size=d))
+        # at T=1 the model gets no handle and runs whole layers
+        split_layers = t > 1 and shardings.layers_split(cfg, t)
+        log("data", mesh=f"{d}x{t}", ranks=d * t, split=rows.split,
+            instances_per_group=rows.m, layers_split=split_layers,
+            rule=repr(mesh.describe(d * t, "cuda")))
+        m_l = rows.m
+        calls = [(serve.serve_rank, cfg, 0,
+                  requests(TP_REQUESTS, M, 16, 512, 32, cfg.vocab_size, 0), serve_kw),
+                 (serve.serve_rank, small, small_params, small_reqs, small_kw),
+                 (tp_parity.data_gather_rank, (2, 8, m_l, B), 50),
+                 (tp_parity.all_reduce_rank, (m_l, B, D), 50)]
+        if t > 1:
+            calls += [(serve.serve_rank, cut, 1, check_reqs, dict(check_kw, decode_steps=1)),
+                      (serve.serve_rank, cut, 1, check_reqs, dict(check_kw, decode_steps=8))]
+            calls += [(tp_parity.fused_matmul_rank, p) for p in problems]
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(mesh.in_turn, t, *calls, device="cuda", data=d)
+        log("data", mesh=f"{d}x{t}", spawn_and_run_s=round(time.perf_counter() - t0, 1))
+        full = [r[0] for r in ranks]
+        for rank, (o, r) in enumerate(zip(full, ranks)):
+            steps, chunks = check_dense_rank(cfg, o, TP_REQUESTS, 32, split_layers)
+            snap, la = o["snapshot"], o["launches"]
+            assert snap["mesh"] == {"shape": {"data": d, "model": t}, "devices": d * t}, snap
+            sums = 2 * cfg.num_layers if split_layers else 0
+            log("data", mesh=f"{d}x{t}", rank=rank, data_index=rank // t, model_index=rank % t,
+                device=o["device"], backend=o["backend"], requests=TP_REQUESTS,
+                tokens=snap["generated_tokens"], wall_s=round(o["wall_s"], 3),
+                tok_per_s=round(snap["generated_tokens"] / o["wall_s"], 1),
+                ms_per_decode_step=round(snap["decode_ms_per_step"], 3), decode_steps=steps,
+                decode_blocks=snap["decode_device_calls"],
+                prefill_ms=round(1e3 * snap["prefill_wall_s"], 1), prefill_chunk_calls=chunks,
+                decode_layer_per_step=round(la["decode_layer"] / steps, 2),
+                attn_phase_per_step=round(la["decode_layer_attn"] / steps, 2),
+                ffn_phase_per_step=round(la["decode_layer_ffn"] / steps, 2),
+                data_gather_ms=round(r[2], 4), sums_per_decode_step=sums,
+                ms_per_sum=round(r[3], 4) if sums else "n/a",
+                serve_peak_gib_on_card=round(o["peak_gib"], 2),
+                setup_peak_gib_on_card=round(o["setup_peak_gib"], 2),
+                host_param_gib=round(o["host_param_gib"], 2),
+                launches=json.dumps(la).replace(" ", ""))
+        assert all(o["streams"] == full[0]["streams"] for o in full), f"{d}x{t}: ranks differ"
+        for r in ranks:
+            assert r[1]["streams"] == want_small, f"smoke {d}x{t}: streams differ from the CPU"
+        log("data", mesh=f"{d}x{t}", reference="cpu-plain single device", config=small.name,
+            requests=len(want_small), tokens=sum(len(v) for v in want_small.values()),
+            streams="equal")
+        if t == 1:
+            same = sum(full[0]["streams"][i] == single_streams[i] for i in single_streams)
+            rows_one = rows_on_one_device(
+                torch, dev, cfg, requests(TP_REQUESTS, M, 16, 512, 32, cfg.vocab_size, 0),
+                m_l, serve_kw)
+            same_rows = sum(full[0]["streams"][i] == rows_one[i] for i in rows_one)
+            assert same_rows == TP_REQUESTS, f"2x1 streams differ from one device at M={m_l}"
+            log("data", mesh=f"{d}x{t}",
+                streams_equal_to_single_device_at_M_l=f"{same_rows}/{TP_REQUESTS}",
+                streams_equal_to_single_device_at_M=f"{same}/{TP_REQUESTS}",
+                note="at M: a report, not a gate (bf16 rounds by instance count)")
+        else:
+            k1, k8 = [r[4]["streams"] for r in ranks], [r[5]["streams"] for r in ranks]
+            assert all(s_ == k1[0] for s_ in k1 + k8), "greedy streams differ between K=1 and K=8"
+            for r in ranks:
+                check_dense_rank(cut, r[4], len(check_reqs), 16, split_layers)
+            log("data", mesh=f"{d}x{t}", arch=cut.name, layers=cut.num_layers,
+                streams="K1==K8, ranks equal", requests=len(k1[0]))
+            for i, p in enumerate(problems):
+                blocks = [r[6 + i] for r in ranks]
+                assert all(b_["launches"] == 1 for b_ in blocks), [b_["launches"] for b_ in blocks]
+                matmul_launches += sum(b_["launches"] for b_ in blocks)
+                x, w, b = tp_parity.matmul_problem(*p)
+                want = fm.fused_matmul_plain(x.to(dev), w.to(dev), b.to(dev))
+                got = fm.assemble([b_["out"].to(dev) for b_ in blocks], M, F, d, t)
+                dtn = str(p[5]).removeprefix("torch.")
+                e = rel_err(got, want)
+                assert e <= TOL[dtn], f"fused_matmul_sharded in ranks {dtn}: {e}"
+                log("data", mesh=f"{d}x{t}", kernel="fused_matmul_sharded", dtype=dtn,
+                    shape=f"({M},{B},{D})@({M},{D},{F})+bias",
+                    block=f"({M // d},{B},{D})@({M // d},{D},{F // t})",
+                    launches_per_rank=[b_["launches"] for b_ in blocks], rel_err=f"{e:.3e}")
+                del x, w, b, want, got
+        out[f"{d}x{t}"] = full[0]["launches"]
+    return out, matmul_launches
 
 
 def phase_check(torch, dev):
@@ -1383,12 +1692,62 @@ def phase_times(torch, dev, by_path, profile_launches):
     rows += new_time_rows(torch, dev, profile_launches)
     rows += phase_time_rows(torch, dev, launches, per_path)
     rows.append(sharded_attn_time_row(torch, dev, launches, per_path))
+    rows.append(sharded_matmul_time_row(torch, dev, launches, per_path))
     for r in rows:
         log("times", name=r["name"], ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
             bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
             library_ms=r["library_ms"], of_bound=f"{r['bound_ms'] / r['ms']:.1%}",
             **({"device_ms": f"{r['device_ms']:.4f}"} if "device_ms" in r else {}))
     return rows
+
+
+def matmul_time(torch, dev, g, m, t, d, f, copies):
+    """The merged-matmul kernel at (m, t, d, f) in bf16, ``copies`` weight
+    sets rotating so w comes from HBM, not L2: (max abs err against the
+    plain version, event ms, device ms queued, plain ms, ``torch.bmm`` ms,
+    (bound ms, bound by))."""
+    from repro_torch.kernels import fused_matmul as fm
+
+    bf16 = torch.bfloat16
+    sets = [((torch.randn(m, t, d, generator=g, device=dev)).to(bf16),
+             (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(bf16))
+            for _ in range(copies)]
+    err = abs_err(fm.fused_matmul_cuda(*sets[0]), fm.fused_matmul_plain(*sets[0]))
+    it = iter(range(10 ** 9))
+    ms = time_ms(torch, lambda: fm.fused_matmul_cuda(*sets[next(it) % copies]))
+    device_ms = time_queued_ms(torch, lambda: fm.fused_matmul_cuda(*sets[next(it) % copies]))
+    plain = time_ms(torch, lambda: fm.fused_matmul_plain(*sets[next(it) % copies]), reps=5)
+    lib = time_ms(torch, lambda: torch.bmm(*sets[next(it) % copies]))
+    nbytes = 2 * (m * t * d + m * d * f + m * t * f)
+    return err, ms, device_ms, plain, lib, bound_ms(nbytes, 2 * m * t * d * f, "bfloat16")
+
+
+def sharded_matmul_time_row(torch, dev, launches, per_path):
+    """The times row of ``fused_matmul_sharded``: a rank's block at 2x2
+    (half the instances, half of F) at the tinyllama serving shape, (2, 4,
+    2048, 2816), in the row, and at the BERT shape, (16, 128, 768, 1536),
+    beside it, bf16.  The wrapper's body is the merged-matmul kernel on the
+    block, so the kernel is timed on it.  ``launches`` include the data
+    phase's ranks."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    err, ms, device_ms, plain, lib, (bms, by) = matmul_time(torch, dev, g, M // 2, B, D, F // 2, 8)
+    b_err, b_ms, b_dev, b_plain, b_lib, (b_bms, b_by) = matmul_time(torch, dev, g, 16, 128, 768,
+                                                                     1536, 4)
+    log("times", name="fused_matmul_sharded", shape="rank of 2x2: (16,128,768)@(16,768,1536) bf16",
+        ms=f"{b_ms:.4f}", device_ms=f"{b_dev:.4f}", plain_ms=f"{b_plain:.4f}",
+        library_ms=f"{b_lib:.4f}", bound_ms=f"{b_bms:.4f}", bound_by=b_by,
+        of_bound=f"{b_bms / b_dev:.1%}")
+    return dict(name="fused_matmul_sharded", route="cuda",
+                source="src/repro_torch/csrc/fused_matmul.cu",
+                replaces="src/repro/kernels/fused_matmul.py:120",
+                launches=launches["fused_matmul_sharded"],
+                launches_by_path=per_path("fused_matmul_sharded"), max_abs_err=err, ms=ms,
+                device_ms=device_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib, library="torch.bmm",
+                shape=f"rank of 2x2: ({M // 2},{B},{D})@({M // 2},{D},{F // 2}) bf16",
+                bert_ms=b_ms, bert_device_ms=b_dev, bert_plain_ms=b_plain,
+                bert_library_ms=b_lib, bert_bound_ms=b_bms, bert_bound_by=b_by,
+                bert_max_abs_err=b_err)
 
 
 def new_time_rows(torch, dev, launches):
@@ -1405,21 +1764,10 @@ def new_time_rows(torch, dev, launches):
     bf16 = torch.bfloat16
 
     # merged matmul: the tinyllama serving shape in the row, the BERT shape
-    # beside it; 8 weight copies rotate so w comes from HBM, not L2
-    def matmul_time(m, t, d, f, copies):
-        sets = [((torch.randn(m, t, d, generator=g, device=dev)).to(bf16),
-                 (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(bf16))
-                for _ in range(copies)]
-        err = abs_err(fm.fused_matmul_cuda(*sets[0]), fm.fused_matmul_plain(*sets[0]))
-        it = iter(range(10 ** 9))
-        ms = time_ms(torch, lambda: fm.fused_matmul_cuda(*sets[next(it) % copies]))
-        plain = time_ms(torch, lambda: fm.fused_matmul_plain(*sets[next(it) % copies]), reps=5)
-        lib = time_ms(torch, lambda: torch.bmm(*sets[next(it) % copies]))
-        nbytes = 2 * (m * t * d + m * d * f + m * t * f)
-        return err, ms, plain, lib, bound_ms(nbytes, 2 * m * t * d * f, "bfloat16")
-
-    err, ms, plain, lib, (bms, by) = matmul_time(M, B, D, F, 8)
-    b_err, b_ms, b_plain, b_lib, (b_bms, b_by) = matmul_time(32, 128, 768, 3072, 4)
+    # beside it
+    err, ms, _, plain, lib, (bms, by) = matmul_time(torch, dev, g, M, B, D, F, 8)
+    b_err, b_ms, _, b_plain, b_lib, (b_bms, b_by) = matmul_time(torch, dev, g, 32, 128, 768,
+                                                                3072, 4)
     rows.append(dict(name="fused_matmul", route="cuda", source="src/repro_torch/csrc/fused_matmul.cu",
                      replaces="src/repro/kernels/fused_matmul.py:24",
                      launches=launches["fused_matmul"], max_abs_err=err, ms=ms, plain_ms=plain,
@@ -1607,10 +1955,15 @@ def main() -> int:
     timed("device", phase_device, torch)
     timed("build", phase_build)
     timed("kernels", phase_kernels, torch, dev)
-    launches = timed("serve", phase_serve, torch, dev)
+    launches, single_streams = timed("serve", phase_serve, torch, dev)
     timed("check", phase_check, torch, dev)
     launches[f"tinyllama-1.1b/tp{TP}-rank0"] = timed("tp", phase_tp, torch, dev)
     launches[f"hymba-1.5b/tp{TP}-rank0"] = timed("tp_hybrid", phase_tp_hybrid, torch, dev)
+    by_mesh, matmul_launches = timed("data", phase_data, torch, dev, single_streams)
+    for name, la in by_mesh.items():
+        launches[f"tinyllama-1.1b/data{name}-rank0"] = la
+    launches["fused_matmul_sharded/data2x2-ranks"] = dict(
+        dict.fromkeys(by_mesh["2x2"], 0), fused_matmul_sharded=matmul_launches)
     timed("paper", phase_paper, torch, dev)
     profile_launches = timed("profile", phase_profile, torch, dev)
     rows = timed("times", phase_times, torch, dev, launches, profile_launches)

@@ -18,7 +18,11 @@
 //     1e-4), each thread an 8 x 4 register tile.
 // The Pallas kernel walks D on a sequential grid axis and carries the sum in
 // a VMEM scratch; here a block loops over D itself.  Rows past T and columns
-// past F are masked; D and F must be multiples of 8 (16-byte loads).
+// past F are masked.  Tiles move in 16-byte pieces; where D (x's rows) or F
+// (w's rows) is not a multiple of a piece, the rows are not 16-byte aligned
+// and the pieces are gathered element by element (any shape runs, as the
+// Pallas kernel's block clamp takes any shape; fused_matmul_sharded's
+// replicated F = 77 case).
 
 #include <mma.h>
 
@@ -34,9 +38,22 @@ template <typename T> struct Cfg;
 template <> struct Cfg<__nv_bfloat16> { static constexpr int BK = 64; };
 template <> struct Cfg<float> { static constexpr int BK = 32; };
 
+// EL elements row[c .. c + EL) of a row of n as one 16-byte piece, element
+// by element, zero past n: for rows that are not 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ uint4 gather_piece(const T* __restrict__ row, int c, int n) {
+  constexpr int EL = 16 / sizeof(T);
+  uint4 u = make_uint4(0, 0, 0, 0);
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int i = 0; i < EL; ++i)
+    if (c + i < n) e[i] = row[c + i];
+  return u;
+}
+
 // One BK-deep step's tiles in registers: x (BM x BK) and w (BK x BN) as
 // 16-byte pieces, zero where out of range.
-template <typename T>
+template <typename T, bool VEC>
 struct Frag {
   static constexpr int BK = Cfg<T>::BK;
   static constexpr int EL = 16 / sizeof(T);                 // elements per piece
@@ -44,23 +61,36 @@ struct Frag {
   static constexpr int NW = BK * BN / EL / THREADS;
   uint4 x[NX], w[NW];
 
+  // VEC: D and F are multiples of EL and the rows 16-byte aligned, so a
+  // piece lies wholly inside or past its row: one vector load.  Else each
+  // piece is gathered element by element.
   __device__ __forceinline__ void load(const T* __restrict__ xm, const T* __restrict__ wm,
                                        int T_, int D, int F, int t0, int f0, int k0) {
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       const int p = threadIdx.x + i * THREADS;
       const int r = p / (BK / EL), c = (p % (BK / EL)) * EL;
-      const bool ok = (t0 + r < T_) && (k0 + c < D);
-      x[i] = ok ? *reinterpret_cast<const uint4*>(xm + (size_t)(t0 + r) * D + k0 + c)
-                : make_uint4(0, 0, 0, 0);
+      if (VEC) {
+        const bool ok = (t0 + r < T_) && (k0 + c < D);
+        x[i] = ok ? *reinterpret_cast<const uint4*>(xm + (size_t)(t0 + r) * D + k0 + c)
+                  : make_uint4(0, 0, 0, 0);
+      } else {
+        x[i] = (t0 + r < T_) ? gather_piece(xm + (size_t)(t0 + r) * D, k0 + c, D)
+                             : make_uint4(0, 0, 0, 0);
+      }
     }
 #pragma unroll
     for (int i = 0; i < NW; ++i) {
       const int p = threadIdx.x + i * THREADS;
       const int r = p / (BN / EL), c = (p % (BN / EL)) * EL;
-      const bool ok = (k0 + r < D) && (f0 + c < F);
-      w[i] = ok ? *reinterpret_cast<const uint4*>(wm + (size_t)(k0 + r) * F + f0 + c)
-                : make_uint4(0, 0, 0, 0);
+      if (VEC) {
+        const bool ok = (k0 + r < D) && (f0 + c < F);
+        w[i] = ok ? *reinterpret_cast<const uint4*>(wm + (size_t)(k0 + r) * F + f0 + c)
+                  : make_uint4(0, 0, 0, 0);
+      } else {
+        w[i] = (k0 + r < D) ? gather_piece(wm + (size_t)(k0 + r) * F, f0 + c, F)
+                            : make_uint4(0, 0, 0, 0);
+      }
     }
   }
 
@@ -97,6 +127,7 @@ __device__ __forceinline__ void epilogue(const float* cs, int cr, const float* _
 
 // bf16: tensor cores.  4 warps, each a 32 x 32 quarter of the 64 x 64 tile
 // as 2 x 2 wmma accumulators.
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 fused_matmul_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                   const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int T_,
@@ -124,7 +155,7 @@ fused_matmul_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 #pragma unroll
     for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  Frag<T> fr;
+  Frag<T, VEC> fr;
   fr.load(xm, wm, T_, D, F, t0, f0, 0);
   for (int k0 = 0; k0 < D; k0 += BK) {
     __syncthreads();                       // the previous step's reads are done
@@ -163,6 +194,7 @@ fused_matmul_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 
 // f32: FMA.  Thread (ty, tx) of a 8 x 16 grid owns rows ty*8 .. +8 and
 // columns tx*4 .. +4 of the tile.
+template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 fused_matmul_f32(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ bias, float* __restrict__ out, int T_, int D,
@@ -178,7 +210,7 @@ fused_matmul_f32(const float* __restrict__ x, const float* __restrict__ w,
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float acc[8][4] = {};
 
-  Frag<T> fr;
+  Frag<T, VEC> fr;
   fr.load(xm, wm, T_, D, F, t0, f0, 0);
   for (int k0 = 0; k0 < D; k0 += BK) {
     __syncthreads();
@@ -214,34 +246,48 @@ fused_matmul_f32(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// One launch of instances [0, g.z) from x, w, bias, out (already offset).
+template <bool VEC>
+void launch(int dt, const dim3& g, cudaStream_t s, const void* x, const void* w,
+            const float* bias, void* out, int T_, int D, int F) {
+  if (dt == 0)
+    fused_matmul_f32<VEC><<<g, THREADS, 0, s>>>((const float*)x, (const float*)w, bias,
+                                                  (float*)out, T_, D, F);
+  else
+    fused_matmul_bf16<VEC><<<g, THREADS, 0, s>>>((const __nv_bfloat16*)x,
+                                                   (const __nv_bfloat16*)w, bias,
+                                                   (__nv_bfloat16*)out, T_, D, F);
+}
+
 }  // namespace
 
 extern "C" {
 
 // x (M,T,D), w (M,D,F) of one dtype (dt: 0 = float32, 1 = bfloat16), bias
-// (M,F) float32 or null -> out (M,T,F) in x's dtype.  D % 8 == 0 and
-// F % 8 == 0.  Returns cudaGetLastError() after the launch.
+// (M,F) float32 or null -> out (M,T,F) in x's dtype, any M, T, D, F >= 1.
+// Returns cudaGetLastError() after the launch.
 int fused_matmul(int dt, const void* x, const void* w, const void* bias, void* out, int M,
                  int T_, int D, int F, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (M < 1 || T_ < 1 || D < 1 || F < 1 || D % 8 || F % 8) return (int)cudaErrorInvalidValue;
+  if (M < 1 || T_ < 1 || D < 1 || F < 1 || (dt != 0 && dt != 1))
+    return (int)cudaErrorInvalidValue;
+  const size_t esz = dt == 0 ? 4 : 2;
+  // 16-byte rows (every instance's too) where D and F are multiples of 8:
+  // vector loads; any other shape gathers element by element
+  const bool vec = D % 8 == 0 && F % 8 == 0;
   const dim3 grid((F + BN - 1) / BN, (T_ + BM - 1) / BM, M);
   for (int m = 0; m < M; m += 65535) {
     // gridDim.z is at most 65535; M never comes near it, but stay correct
     const int mc = M - m < 65535 ? M - m : 65535;
     const dim3 g(grid.x, grid.y, mc);
+    const char* xm = (const char*)x + m * esz * T_ * D;
+    const char* wm = (const char*)w + m * esz * D * F;
+    char* om = (char*)out + m * esz * T_ * F;
     const float* b = bias ? (const float*)bias + (size_t)m * F : nullptr;
-    if (dt == 0)
-      fused_matmul_f32<<<g, THREADS, 0, s>>>(
-          (const float*)x + (size_t)m * T_ * D, (const float*)w + (size_t)m * D * F, b,
-          (float*)out + (size_t)m * T_ * F, T_, D, F);
-    else if (dt == 1)
-      fused_matmul_bf16<<<g, THREADS, 0, s>>>(
-          (const __nv_bfloat16*)x + (size_t)m * T_ * D,
-          (const __nv_bfloat16*)w + (size_t)m * D * F, b,
-          (__nv_bfloat16*)out + (size_t)m * T_ * F, T_, D, F);
+    if (vec)
+      launch<true>(dt, g, s, xm, wm, b, om, T_, D, F);
     else
-      return (int)cudaErrorInvalidValue;
+      launch<false>(dt, g, s, xm, wm, b, om, T_, D, F);
   }
   return (int)cudaGetLastError();
 }

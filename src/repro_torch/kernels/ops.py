@@ -9,12 +9,13 @@ its main path went through the kernels.
 
 The ``*_sharded`` functions are the tensor-parallel forms (the
 reference's ``shard_map`` wrappers) over a rank's shard and its
-``TensorParallel`` handle, with the collectives written out.  Two of
+``TensorParallel`` handle, with the collectives written out.  Three of
 the reference's wrappers are rank-local: ``decode_attention_sharded``
-launches the decode-attention kernel on a rank's block of heads, and
-``chunk_prefill_attention_sharded`` needs no function of its own (the
-model computes q, k and v for the rank's heads and calls
-:func:`chunk_prefill_attention` on them).
+launches the decode-attention kernel on a rank's block of heads,
+``fused_matmul_sharded`` the merged-matmul kernel on a rank's block of
+instances and output features, and ``chunk_prefill_attention_sharded``
+needs no function of its own (the model computes q, k and v for the
+rank's heads and calls :func:`chunk_prefill_attention` on them).
 """
 from __future__ import annotations
 
@@ -64,11 +65,13 @@ _decode_attn_sh = Kernel("decode_attention_sharded", _da.decode_attention_plain,
                          _da.decode_attention_cuda)
 
 _fused_matmul = Kernel("fused_matmul", _fm.fused_matmul_plain, _fm.fused_matmul_cuda)
+_fused_matmul_sh = Kernel("fused_matmul_sharded", _fm.fused_matmul_plain,
+                          _fm.fused_matmul_cuda)
 _group_rms = Kernel("group_rms_norm", _gn.group_rms_norm_plain, _gn.group_rms_norm_cuda)
 _mlstm = Kernel("mlstm_chunkwise", _ml.mlstm_chunkwise_plain, _ml.mlstm_chunkwise_cuda)
 
 KERNELS = (_decode_layer, _logits, _chunk, _slstm, _decode_attn, _fused_matmul, _group_rms,
-           _mlstm, _attn_phase, _ffn_phase, _decode_attn_sh)
+           _mlstm, _attn_phase, _ffn_phase, _decode_attn_sh, _fused_matmul_sh)
 
 
 def reset_launches() -> None:
@@ -204,6 +207,18 @@ def fused_matmul(x, w, b=None):
     """The NetFuse merged matmul x (M, T, D) @ w (M, D, F) [+ b (M, F)],
     f32 sums, in x's dtype."""
     return _fused_matmul(x, x, w, b)
+
+
+def fused_matmul_sharded(x, w, b=None, *, data, tp):
+    """``fused_matmul`` on a rank's block of a (data=D, model=T) mesh (the
+    reference's ``fused_matmul_sharded``): x (M_l, T, D), w (M_l, D, F_l)
+    and b (M_l, F_l) as ``fused_matmul.rank_block`` cuts them; rank-local,
+    no collective.  ``data`` and ``tp`` are the rank's handles, both None
+    on one device, where this is :func:`fused_matmul`.  Under a handle
+    the launch counts as ``fused_matmul_sharded``."""
+    if data is None and tp is None:
+        return fused_matmul(x, w, b)
+    return _fused_matmul_sh(x, x, w, b)
 
 
 def group_rms_norm(x, scale, *, eps: float = 1e-5):

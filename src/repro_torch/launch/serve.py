@@ -1,5 +1,6 @@
 """Serving launcher (port of ``repro.launch.serve``, dense, ssm and hybrid
-families; tensor parallelism for dense and hybrid).
+families; tensor parallelism for dense and hybrid; the data axis for all
+three).
 
 Initialises M "fine-tuned" instances as M random initialisations from a
 seed, merges them (the paper's offline merge step, timed), and serves a
@@ -17,12 +18,16 @@ program.  Runs on the CUDA device unless ``--device cpu`` is given.
       --smoke --device cpu --mesh-shape 1x2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --smoke --device cpu --mesh-shape 1x2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --smoke --device cpu --mesh-shape 2x2
 
-``--mesh-shape 1xT`` serves under tensor parallelism over T ranks, one
-process each (``launch/mesh.py`` says which backend and why); every rank
-serves the same requests and rank 0 prints.  Hybrid archs raise
-``--max-context`` to the meta tokens plus the SWA window plus
-``--max-new``, as the reference's CLI does.
+``--mesh-shape DxT`` serves on a (data=D, model=T) mesh of D*T ranks,
+one process each (``launch/mesh.py`` says which backend and why): tensor
+parallelism over each group of T, the grid's instance rows (or slots)
+split over the D groups.  Every rank serves the same requests, rank 0
+prints, and the CLI checks that every rank's streams are identical.
+Hybrid archs raise ``--max-context`` to the meta tokens plus the SWA
+window plus ``--max-new``, as the reference's CLI does.
 """
 from __future__ import annotations
 
@@ -38,15 +43,17 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh
 from repro_torch.models import hybrid as H
 from repro_torch.models.common import merge_instances
+from repro_torch.models.shardings import data_rows
 from repro_torch.serving import MultiModelServer, Request
 from repro_torch.serving.scheduler import POLICIES
 
 
-def random_merged(cfg, seed: int, device, on_host: bool = False):
+def random_merged(cfg, seed: int, device, on_host: bool = False, rows=None):
     """M "fine-tuned" instances as M random initialisations (instance i
-    seeded ``seed * 1000 + i`` on ``device``), merged.  ``on_host`` moves
-    each instance to the CPU as soon as it is drawn and merges there, so
-    the card holds one instance at a time (a tensor-parallel rank then
+    seeded ``seed * 1000 + i`` on ``device``), merged; ``rows`` (a range)
+    draws and merges only those instances, the same weights.  ``on_host``
+    moves each instance to the CPU as soon as it is drawn and merges
+    there, so the card holds one instance at a time (a mesh rank then
     moves only its shard to the card).  Returns (merged params, merge
     seconds, the device the merge ran on)."""
     where = torch.device("cpu") if on_host else device
@@ -55,28 +62,44 @@ def random_merged(cfg, seed: int, device, on_host: bool = False):
             api.init(cfg.with_(num_instances=1),
                      torch.Generator(device=device).manual_seed(seed * 1000 + i),
                      device).to(where)
-            for i in range(cfg.num_instances)
+            for i in (range(cfg.num_instances) if rows is None else rows)
         ]
-        t0 = time.perf_counter()
+    # merged outside inference mode: a parameter made in it stays an
+    # inference tensor, and once ``.to(device)`` swaps its data no view of
+    # it can be taken
+    t0 = time.perf_counter()
+    with torch.no_grad():
         merged = merge_instances(instances)
-        if where.type == "cuda":
-            torch.cuda.synchronize(where)
+    if where.type == "cuda":
+        torch.cuda.synchronize(where)
     return merged, time.perf_counter() - t0, where
 
 
 def serve(cfg, params, reqs, *, device, tp=None, **server_kw) -> dict:
     """Serve ``reqs`` to the end on a new server.  Every launch counter
-    is set to 0 just before the requests are submitted and read after
-    the drain.  ``params`` is a whole merged model, or an int seed of
-    :func:`random_merged` (drawn on ``device``; merged on the CPU under
-    tensor parallelism, where the server moves only the rank's shard)."""
+    and the card's peak memory are reset just before the requests are
+    submitted and read after the drain.  ``params`` is a whole merged
+    model, or an int seed of :func:`random_merged` (drawn on ``device``;
+    on a mesh merged on the CPU, only the instance rows of the rank's
+    data group, and the server moves only the rank's shard)."""
     merge_s = merge_dev = None
+    first = 0
     if isinstance(params, int):
-        params, merge_s, merge_dev = random_merged(cfg, params, device, on_host=tp is not None)
-    server = MultiModelServer(cfg, params, device=device, tp=tp, **server_kw)
+        rows = data_rows(cfg.num_instances, server_kw["slots_per_instance"],
+                         None if tp is None else tp.data)
+        first = rows.m0
+        params, merge_s, merge_dev = random_merged(cfg, params, device, on_host=tp is not None,
+                                                   rows=range(rows.m0, rows.m0 + rows.m))
+    host_bytes = sum(p.numel() * p.element_size() for p in params.parameters()
+                     if p.device.type == "cpu")
+    server = MultiModelServer(cfg, params, device=device, tp=tp, first_instance=first,
+                              **server_kw)
     del params
+    setup_peak = None
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+        setup_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
     ops.reset_launches()
     t0 = time.perf_counter()
     for r in reqs:
@@ -85,26 +108,33 @@ def serve(cfg, params, reqs, *, device, tp=None, **server_kw) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
     return {"server": server, "results": results, "wall_s": wall, "merge_s": merge_s,
-            "merge_device": merge_dev, "launches": ops.launches(),
+            "merge_device": merge_dev, "launches": ops.launches(), "host_param_bytes": host_bytes,
+            "setup_peak_bytes": setup_peak, "serve_peak_bytes": serve_peak,
             "snapshot": server.metrics.snapshot()}
 
 
 def serve_rank(tp, cfg, params, reqs, server_kw, verbose: bool = False) -> dict:
-    """One rank of a tensor-parallel serve (a target of ``mesh.spawn``).
+    """One rank of a serve on a mesh (a target of ``mesh.spawn``).
     Returns what the rank saw: its streams, launch counts, metrics
-    snapshot, wall time, device, backend and the peak memory allocated on
-    its card since the process started (None on the CPU); rank 0 prints
-    the report when ``verbose``."""
+    snapshot, wall time, device, backend, the peak memory allocated on
+    its card while serving and, apart, from the process start to the end
+    of the setup (which draws each instance in f32 on the card; both None
+    on the CPU), and the host bytes of the params it was given; global
+    rank 0 prints the report when ``verbose``."""
     out = serve(cfg, params, reqs, device=tp.device, tp=tp, **server_kw)
-    if verbose and tp.rank == 0:
+    if verbose and tp.rank == 0 and tp.data.rank == 0:
         report(out, cfg, tp)
     return {"streams": {r.request_id: r.tokens for r in out["results"]},
             "statuses": [r.status for r in out["results"]],
             "launches": out["launches"], "snapshot": out["snapshot"],
             "wall_s": out["wall_s"], "device": str(tp.device), "backend": tp.backend,
-            "peak_gib": (torch.cuda.max_memory_allocated(tp.device) / 2 ** 30
-                         if tp.device.type == "cuda" else None),
+            "peak_gib": (None if out["serve_peak_bytes"] is None
+                         else out["serve_peak_bytes"] / 2 ** 30),
+            "setup_peak_gib": (None if out["setup_peak_bytes"] is None
+                               else out["setup_peak_bytes"] / 2 ** 30),
+            "host_param_gib": out["host_param_bytes"] / 2 ** 30,
             "prefill_calls": out["server"].prefill.device_calls,
             "decode_blocks": out["server"].steps}
 
@@ -112,10 +142,13 @@ def serve_rank(tp, cfg, params, reqs, server_kw, verbose: bool = False) -> dict:
 def report(out, cfg, tp=None) -> None:
     server, results, dt = out["server"], out["results"], out["wall_s"]
     if out["merge_s"] is not None:
-        print(f"NetFuse merge of {cfg.num_instances} instances: {out['merge_s'] * 1e3:.1f} ms "
+        print(f"NetFuse merge of {server.rows.m} instances: {out['merge_s'] * 1e3:.1f} ms "
               f"on {out['merge_device']}")
     if tp is not None:
-        print(f"tensor parallel over {tp.size} ranks, {tp.backend}; rank 0 on {tp.device}")
+        rows = server.rows
+        print(f"mesh {tp.data.size}x{tp.size} (data x model), {tp.backend}; rank 0 on "
+              f"{tp.device}; data split {rows.split}: rank 0 holds instances "
+              f"[{rows.m0}, {rows.m0 + rows.m}) x slots [{rows.b0}, {rows.b0 + rows.b})")
     toks = sum(len(r.tokens) for r in results)
     snap = out["snapshot"]
     print(f"served {len(results)} requests, {toks} tokens in {dt:.2f}s "
@@ -154,11 +187,10 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-shape", default="1x1", metavar="DxT",
-                    help="serve under a (data=D, model=T) mesh, one process per rank; "
-                         "only D=1 is ported")
+                    help="serve under a (data=D, model=T) mesh, one process per rank")
     args = ap.parse_args(argv)
 
-    _, t = mesh.parse_mesh_shape(args.mesh_shape)
+    d, t = mesh.parse_mesh_shape(args.mesh_shape)
     device = api.resolve_device(args.device)
     base = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
     max_context = args.max_context
@@ -181,16 +213,16 @@ def main(argv=None):
                      scheduler=args.policy, prefill_chunk=args.chunk,
                      prefill_lanes=args.lanes, chunk_budget=args.chunk_budget,
                      decode_steps=args.decode_steps)
-    print(f"policy={args.policy}, mesh 1x{t}")
-    if t == 1:
+    print(f"policy={args.policy}, mesh {d}x{t}")
+    if d * t == 1:
         report(serve(cfg, args.seed, reqs, device=device, **server_kw), cfg)
         return
-    print(mesh.describe(t, device.type))
+    print(mesh.describe(d * t, device.type))
     outs = mesh.spawn(serve_rank, t, cfg, args.seed, reqs, server_kw, True,
-                      device=device.type)
+                      device=device.type, data=d)
     if any(o["streams"] != outs[0]["streams"] for o in outs):
         raise RuntimeError("the ranks' token streams differ")
-    print(f"{t} ranks on {[o['device'] for o in outs]}: streams identical")
+    print(f"{d * t} ranks on {[o['device'] for o in outs]}: streams identical")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
-"""Rank programs that hold the tensor-parallel path against the
-single-device one: targets of ``mesh.spawn``, run by the tests on the
-CPU and by ``chip_smoke.py`` on the card.  Each takes the whole model
-(``chunk_decode_rank``: a dense one), shards it for its rank and returns
-what it computed, on the CPU.  The hybrid family is held through
+"""Rank programs that hold the mesh paths against the single-device
+one: targets of ``mesh.spawn``, run by the tests on the CPU and by
+``chip_smoke.py`` on the card.  Each takes the whole model or problem
+(``chunk_decode_rank``: a dense model; ``fused_matmul_rank``: a seeded
+matmul), cuts its rank's share and returns what it computed, on the CPU.
+The hybrid and ssm families and the data axis are held through
 ``launch/serve.serve_rank``'s streams.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ import time
 import torch
 
 from repro_torch import api
+from repro_torch.kernels import fused_matmul as fm
 from repro_torch.kernels import ops
 from repro_torch.models.common import tree_map
 from repro_torch.models.shardings import shard, shard_params
@@ -63,4 +65,40 @@ def all_reduce_rank(tp, shape, reps: int) -> float:
         tp.all_reduce_sum(t)
     if tp.device.type == "cuda":
         torch.cuda.synchronize(tp.device)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def matmul_problem(seed: int, m: int, t: int, d: int, f: int, dtype, bias: bool):
+    """A seeded whole problem of ``fused_matmul``, on the CPU: x (M, T, D)
+    and w (M, D, F) scaled by D^-1/2 in ``dtype``, b (M, F) f32 or None.
+    The same seed gives the same problem in every process."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, t, d, generator=g).to(dtype)
+    w = (torch.randn(m, d, f, generator=g) * d ** -0.5).to(dtype)
+    return x, w, torch.randn(m, f, generator=g) if bias else None
+
+
+def fused_matmul_rank(tp, problem: tuple) -> dict:
+    """Cut this rank's block of ``matmul_problem(*problem)`` and run
+    ``ops.fused_matmul_sharded`` on it with every launch counter set to 0
+    just before: the output block on the CPU and the wrapper's launches."""
+    data = tp.data
+    x, w, b = fm.rank_block(*matmul_problem(*problem), data.rank, data.size, tp.rank, tp.size)
+    dev = tp.device
+    x, w, b = x.to(dev), w.to(dev), None if b is None else b.to(dev)
+    ops.reset_launches()
+    with torch.inference_mode():
+        out = ops.fused_matmul_sharded(x, w, b, data=data, tp=tp)
+    return {"out": out.cpu(), "launches": ops.launches()["fused_matmul_sharded"]}
+
+
+def data_gather_rank(tp, shape, reps: int) -> float:
+    """Milliseconds per gather of an int32 host tensor of ``shape`` over
+    this rank's data group: the engine's gather of a K-step block's tokens
+    and emitted flags, host clock around ``reps`` gathers."""
+    t = torch.zeros(shape, dtype=torch.int32)
+    tp.data.all_gather(t, 2)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tp.data.all_gather(t, 2)
     return (time.perf_counter() - t0) * 1e3 / reps

@@ -26,25 +26,49 @@ import torch.distributed as dist
 from torch import nn
 
 # ---------------------------------------------------------------------------
-# tensor parallelism: the explicit handle of the "model" mesh axis
+# the mesh handles: the "data" and "model" axes, passed explicitly
 # ---------------------------------------------------------------------------
 
 
-class TensorParallel:
-    """This process's place on the "model" axis of a (data=1, model=T)
-    mesh: its rank, the number of ranks, the process group, its device
-    and the group's backend.  The port's counterpart of the reference's
-    ``Rules`` / ``active_rules``: it is passed down from the engine
-    through ``api`` into the model as an argument, never held in a
-    global, and the model code calls its collectives explicitly after
-    each row-split projection (Megatron style)."""
+class DataParallel:
+    """This process's place on the "data" axis of a (data=D, model=T)
+    mesh: its data index, D, and a gloo group of the D ranks that share
+    its model index.  The engine gathers host copies over it (gloo carries
+    CPU tensors on any main backend; NCCL does not), so nothing of the
+    model sees it."""
 
-    def __init__(self, rank: int, size: int, group, device: torch.device, backend: str):
+    def __init__(self, rank: int, size: int, group):
+        self.rank = rank
+        self.size = size
+        self.group = group
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The data ranks' host tensors ``t`` concatenated along ``dim``
+        in data order."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.cat(parts, dim=dim)
+
+
+class TensorParallel:
+    """This process's place on the "model" axis of a (data=D, model=T)
+    mesh: its rank in its model group, the number of ranks in it, the
+    process group, its device and the group's backend; ``data`` is its
+    place on the data axis (``None``: no data axis).  The port's
+    counterpart of the reference's ``Rules`` / ``active_rules``: it is
+    passed down from the engine through ``api`` into the model as an
+    argument, never held in a global, and the model code calls its
+    collectives explicitly after each row-split projection (Megatron
+    style).  The model never reads ``data``."""
+
+    def __init__(self, rank: int, size: int, group, device: torch.device, backend: str,
+                 data: DataParallel | None = None):
         self.rank = rank
         self.size = size
         self.group = group
         self.device = device
         self.backend = backend
+        self.data = data
 
     def all_reduce_sum(self, part: torch.Tensor) -> torch.Tensor:
         """Sum of the ranks' partials: an f32 sum of the partials, each
@@ -213,6 +237,14 @@ def instance_views(params, start: int, n: int = 1) -> MergedParams:
     """Instances ``start .. start + n`` of a merged model as a model of n
     instances whose leaves are views of the merged ones (no copy)."""
     return MergedParams(_map_params(lambda l, ax: l.narrow(ax, start, n), _as_tree(params)))
+
+
+def instance_rows(params, start: int, n: int) -> MergedParams:
+    """Instances ``start .. start + n`` as a model of n instances whose
+    leaves are contiguous copies (they hold no reference to the merged
+    model)."""
+    return MergedParams(_map_params(lambda l, ax: l.narrow(ax, start, n).contiguous(),
+                                    _as_tree(params)))
 
 
 def gather_instances(params, idx) -> MergedParams:

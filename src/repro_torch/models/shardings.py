@@ -1,6 +1,17 @@
-"""Which leaf splits along which dim under tensor parallelism, and the
-per-rank slicing of the params (port of ``repro.launch.shardings``: the
-"model" axis of ``serve_rules``), for the dense and hybrid families.
+"""Which leaf splits along which dim on a (data=D, model=T) serving mesh,
+and the per-rank slicing of the params (port of
+``repro.launch.shardings``: ``serve_rules``).
+
+The data axis (every family): ``serve_rules`` maps both ``instances``
+and ``batch`` to "data", and ``Rules.spec`` gives the axis to the first
+of the two that it divides (:func:`data_split`).  Under "instances" data
+rank d holds the contiguous instance rows [d M/D, (d+1) M/D) of the
+params and the grid; under "batch" it holds every instance and the
+slots [d B/D, (d+1) B/D); where neither divides, every data rank holds
+the whole grid.  The data slice is taken first (:func:`data_params`),
+then the model slice below.
+
+The model axis, for the dense and hybrid families:
 
 Dense, Megatron style over the port's ``(L, M, ...)`` layer leaves:
 
@@ -56,7 +67,7 @@ import torch
 
 from repro_torch.kernels.decode_attn import rank_kv_heads
 from repro_torch.kernels.decode_layer import tp_head_plan
-from repro_torch.models.common import MergedParams
+from repro_torch.models.common import MergedParams, instance_rows
 
 # dense layer leaf -> the dim of its (L, M, ...) tensor split over the ranks
 LAYER_SPLIT_DIM = {
@@ -66,6 +77,62 @@ LAYER_SPLIT_DIM = {
 }
 LM_HEAD_SPLIT_DIM = 2                              # (M, D, V): vocab
 FAMILIES = ("dense", "hybrid")
+
+
+def data_split(m: int, b: int, d: int) -> str | None:
+    """Which grid dim of an (M, B) grid the data axis of size ``d``
+    splits: "instances", "batch" or None (replicated), as
+    ``serve_rules(mesh).spec(("instances", "batch"), (M, B))`` decides:
+    a dim takes the axis where it divides, and the axis is used once."""
+    if m % d == 0:
+        return "instances"
+    return "batch" if b % d == 0 else None
+
+
+class DataRows(NamedTuple):
+    """A data rank's block of the (M, B) grid: the split, its instance
+    rows [m0, m0 + m) and its slots [b0, b0 + b)."""
+    split: str | None
+    m0: int
+    m: int
+    b0: int
+    b: int
+
+    def owns(self, mi: int, bi: int) -> bool:
+        return self.m0 <= mi < self.m0 + self.m and self.b0 <= bi < self.b0 + self.b
+
+    def block(self, grid):
+        """The rank's block of an (M, B, ...) array."""
+        return grid[self.m0:self.m0 + self.m, self.b0:self.b0 + self.b]
+
+    @property
+    def gather_dim(self) -> int:
+        """The grid dim the data ranks' blocks concatenate along."""
+        return 0 if self.split == "instances" else 1
+
+
+def data_rows(m: int, b: int, data) -> DataRows:
+    """The block of data rank ``data.rank`` of ``data.size`` (``data``
+    None: the whole grid)."""
+    d, i = (1, 0) if data is None else (data.size, data.rank)
+    split = data_split(m, b, d)
+    if d > 1 and split == "instances":
+        return DataRows(split, i * (m // d), m // d, 0, b)
+    if d > 1 and split == "batch":
+        return DataRows(split, 0, m, i * (b // d), b // d)
+    return DataRows(split, 0, m, 0, b)
+
+
+def data_params(params, rows: DataRows, first: int = 0) -> MergedParams:
+    """The data slice of merged params whose instances are the grid's
+    [first, first + n): the rank's instance rows, copied, or ``params``
+    itself where they are exactly those rows."""
+    n = params["final_norm"].shape[0]
+    lo = rows.m0 - first
+    if lo < 0 or lo + rows.m > n:
+        raise ValueError(f"params hold instances [{first}, {first + n}); this rank needs "
+                         f"[{rows.m0}, {rows.m0 + rows.m})")
+    return params if (lo, rows.m) == (0, n) else instance_rows(params, lo, rows.m)
 
 
 def layers_split(cfg, n: int) -> bool:

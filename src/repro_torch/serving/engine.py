@@ -1,6 +1,6 @@
 """Multi-model serving engine — the paper's deployment scenario (port of
 ``repro.serving.engine``, dense, ssm and hybrid families; tensor
-parallelism for dense and hybrid).
+parallelism for dense and hybrid; the data axis for all three).
 
 M fine-tuned instances of one architecture, merged on a leading
 instances axis, are served from one program over a fixed (M, B) slot
@@ -32,6 +32,21 @@ across the ranks, and slot and lane surgery runs on the rank's shard.
 Every host decision depends on the requests and the tokens only, never
 on time or on anything one rank holds alone, so the ranks make the same
 device calls in the same order and end with the same tokens.
+
+The data axis of a (data=D, model=T) mesh changes which rows a rank
+computes, never what any rank decides.  Every rank keeps the whole host
+state (the scheduler over all M instances, the slot grid, the prefill
+lanes, the metrics); a rank holds and computes only its data group's
+block of the grid (``shardings.data_rows``: a block of instance rows, or
+of slots, or all of it where D divides neither), through the local
+config ``cfg.with_(num_instances=M_l)``.  Once per K-step block the
+(k, M_l, B_l) token and emitted blocks are gathered over the data group,
+so every rank unrolls the same (k, M, B) block and the ranks' streams are
+identical.  They equal the single-device streams where a row's numbers do
+not depend on how many instances a call holds (f32); in bf16 a call over
+M_l instances may round otherwise than one over M (the decode matvec
+splits its sum by M).  Only the rank that owns a slot scatters a finished
+prefill into it.
 """
 from __future__ import annotations
 
@@ -42,7 +57,7 @@ import torch
 
 from repro_torch import api
 from repro_torch.models import hybrid as H
-from repro_torch.models.shardings import shard_params
+from repro_torch.models.shardings import data_params, data_rows, shard_params
 from repro_torch.serving.metrics import ServerMetrics
 from repro_torch.serving.prefill import ChunkedPrefill
 from repro_torch.serving.sampling import make_grid_sampler
@@ -71,7 +86,8 @@ class MultiModelServer:
         chunk_budget: int = 4,
         decode_steps: int = 1,
         device=None,
-        tp=None,                   # a TensorParallel handle: this rank's shard
+        tp=None,                   # a TensorParallel handle: this rank's place on the mesh
+        first_instance: int = 0,   # the grid index of params' first instance
     ):
         if cfg.family not in SERVABLE_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
@@ -81,23 +97,34 @@ class MultiModelServer:
                 raise ValueError(f"hybrid serving needs max_context >= meta+window = "
                                  f"{need}, got {max_context}")
         self.device = api.resolve_device(device)
-        self.tp = tp
         self.cfg = cfg
         self.m = cfg.num_instances
         self.b = slots_per_instance
         self.max_context = max_context
         self.eos_id = eos_id
-        self.scheduler = (make_scheduler(scheduler, self.m)
+        # the model gets the model group's handle where it has 2+ ranks;
+        # the data group is the engine's alone
+        data = None if tp is None else tp.data
+        self.data = data if data is not None and data.size > 1 else None
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        self.rows = data_rows(self.m, self.b, data)
+        self.local_cfg = cfg.with_(num_instances=self.rows.m)
+        shards = self.data.size if self.data is not None and self.rows.split == "instances" else 1
+        self.scheduler = (make_scheduler(scheduler, self.m, shards)
                           if isinstance(scheduler, str) else scheduler)
-        self.metrics = ServerMetrics(self.m)
-        self.prefill = ChunkedPrefill(cfg, max_context=max_context, device=self.device,
-                                      chunk=prefill_chunk, lanes=prefill_lanes,
-                                      metrics=self.metrics, tp=tp)
+        self.metrics = ServerMetrics(self.m, None if tp is None else {
+            "data": 1 if data is None else data.size, "model": tp.size})
+        self.prefill = ChunkedPrefill(self.local_cfg, max_context=max_context,
+                                      device=self.device, chunk=prefill_chunk,
+                                      lanes=prefill_lanes, metrics=self.metrics, tp=self.tp)
         self.chunk_budget = max(1, chunk_budget)
-        if tp is not None:         # shard where the params lie, move the shard only
-            params = shard_params(cfg, params, tp.rank, tp.size)
+        # slice where the params lie, move the rank's block only
+        params = data_params(params, self.rows, first_instance)
+        if self.tp is not None:
+            params = shard_params(self.local_cfg, params, self.tp.rank, self.tp.size)
         self.params = params.to(self.device)
-        self.cache = api.make_cache(cfg, self.m, self.b, max_context, self.device, tp=tp)
+        self.cache = api.make_cache(self.local_cfg, self.rows.m, self.rows.b, max_context,
+                                    self.device, tp=self.tp)
         self.pos = np.zeros((self.m, self.b), np.int32)
         self.cur_tok = np.zeros((self.m, self.b), np.int32)
         self.slot_busy = np.zeros((self.m, self.b), bool)
@@ -120,12 +147,13 @@ class MultiModelServer:
 
     @torch.inference_mode()
     def _block(self, params, cache, tok, pos, alive, remaining, k: int):
-        """k decode+sample steps over the grid with on-device stop.  Stop
-        mirrors the host finish logic: budget exhausted, EOS, or position
-        reaching ``max_context - 1``.  Returns (k, M, B) tokens and the
-        (k, M, B) emitted mask (alive at entry of each step), as host
-        arrays from one device-to-host copy."""
-        cfg = self.cfg
+        """k decode+sample steps over the rank's block of the grid with
+        on-device stop.  Stop mirrors the host finish logic: budget
+        exhausted, EOS, or position reaching ``max_context - 1``.  Returns
+        (k, M, B) tokens and the (k, M, B) emitted mask (alive at entry of
+        each step), as host arrays from one device-to-host copy, gathered
+        over the data group."""
+        cfg = self.local_cfg
         toks, emitted = [], []
         for _ in range(k):
             if self._greedy:
@@ -145,7 +173,10 @@ class MultiModelServer:
             emitted.append(alive)
             tok, pos, remaining, alive = nxt, new_pos, new_rem, alive & ~stop
         block = torch.stack([torch.stack(toks), torch.stack(emitted).to(torch.int32)])
-        block = block.cpu().numpy()
+        block = block.cpu()
+        if self.data is not None and self.rows.split is not None:
+            block = self.data.all_gather(block, 2 + self.rows.gather_dim)
+        block = block.numpy()
         return block[0], block[1].astype(bool)
 
     # -- request admission ---------------------------------------------------
@@ -232,16 +263,19 @@ class MultiModelServer:
             self.slot_prefilling[m, b] = True
             self._reserved[req.request_id] = (m, b)
             self.active[m][b] = req
-            self.prefill.start(req)
+            self.prefill.start(req, m - self.rows.m0 if self.rows.owns(m, b) else None)
             self.metrics.note_admit(m, len(req.prompt))
 
     def _finish_prefills(self, completed) -> None:
-        """Scatter completed prefill lanes into their reserved slots."""
+        """Scatter completed prefill lanes into their reserved slots (on
+        the rank that holds the slot; every rank keeps the books)."""
+        cfg, rows = self.local_cfg, self.rows
         for req, out in completed:
             m, b = self._reserved.pop(req.request_id)
-            with torch.inference_mode():
-                api.put_state(self.cfg, self.cache,
-                              api.take_state(self.cfg, out.cache, out.index, 0), m, b)
+            if rows.owns(m, b):
+                with torch.inference_mode():
+                    api.put_state(cfg, self.cache, api.take_state(cfg, out.cache, out.index, 0),
+                                  m - rows.m0, b - rows.b0)
             self.metrics.note_scatter()
             self.pos[m, b] = out.pos
             self.cur_tok[m, b] = out.last_token
@@ -294,7 +328,7 @@ class MultiModelServer:
                     req = self.active[m][b]
                     remaining[m, b] = req.max_new_tokens - len(self.generated[req.request_id])
         dev = self.device
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(self.rows.block(a))).to(dev)
         t0 = time.perf_counter()
         toks, emitted = self._step(self.params, self.cache, put(self.cur_tok),
                                    put(self.pos), put(decoding), put(remaining), k)

@@ -1,7 +1,9 @@
 """Per-instance serving metrics (port of ``repro.serving.metrics``: the
 counters and percentiles the serve CLI prints).
 
-Percentiles are nearest-rank over every sample of the run.
+Percentiles are nearest-rank over every sample of the run.  On a mesh
+the snapshot carries its shape and the throughput per device, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -39,9 +41,11 @@ class InstanceStats:
 
 
 class ServerMetrics:
-    def __init__(self, num_instances: int):
+    def __init__(self, num_instances: int, mesh_shape: dict | None = None):
         self.m = num_instances
         self.clock = time.perf_counter
+        # {"data": D, "model": T} on a mesh, None on one device
+        self.mesh_shape = mesh_shape
         self.per_instance = [InstanceStats() for _ in range(num_instances)]
         self.decode_steps = 0        # (M, B)-grid decode+sample steps
         self.decode_calls = 0        # K-step blocks (one dispatch each)
@@ -134,7 +138,7 @@ class ServerMetrics:
                 "latency_ms": percentiles(st.latency_samples),
             })
         gen = sum(s.generated_tokens for s in self.per_instance)
-        return {
+        out = {
             "wall_s": dt,
             "decode_steps": self.decode_steps,
             "decode_device_calls": self.decode_calls,
@@ -159,6 +163,11 @@ class ServerMetrics:
             "itl_ms": percentiles([x for s in self.per_instance for x in s.itl_samples]),
             "instances": inst,
         }
+        if self.mesh_shape is not None:
+            devices = self.mesh_shape["data"] * self.mesh_shape["model"]
+            out["mesh"] = {"shape": dict(self.mesh_shape), "devices": devices}
+            out["tok_per_s_per_device"] = gen / dt / devices
+        return out
 
     def format_table(self) -> str:
         snap = self.snapshot()

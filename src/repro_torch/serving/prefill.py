@@ -1,7 +1,7 @@
 """Chunked prefill for serving admission (port of
 ``repro.serving.prefill``, dense, ssm and hybrid families; tensor
 parallelism for dense and hybrid: ``tp`` makes the carry a rank's
-shard).
+shard; on a mesh with a data axis ``cfg`` is the rank's local config).
 
 Every prompt streams through ``api.prefill_chunk`` in fixed-size chunks;
 the final partial chunk is padded and masked per position (tail
@@ -66,6 +66,7 @@ class _Lane:
     next_pos: int = 0          # next absolute position to process
     total: int = 0             # positions to prefill = len(prompt) - 1
     fresh: bool = False        # carry rows need re-init before first work
+    row: int | None = None     # local instance row; None: the request lives elsewhere
 
 
 class ChunkedPrefill:
@@ -113,10 +114,13 @@ class ChunkedPrefill:
     def in_flight(self) -> int:
         return sum(1 for l in self._lanes if l.req is not None)
 
-    def start(self, req: Request) -> None:
+    def start(self, req: Request, row: int | None) -> None:
         """Bind a request to a free lane -- lane ``req.instance`` when that
         one is free, so lanes usually read their own instance's weights in
-        order and the chunk's matmuls stay one plain batched product."""
+        order and the chunk's matmuls stay one plain batched product.
+        ``row`` is the local instance row the lane reads (on one device
+        the instance itself), None where the request lives on another
+        data group."""
         order = list(range(self.lanes))
         if req.instance < self.lanes:
             order.remove(req.instance)
@@ -128,6 +132,7 @@ class ChunkedPrefill:
                 lane.next_pos = 0
                 lane.total = self.prefix + len(req.prompt) - 1
                 lane.fresh = True
+                lane.row = row
                 self.admitted += 1
                 return
         raise RuntimeError("no free prefill lane")
@@ -202,17 +207,19 @@ class ChunkedPrefill:
         for i, lane in enumerate(self._lanes):
             if lane.req is None:
                 continue
-            inst[i] = lane.req.instance
+            inst[i] = 0 if lane.row is None else lane.row
             offset[i, 0] = lane.next_pos
             if i in workable:
                 adv = min(c, lane.total - lane.next_pos)
+                tokens_done += adv
+                staged.append((lane, adv))
+                if lane.row is None:
+                    continue
                 pvalid[i, 0, :adv] = True
                 for j in range(adv):
                     p = lane.next_pos + j
                     if p >= self.prefix:
                         toks[i, 0, j] = lane.req.prompt[p - self.prefix]
-                tokens_done += adv
-                staged.append((lane, adv))
         dev = self.device
         batch = {"tokens": torch.from_numpy(toks).to(dev),
                  "valid": torch.from_numpy(pvalid).to(dev)}

@@ -1,5 +1,5 @@
 """Policy-driven admission scheduling for the multi-model server (port
-of ``repro.serving.scheduler``, single device).
+of ``repro.serving.scheduler``).
 
 One request stream per merged instance; once per engine step the engine
 asks which pending requests to admit into the free slots:
@@ -9,7 +9,12 @@ asks which pending requests to admit into the free slots:
 * ``round-robin`` — cycle instances, one request per instance per pass,
 * ``token-budget`` — least-total-tokens-served instance first.
 
-Policies are host-side bookkeeping only.
+Policies are host-side bookkeeping only.  On a mesh whose data axis
+splits the instances (``shardings.data_split``), instance i's row lives
+on data shard ``data_shard_of(i)`` (contiguous blocks of M / shards);
+``token-budget`` breaks served-token ties toward the instance on the
+least-loaded shard, then by index.  With one shard every policy is the
+single-device one.
 """
 from __future__ import annotations
 
@@ -46,10 +51,20 @@ class Scheduler:
 
     name = "base"
 
-    def __init__(self, num_instances: int):
+    def __init__(self, num_instances: int, num_data_shards: int = 1):
+        if num_instances % num_data_shards:
+            raise ValueError(f"{num_instances} instances do not split over "
+                             f"{num_data_shards} data shards")
         self.m = num_instances
         self.queues: list[deque[Request]] = [deque() for _ in range(num_instances)]
         self._arrival = itertools.count()
+        self.num_data_shards = num_data_shards
+        per = num_instances // num_data_shards
+        self._shard_of = [i // per for i in range(num_instances)]
+
+    def data_shard_of(self, instance: int) -> int:
+        """Which data-parallel device group serves this instance's row."""
+        return self._shard_of[instance]
 
     def submit(self, req: Request) -> None:
         if not 0 <= req.instance < self.m:
@@ -103,8 +118,8 @@ class FIFOScheduler(Scheduler):
 class RoundRobinScheduler(Scheduler):
     name = "round-robin"
 
-    def __init__(self, num_instances: int):
-        super().__init__(num_instances)
+    def __init__(self, num_instances: int, num_data_shards: int = 1):
+        super().__init__(num_instances, num_data_shards)
         self._cursor = 0
 
     def select(self, free, limit=None):
@@ -129,16 +144,20 @@ class RoundRobinScheduler(Scheduler):
 
 class TokenBudgetScheduler(Scheduler):
     """Least-total-tokens-served instance first: prompts are charged at
-    admission, generated tokens as the engine reports them."""
+    admission, generated tokens as the engine reports them.  Ties break
+    toward the least-loaded data shard, then by index."""
 
     name = "token-budget"
 
-    def __init__(self, num_instances: int):
-        super().__init__(num_instances)
+    def __init__(self, num_instances: int, num_data_shards: int = 1):
+        super().__init__(num_instances, num_data_shards)
         self.served = [0] * num_instances
 
     def note_generated(self, instance: int, n: int) -> None:
         self.served[instance] += n
+
+    def _shard_load(self, shard: int) -> int:
+        return sum(s for i, s in enumerate(self.served) if self._shard_of[i] == shard)
 
     def select(self, free, limit=None):
         budget = dict(free)
@@ -148,7 +167,8 @@ class TokenBudgetScheduler(Scheduler):
                      if self.queues[i] and budget.get(i, 0) > 0]
             if not ready:
                 break
-            i = min(ready, key=lambda j: (self.served[j], j))
+            i = min(ready, key=lambda j: (self.served[j],
+                                          self._shard_load(self._shard_of[j]), j))
             req = self.queues[i].popleft()
             self.served[i] += len(req.prompt)
             out.append(req)
@@ -161,7 +181,7 @@ POLICIES = {
 }
 
 
-def make_scheduler(policy: str, num_instances: int) -> Scheduler:
+def make_scheduler(policy: str, num_instances: int, num_data_shards: int = 1) -> Scheduler:
     if policy not in POLICIES:
         raise ValueError(f"unknown policy {policy!r}; known: {sorted(POLICIES)}")
-    return POLICIES[policy](num_instances)
+    return POLICIES[policy](num_instances, num_data_shards)

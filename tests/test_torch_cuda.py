@@ -356,10 +356,11 @@ def test_cuda_tensors_count_launches(dev):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,t,d,f,bias", [(4, 4, 2048, 5632, False), (3, 128, 768, 3072, True),
                                           (2, 77, 64, 200, True), (1, 1, 8, 8, False),
-                                          (5, 130, 96, 72, False)])
+                                          (5, 130, 96, 72, False), (2, 5, 20, 77, True)])
 def test_fused_matmul_kernel(dev, dt, m, t, d, f, bias):
     """The skinny serving shape, the BERT shape (cut to 3 instances), odd T
-    and F not a multiple of the 64-wide tile."""
+    and F not a multiple of the 64-wide tile; D and F that leave the rows
+    unaligned to 16 bytes (the element-wise loads)."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(m, t, d, generator=g, device=dev).to(dt)
     w = (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
@@ -368,6 +369,33 @@ def test_fused_matmul_kernel(dev, dt, m, t, d, f, bias):
     want = fm.fused_matmul_plain(x, w, b)
     torch.cuda.synchronize()
     assert got.dtype == dt and _err(got, want) <= _tol(dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_,t_", [(1, 2), (2, 1), (2, 2)])
+@pytest.mark.parametrize("m,t,d,f", [(4, 4, 2048, 5632), (32, 128, 768, 3072), (3, 4, 64, 77)])
+def test_fused_matmul_sharded_rank_blocks(dev, dt, d_, t_, m, t, d, f):
+    """Every rank's block of a (data=d_, model=t_) mesh through
+    ``ops.fused_matmul_sharded`` (one launch each) against the plain
+    version on the block, and the reassembled blocks against the plain
+    version on the whole problem; M=3, F=77 divide neither 2-way axis."""
+    from types import SimpleNamespace
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(m, t, d, generator=g, device=dev).to(dt)
+    w = (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
+    b = torch.randn(m, f, generator=g, device=dev)
+    ops.reset_launches()
+    outs = []
+    for r in range(d_ * t_):
+        data, tp = SimpleNamespace(rank=r // t_, size=d_), SimpleNamespace(rank=r % t_, size=t_)
+        xl, wl, bl = fm.rank_block(x, w, b, data.rank, d_, tp.rank, t_)
+        outs.append(ops.fused_matmul_sharded(xl, wl, bl, data=data, tp=tp))
+        torch.cuda.synchronize()
+        assert _err(outs[-1], fm.fused_matmul_plain(xl, wl, bl)) <= _tol(dt)
+    assert ops.launches()["fused_matmul_sharded"] == d_ * t_
+    got = fm.assemble(outs, m, f, d_, t_)
+    assert got.dtype == dt and _err(got, fm.fused_matmul_plain(x, w, b)) <= _tol(dt)
 
 
 @pytest.mark.parametrize("dt,sdt", [(torch.float32, torch.float32),

@@ -200,7 +200,7 @@ def test_cpu_tensors_route_to_plain_without_launches():
                               "decode_attention": 0, "fused_matmul": 0,
                               "group_rms_norm": 0, "mlstm_chunkwise": 0,
                               "decode_layer_attn": 0, "decode_layer_ffn": 0,
-                              "decode_attention_sharded": 0}
+                              "decode_attention_sharded": 0, "fused_matmul_sharded": 0}
 
 
 @pytest.mark.parametrize("m,t,d,f,bias", [(2, 5, 16, 24, False), (3, 1, 32, 8, True),

@@ -354,7 +354,16 @@ def test_serve_cli_mesh_1x2_on_cpu():
     assert "backend gloo" in r.stdout and "streams identical" in r.stdout
 
 
-def test_serve_cli_rejects_the_data_axis():
-    with pytest.raises(NotImplementedError, match="data axis"):
-        serve.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu",
-                    "--mesh-shape", "2x1"])
+def test_serve_cli_mesh_2x2_on_cpu():
+    """The data axis: 4 gloo ranks, each data group serving 2 of the 4
+    instances under tensor parallelism over 2; every rank's streams
+    identical."""
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                        "tinyllama-1.1b", "--smoke", "--device", "cpu", "--mesh-shape", "2x2",
+                        "--requests", "6", "--decode-steps", "4"],
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH="src"),
+                       cwd=str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "mesh 2x2 (data x model)" in r.stdout and "data split instances" in r.stdout
+    assert "4 ranks on" in r.stdout and "streams identical" in r.stdout
