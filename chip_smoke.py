@@ -9,7 +9,9 @@ non-zero before the result line is printed):
 1. device  -- the card's name and power limit (nvidia-smi);
 2. build   -- compile the seven kernel sources of ``src/repro_torch/csrc``
               with nvcc, one process per source, and print ptxas
-              registers / spills;
+              registers / spills (for the two kernels redesigned for
+              Hopper, fused_matmul.cu and chunk_prefill_attn.cu, the
+              report's lines as ptxas prints them);
 3. kernels -- each Hopper kernel against its plain PyTorch version: the
               dense kernels at the tinyllama-1.1b width (M=4, B=4, S=1024,
               C=32, D=2048, H=32, KVH=4, hd=64, F=5632, V=32000), the sLSTM
@@ -41,7 +43,14 @@ non-zero before the result line is printed):
               1x2, 2x1 and 2x2 at (4, 4, 2048, 5632) and (32, 128, 768,
               3072) with and without bias and at M=3, F=77 (replicated),
               each block and the reassembled output against the plain
-              version; all in bf16 and f32;
+              version; all in bf16 and f32; the Hopper designs' edges in
+              bf16, each twice and bit for bit: the merged matmul at T in
+              {1, 8, 16, 17, 64, 127, 128, 129, 257} with D = F = 200 (off
+              the 64-deep k-step and the 128-wide tile), D split 2 and 8
+              ways over a cluster at a 2x2 rank's block, 256-column tiles,
+              bias on and off; the chunk attention with its keys split over
+              a cluster of blocks (an all-junk lane, wrapped rings, hd 8,
+              64, 128) and at hymba's G = 5;
 4. serve   -- three main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
               the full tinyllama-1.1b config (dense: decode layer, chunk
@@ -117,13 +126,16 @@ non-zero before the result line is printed):
               phase kernels at a rank's shapes at TP=2, the sharded decode
               attention at each plan's per-rank shape, the sharded merged
               matmul at a rank's block at 2x2), beside the bound from bytes
-              and FLOPs.
+              and FLOPs; the chunk attention and the merged matmul (both
+              shapes of each row) also as device time queued behind a spin
+              kernel, beside SDPA's and ``torch.bmm``'s timed the same way.
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -335,6 +347,7 @@ def phase_build():
                               r"ring_combine_kernel|logits_partial_kernel|logits_reduce_kernel|"
                               r"chunk_attn_kernel|slstm_kernel|decode_attn_kernel|"
                               r"decode_combine_kernel|fused_matmul_bf16|fused_matmul_f32|"
+                              r"matmul_wide|matmul_skinny|chunk_attn_tc|"
                               r"group_rms_kernel|mlstm_state_kernel|mlstm_out_kernel)(I.*?E)?", fn)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
@@ -344,6 +357,11 @@ def phase_build():
                 registers=regs.group(1) if regs else "?",
                 static_smem=smem.group(1) if smem else 0,
                 spills=f"{spill.group(1)}/{spill.group(2)}" if spill else "?")
+    # the ptxas report of the two kernels redesigned for Hopper, as printed
+    for src in ("fused_matmul", "chunk_prefill_attn"):
+        for line in reports.get(src, "").splitlines():
+            if re.search(r"Compiling entry|Used \d+ registers|spill", line):
+                print(f"[ptxas] {src}.cu: {line.strip()}", flush=True)
     log("build", sources=len(build.SOURCES), built=len(reports), seconds=round(secs, 2))
 
 
@@ -461,6 +479,7 @@ def phase_kernels(torch, dev):
         errs[key] = e
         del pre, r
     errs.update(new_kernel_cases(torch, dev))
+    errs.update(hopper_design_cases(torch, dev))
     errs.update(phase_kernel_cases(torch, dev))
     errs.update(sharded_attn_cases(torch, dev))
     errs.update(sharded_matmul_cases(torch, dev))
@@ -468,6 +487,66 @@ def phase_kernels(torch, dev):
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
         tolerance_f32=TOL["float32"], status="ok")
+
+
+def hopper_design_cases(torch, dev):
+    """The edges of the two kernels redesigned for Hopper against their
+    plain versions, bf16: the merged matmul at every row count its wgmma
+    variants meet (skinny N = 8 / 16, wide in one, two and three block
+    rows) with D and F off the 64 / 128 tiles, D split 2 and 8 ways over a
+    cluster at a 2x2 rank's block of the serving shape, the 256-column wide
+    tiles, bias on and off; the chunk attention with its 17 key tiles split
+    over a cluster of 8 blocks (an all-junk lane, ranges across split
+    boundaries, wrapped rings; hd 8, 64, 128) and at hymba's G = 5 in 5
+    splits.  Each case twice, bit for bit."""
+    from repro_torch.kernels import chunk_prefill_attn as cpa
+    from repro_torch.kernels import fused_matmul as fm
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(41)
+    bf16 = torch.bfloat16
+    # (m, t, d, f, split forced on the plan or 0)
+    shapes = [(3, t, 200, 200, 0) for t in (1, 8, 16, 17, 64, 127, 128, 129, 257)]
+    shapes += [(M // 2, B, D, F // 2, 0), (M // 2, B, D, F // 2, 2), (M // 2, B, D, F // 2, 8),
+               (16, 128, 768, 1536, 0), (10, 128, 256, 2504, 0)]
+    for (m, t, d, f, split), bias in [(sh, b) for sh in shapes for b in (False, True)]:
+        x = torch.randn(m, t, d, generator=g, device=dev).to(bf16)
+        w = (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(bf16)
+        b = torch.randn(m, f, generator=g, device=dev) if bias else None
+        plan = fm.launch_plan(m, t, d, f)
+        if split:
+            plan = dataclasses.replace(plan, split=split, grid=(plan.grid[0], split, m))
+        got, again = fm.launch(x, w, b, plan), fm.launch(x, w, b, plan)
+        want = fm.fused_matmul_plain(x, w, b)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        key = (f"fused_matmul/hopper/{plan.variant}{plan.cols}/split{plan.split}/({m},{t},{d},{f})"
+               + ("/bias" if bias else ""))
+        assert e <= TOL["bfloat16"] and torch.equal(got, again), f"{key}: {e}"
+        errs[key] = e
+
+    cases = [(4, 32, 8, 2, hd, 1024, pin, win, sink, [pin, 700, 1500, 5000])
+             for hd in (8, 64, 128) for pin, win, sink in ((0, 0, 0), (16, 300, 16))]
+    cases += [(4, C, YH, YKVH, HD, YSWA, 128, 1024, 128, [128, 600, 1300, 2900]),
+              (4, C, YH, YKVH, HD, YS, 0, 1 << 30, 128, [0, 600, 1300, 2900])]
+    for lanes, c, h, kvh, hd, s_c, pin, win, sink, offs in cases:
+        q = torch.randn(lanes, 1, c, h, hd, generator=g, device=dev).to(bf16)
+        k, v = (torch.randn(lanes, 1, s_c + c, kvh, hd, generator=g, device=dev).to(bf16)
+                for _ in range(2))
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)[:, None]
+        kw = dict(s_cache=s_c, pin=pin, window=win, sink=sink)
+        plan = cpa.launch_plan(lanes, c, h, kvh, hd, s_c)
+        assert plan.splits > 1, plan
+        got = cpa.chunk_prefill_attention_cuda(q, k, v, off, **kw)
+        again = cpa.chunk_prefill_attention_cuda(q, k, v, off, **kw)
+        want = cpa.chunk_prefill_attention_plain(q, k, v, off, **kw)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        key = (f"chunk/hopper/H{h}/KVH{kvh}/hd{hd}/S{s_c}/splits{plan.splits}/pin{pin}/w{win}"
+               f"/s{sink}")
+        assert e <= TOL["bfloat16"] and torch.equal(got, again), f"{key}: {e}"
+        errs[key] = e
+    return errs
 
 
 def phase_kernel_cases(torch, dev):
@@ -1606,17 +1685,26 @@ def phase_times(torch, dev, by_path, profile_launches):
     lib_out = lib(0).transpose(1, 2)[:, None]
     assert abs_err(lib_out, want) < 0.05
     library = time_ms(torch, lambda: lib(next(it)))
+    # device time of kernel and SDPA alike: calls queued behind a spin
+    device_ms = time_queued_ms(torch, lambda: cpa.chunk_prefill_attention_cuda(
+        *sets[next(it) % 16], s_cache=S))
+    library_device = time_queued_ms(torch, lambda: lib(next(it)))
     vis_keys = mask.any(dim=2).sum().item()              # keys any query sees
     pairs = mask.sum().item()                            # visible (query, key) pairs
     nbytes = 2 * 4 * C * H * HD * 2 + vis_keys * KVH * HD * 2 * 2 + 4 * 4
     bms, by = bound_ms(nbytes, 4 * H * HD * pairs, "bfloat16")
+    log("times", name="chunk_prefill_attention", shape="4 lanes, C=32, S=1024, 32/4 heads, hd 64",
+        ms=f"{ms:.4f}", device_ms=f"{device_ms:.4f}", library_ms=f"{library:.4f}",
+        library_device_ms=f"{library_device:.4f}", bound_ms=f"{bms:.4f}",
+        splits=cpa.launch_plan(4, C, H, KVH, HD, S).splits)
     rows.append(dict(name="chunk_prefill_attention", route="cuda",
                      source="src/repro_torch/csrc/chunk_prefill_attn.cu",
                      replaces="src/repro/kernels/chunk_prefill_attn.py:35",
                      launches=launches["chunk_prefill_attention"],
                      launches_by_path=per_path("chunk_prefill_attention"), max_abs_err=err,
                      ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                     library_ms=library))
+                     library_ms=library, device_ms=device_ms,
+                     library_device_ms=library_device, library="SDPA, the same mask"))
 
     # sLSTM cell: prefill (S=32 over 4 lanes) in the row; decode (S=1 over
     # M=4 x B=4 slots) beside it.  bf16 activations, r in param_dtype (f32).
@@ -1705,7 +1793,7 @@ def matmul_time(torch, dev, g, m, t, d, f, copies):
     """The merged-matmul kernel at (m, t, d, f) in bf16, ``copies`` weight
     sets rotating so w comes from HBM, not L2: (max abs err against the
     plain version, event ms, device ms queued, plain ms, ``torch.bmm`` ms,
-    (bound ms, bound by))."""
+    ``torch.bmm`` device ms queued, (bound ms, bound by))."""
     from repro_torch.kernels import fused_matmul as fm
 
     bf16 = torch.bfloat16
@@ -1718,8 +1806,10 @@ def matmul_time(torch, dev, g, m, t, d, f, copies):
     device_ms = time_queued_ms(torch, lambda: fm.fused_matmul_cuda(*sets[next(it) % copies]))
     plain = time_ms(torch, lambda: fm.fused_matmul_plain(*sets[next(it) % copies]), reps=5)
     lib = time_ms(torch, lambda: torch.bmm(*sets[next(it) % copies]))
+    lib_device = time_queued_ms(torch, lambda: torch.bmm(*sets[next(it) % copies]))
     nbytes = 2 * (m * t * d + m * d * f + m * t * f)
-    return err, ms, device_ms, plain, lib, bound_ms(nbytes, 2 * m * t * d * f, "bfloat16")
+    return (err, ms, device_ms, plain, lib, lib_device,
+            bound_ms(nbytes, 2 * m * t * d * f, "bfloat16"))
 
 
 def sharded_matmul_time_row(torch, dev, launches, per_path):
@@ -1730,24 +1820,25 @@ def sharded_matmul_time_row(torch, dev, launches, per_path):
     block, so the kernel is timed on it.  ``launches`` include the data
     phase's ranks."""
     g = torch.Generator(device=dev).manual_seed(33)
-    err, ms, device_ms, plain, lib, (bms, by) = matmul_time(torch, dev, g, M // 2, B, D, F // 2, 8)
-    b_err, b_ms, b_dev, b_plain, b_lib, (b_bms, b_by) = matmul_time(torch, dev, g, 16, 128, 768,
-                                                                     1536, 4)
+    err, ms, device_ms, plain, lib, lib_dev, (bms, by) = matmul_time(torch, dev, g, M // 2, B, D,
+                                                                     F // 2, 8)
+    b_err, b_ms, b_dev, b_plain, b_lib, b_lib_dev, (b_bms, b_by) = matmul_time(
+        torch, dev, g, 16, 128, 768, 1536, 4)
     log("times", name="fused_matmul_sharded", shape="rank of 2x2: (16,128,768)@(16,768,1536) bf16",
         ms=f"{b_ms:.4f}", device_ms=f"{b_dev:.4f}", plain_ms=f"{b_plain:.4f}",
-        library_ms=f"{b_lib:.4f}", bound_ms=f"{b_bms:.4f}", bound_by=b_by,
-        of_bound=f"{b_bms / b_dev:.1%}")
+        library_ms=f"{b_lib:.4f}", library_device_ms=f"{b_lib_dev:.4f}",
+        bound_ms=f"{b_bms:.4f}", bound_by=b_by, of_bound=f"{b_bms / b_dev:.1%}")
     return dict(name="fused_matmul_sharded", route="cuda",
                 source="src/repro_torch/csrc/fused_matmul.cu",
                 replaces="src/repro/kernels/fused_matmul.py:120",
                 launches=launches["fused_matmul_sharded"],
                 launches_by_path=per_path("fused_matmul_sharded"), max_abs_err=err, ms=ms,
                 device_ms=device_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
-                library_ms=lib, library="torch.bmm",
+                library_ms=lib, library_device_ms=lib_dev, library="torch.bmm",
                 shape=f"rank of 2x2: ({M // 2},{B},{D})@({M // 2},{D},{F // 2}) bf16",
                 bert_ms=b_ms, bert_device_ms=b_dev, bert_plain_ms=b_plain,
-                bert_library_ms=b_lib, bert_bound_ms=b_bms, bert_bound_by=b_by,
-                bert_max_abs_err=b_err)
+                bert_library_ms=b_lib, bert_library_device_ms=b_lib_dev, bert_bound_ms=b_bms,
+                bert_bound_by=b_by, bert_max_abs_err=b_err)
 
 
 def new_time_rows(torch, dev, launches):
@@ -1765,20 +1856,26 @@ def new_time_rows(torch, dev, launches):
 
     # merged matmul: the tinyllama serving shape in the row, the BERT shape
     # beside it
-    err, ms, _, plain, lib, (bms, by) = matmul_time(torch, dev, g, M, B, D, F, 8)
-    b_err, b_ms, _, b_plain, b_lib, (b_bms, b_by) = matmul_time(torch, dev, g, 32, 128, 768,
-                                                                3072, 4)
+    err, ms, dev_ms, plain, lib, lib_dev, (bms, by) = matmul_time(torch, dev, g, M, B, D, F, 8)
+    b_err, b_ms, b_dev, b_plain, b_lib, b_lib_dev, (b_bms, b_by) = matmul_time(
+        torch, dev, g, 32, 128, 768, 3072, 4)
     rows.append(dict(name="fused_matmul", route="cuda", source="src/repro_torch/csrc/fused_matmul.cu",
                      replaces="src/repro/kernels/fused_matmul.py:24",
                      launches=launches["fused_matmul"], max_abs_err=err, ms=ms, plain_ms=plain,
-                     bound_ms=bms, bound_by=by, library_ms=lib,
+                     bound_ms=bms, bound_by=by, library_ms=lib, device_ms=dev_ms,
+                     library_device_ms=lib_dev,
                      shape=f"({M},{B},{D})@({M},{D},{F}) bf16", bert_ms=b_ms,
-                     bert_plain_ms=b_plain, bert_library_ms=b_lib, bert_bound_ms=b_bms,
+                     bert_device_ms=b_dev, bert_plain_ms=b_plain, bert_library_ms=b_lib,
+                     bert_library_device_ms=b_lib_dev, bert_bound_ms=b_bms,
                      bert_bound_by=b_by, bert_max_abs_err=b_err,
                      library="torch.bmm"))
+    log("times", name="fused_matmul", shape=f"({M},{B},{D})@({M},{D},{F}) bf16",
+        ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}", library_ms=f"{lib:.4f}",
+        library_device_ms=f"{lib_dev:.4f}", bound_ms=f"{bms:.4f}", of_bound=f"{bms / dev_ms:.1%}")
     log("times", name="fused_matmul", shape="(32,128,768)@(32,768,3072) bf16",
-        ms=f"{b_ms:.4f}", plain_ms=f"{b_plain:.4f}", library_ms=f"{b_lib:.4f}",
-        bound_ms=f"{b_bms:.4f}", bound_by=b_by, of_bound=f"{b_bms / b_ms:.1%}")
+        ms=f"{b_ms:.4f}", device_ms=f"{b_dev:.4f}", plain_ms=f"{b_plain:.4f}",
+        library_ms=f"{b_lib:.4f}", library_device_ms=f"{b_lib_dev:.4f}",
+        bound_ms=f"{b_bms:.4f}", bound_by=b_by, of_bound=f"{b_bms / b_dev:.1%}")
 
     # group RMS norm at the BERT shape: launch latency dominates, so the
     # device time of calls queued behind a spin kernel stands beside it

@@ -1,32 +1,52 @@
 // The NetFuse merged matmul, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/fused_matmul.py
-// (_kernel and _bias_kernel, via fused_matmul): x (M,T,D) @ w (M,D,F)
-// [+ b (M,F)] -> (M,T,F).  Instance m's rows only ever meet instance m's
-// weights.  As kernels/ref.py::fused_matmul: w in x's dtype, the sum in
-// f32, the bias added in f32, the result cast to x's dtype once.
+// (_kernel and _bias_kernel, via fused_matmul; fused_matmul_sharded runs
+// the same on a rank's block): x (M,T,D) @ w (M,D,F) [+ b (M,F)] ->
+// (M,T,F).  Instance m's rows only ever meet instance m's weights.  As
+// kernels/ref.py::fused_matmul: w in x's dtype, the sum in f32, the bias
+// added in f32, the result cast to x's dtype once.
 //
-// What bounds it on this card depends on T:
-//   * skinny (the serving shape, T = a few slots): bytes -- every weight byte
-//     is used by only T rows.  A block owns BN output columns of one
-//     instance for BM >= T rows, so each weight byte is read once per
-//     instance; the next BK-deep tiles are fetched into registers while the
-//     current ones are multiplied, so a block keeps a load in flight.
-//   * wide (the paper's BERT shape, T = 128): operations -- 19.3 GFLOP at
-//     M = 32.  bf16 tiles go through the tensor cores (wmma 16x16x16 with
-//     f32 accumulators); f32 uses plain FMA (TF32 would not hold f32 to
-//     1e-4), each thread an 8 x 4 register tile.
-// The Pallas kernel walks D on a sequential grid axis and carries the sum in
-// a VMEM scratch; here a block loops over D itself.  Rows past T and columns
-// past F are masked.  Tiles move in 16-byte pieces; where D (x's rows) or F
-// (w's rows) is not a multiple of a piece, the rows are not 16-byte aligned
-// and the pieces are gathered element by element (any shape runs, as the
-// Pallas kernel's block clamp takes any shape; fused_matmul_sharded's
-// replicated F = 77 case).
+// What bounds it on this card: the weight bytes.  A weight byte feeds T
+// rows, so the intensity is T FLOP per byte of w -- at most 128 on the
+// paper's BERT shape (T = 128) and 4 at serving (T = a few slots), both
+// below the ~295 FLOP per byte where the H100's bf16 tensor cores would
+// be the limit.  What matters is reading w once, with enough bytes in
+// flight.  The bf16 design (rows 16-byte aligned: D and F multiples of 8):
+//   * a ring of 5 (wide) or 4 (skinny) stages of x and w tiles in dynamic
+//     shared memory, filled by 16-byte cp.async copies in the 128-byte
+//     swizzle, k-step i + stages - 1 in flight while step i is multiplied;
+//   * products by wgmma straight from those tiles (x K-major, w MN-major),
+//     f32 accumulators in registers;
+//   * wide (T > 16): one persistent block per SM walks the 128-row x
+//     128-column output tiles, the ring running on from one tile into the
+//     next; at T <= 128 one tile row covers the instance, so each w tile
+//     is read once;
+//   * skinny (T <= 16): out^T = w^T x^T, so the 64 rows of a wgmma run
+//     along F and T is its N (8 or 16): at most half of the tensor work is
+//     padding, not 60 of 64 rows.  Where the instances' column tiles are
+//     fewer than the SMs, D is split over up to 8 blocks (the split is
+//     chosen in fused_matmul.py's launch_plan), one cluster per output
+//     tile; the cluster's first block sums the f32 partials over
+//     distributed shared memory in split order, no atomics, so a call is
+//     deterministic;
+//   * the epilogue adds the bias in f32 and writes 16-byte vectors.
+// f32 keeps FMA on CUDA cores (TF32 would not hold f32 to 1e-4): thread
+// tiles of 8 x 4 over 64 x 64 blocks, the next BK-deep tiles fetched into
+// registers while the current ones are multiplied.  Rows that are not
+// 16-byte aligned (D or F not a multiple of 8, fused_matmul_sharded's
+// replicated F = 77 case) gather their pieces element by element, for
+// either dtype (bf16 there on wmma).  The Pallas kernel walks D on a
+// sequential grid axis and carries the sum in a VMEM scratch; here a block
+// loops over D itself.  Rows past T and columns past F are masked.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <mma.h>
 
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -125,8 +145,10 @@ __device__ __forceinline__ void epilogue(const float* cs, int cr, const float* _
   }
 }
 
-// bf16: tensor cores.  4 warps, each a 32 x 32 quarter of the 64 x 64 tile
-// as 2 x 2 wmma accumulators.
+// bf16 rows that are not 16-byte aligned (D or F not a multiple of 8):
+// wmma 16x16x16 on tensor cores, 4 warps, each a 32 x 32 quarter of the
+// 64 x 64 tile as 2 x 2 accumulators.  Aligned bf16 takes the Hopper path
+// below.
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 fused_matmul_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
@@ -246,17 +268,597 @@ fused_matmul_f32(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// One launch of instances [0, g.z) from x, w, bias, out (already offset).
-template <bool VEC>
-void launch(int dt, const dim3& g, cudaStream_t s, const void* x, const void* w,
-            const float* bias, void* out, int T_, int D, int F) {
-  if (dt == 0)
-    fused_matmul_f32<VEC><<<g, THREADS, 0, s>>>((const float*)x, (const float*)w, bias,
-                                                  (float*)out, T_, D, F);
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: TMA fills a ring of 128-byte-swizzled shared-memory tiles
+// from one producer warp (an mbarrier pair per stage); two consumer
+// warpgroups multiply them with wgmma (rows 16-byte aligned: D and F
+// multiples of 8, as TMA's strides need)
+// ---------------------------------------------------------------------------
+
+constexpr int HK = 64;                       // k per stage: one 128-byte line of bf16
+constexpr int WIDE_ROWS = 128;               // rows of x per wide tile: two warpgroups of 64
+constexpr int W_CHUNK = HK * 128;            // 8 KB: 64 k-lines of one 64-column chunk of w
+constexpr int X_WIDE = WIDE_ROWS * HK * 2;   // 16 KB: x (WIDE_ROWS x HK)
+constexpr int X_SKINNY = 16 * HK * 2;        // 2 KB: x (<= 16 rows x HK)
+constexpr int MAX_SPLIT = 8;                 // blocks of a cluster (the portable limit)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma descriptor of a B128-swizzled operand at shared address a; lbo and
+// sbo in bytes.  K-major (rows of 64 k): sbo = 1024, the stride of 8-row
+// groups; lbo unused.  MN-major (lines of 64 m or n, one per k): lbo = the
+// stride of the 64-wide chunks along m or n, sbo = 1024, the stride of
+// 8-line groups along k.
+__device__ __forceinline__ uint64_t gdesc(uint32_t a, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// D (64 x 8, f32, 4 registers a thread) += A (64 x 16) B (16 x 8), both from
+// shared memory through their descriptors; TA / TB: 1 where the operand is
+// MN-major (its M or N index contiguous), 0 where K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n8(float (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 16, f32, 8 registers a thread) += A (64 x 16) B (16 x 16), both from
+// shared memory through their descriptors; TA / TB: 1 where the operand is
+// MN-major (its M or N index contiguous), 0 where K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 128, f32, 64 registers a thread) += A (64 x 16) B (16 x 128), both from
+// shared memory through their descriptors; TA / TB: 1 where the operand is
+// MN-major (its M or N index contiguous), 0 where K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," 
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," 
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," 
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 256, f32, 128 registers a thread) += A (64 x 16) B (16 x 256), both from
+// shared memory through their descriptors; TA / TB: 1 where the operand is
+// MN-major (its M or N index contiguous), 0 where K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," 
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," 
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," 
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," 
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," 
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," 
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," 
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// --- mbarriers and TMA ---
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// wait until the barrier has completed the phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// a box of the 3-d tensor map at (c0, c1, c2) -> shared memory at dst,
+// completing its bytes of transaction on bar (a box past the tensor's edge
+// is zero-filled there, and still counts in full)
+__device__ __forceinline__ void tma3(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                     uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// the same, with an L2 evict-first hint: w is read once, so its lines go
+// first and x and the outputs stay in L2
+__device__ __forceinline__ void tma3_once(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                          int c2, uint32_t bar) {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "l"(pol)
+      : "memory");
+}
+
+// 16 bytes global -> shared by cp.async, zero-filled (nothing read) where
+// !ok, as a group of its own; cp_wait_all waits for all of the thread's
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  return (unsigned char*)(((uintptr_t)p + 1023) & ~(uintptr_t)1023);
+}
+
+__device__ __forceinline__ uint4 pack8(const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return u;
+}
+
+// The ring: STAGES stages of STAGE bytes from the 1 KB-aligned base, then
+// a full and an empty mbarrier per stage.  The producer warp's lane 0
+// waits for a stage to be empty, expects its bytes on its full barrier and
+// issues the TMA boxes; the CONSUMERS threads wait for it to be full,
+// multiply, and arrive on its empty barrier.  Use u of a stage waits for
+// parity u & 1 of full and, before refilling, for the completion of use
+// u - 1 of empty.
+template <int STAGES, int STAGE, int CONSUMERS>
+struct Ring {
+  static constexpr int BYTES = STAGES * STAGE + 16 * STAGES;
+  uint32_t base, bars;
+  __device__ __forceinline__ uint32_t stage(int i) const { return base + (i % STAGES) * STAGE; }
+  __device__ __forceinline__ uint32_t full(int i) const { return bars + 8 * (i % STAGES); }
+  __device__ __forceinline__ uint32_t empty(int i) const {
+    return bars + 8 * (STAGES + i % STAGES);
+  }
+  __device__ __forceinline__ void init(unsigned char* smem) {
+    base = smem_addr(smem);
+    bars = base + STAGES * STAGE;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < STAGES; ++i) {
+        mbar_init(full(i), 1);
+        mbar_init(empty(i), CONSUMERS);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+  // producer: step i's stage is free to fill
+  __device__ __forceinline__ void wait_empty(int i) const {
+    if (i >= STAGES) mbar_wait(empty(i), (i / STAGES - 1) & 1);
+  }
+  __device__ __forceinline__ void wait_full(int i) const { mbar_wait(full(i), (i / STAGES) & 1); }
+};
+
+// D (64 x BN) += A (64 x 16) B (16 x BN): x K-major, w MN-major
+template <int BN>
+__device__ __forceinline__ void wide_mma(float (&acc)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 128) wgmma_n128<0, 1>(acc, da, db);
+  else wgmma_n256<0, 1>(acc, da, db);
+}
+
+// Wide (T > 16): a block of two consumer warpgroups and a producer warp
+// walks the output tiles blockIdx.x, + gridDim.x, ... (a tile: rows [t0,
+// t0 + 128) x columns [f0, f0 + BN) of one instance, BN = 256, or 128
+// where the launch plan finds 256 would leave SMs idle; warpgroup g the
+// rows t0 + 64g .. + 64, skipped where they all lie past T).  The producer
+// runs ahead across tiles, so the next tile's first stages arrive while
+// this one's epilogue runs.  At T <= 128 one tile row covers the
+// instance, so each w tile is read once.  A = x (K-major), B = w
+// (MN-major, BN / 64 chunks of 64 columns).  Each warp fetches the tile's
+// bias into shared memory at the tile's first k-step (cp.async), so the
+// epilogue does not wait on loads queued behind the weight stream.
+// Epilogue: each warp rounds its 16 x BN accumulators (+ bias) into its
+// own staging rows, 128 columns at a time, and stores them as 16-byte
+// vectors.
+constexpr int WIDE_ES = 128 + 8;                            // bf16 staging stride
+constexpr int WIDE_EPI = 8 * 16 * WIDE_ES * 2;              // 8 consumer warps
+template <int BN, int STAGES>
+struct WideCfg {
+  static constexpr int STAGE = X_WIDE + BN * HK * 2;
+  using R = Ring<STAGES, STAGE, 256>;
+  static constexpr int BIAS = 8 * BN * 4;                   // each warp's copy of a tile's bias
+  static constexpr int SMEM = 1024 + R::BYTES + WIDE_EPI + BIAS;
+  static_assert(SMEM <= MAX_SMEM, "wide shared memory");
+};
+
+template <int BN, int STAGES>
+__global__ void __launch_bounds__(288, 1)
+matmul_wide(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+            const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int T_,
+            int D, int F) {
+  using Cfg = WideCfg<BN, STAGES>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1k(smem_raw);
+  typename Cfg::R ring;
+  ring.init(smem);
+  const int ft = (F + BN - 1) / BN, rt = (T_ + WIDE_ROWS - 1) / WIDE_ROWS;
+  const int tiles = ft * rt * M, nk = (D + HK - 1) / HK;
+  const int mine = blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int steps = mine * nk;
+  // tile i of this block -> (instance, first row, first column)
+  auto tile = [&](int i, int& m, int& t0, int& f0) {
+    const int id = blockIdx.x + i * gridDim.x;
+    f0 = (id % ft) * BN;
+    t0 = (id / ft % rt) * WIDE_ROWS;
+    m = id / (ft * rt);
+  };
+
+  if (threadIdx.x >= 256) {                  // the producer warp
+    if (threadIdx.x == 256) {
+      for (int g = 0; g < steps; ++g) {
+        int m, t0, f0;
+        tile(g / nk, m, t0, f0);
+        const int k0 = (g % nk) * HK;
+        ring.wait_empty(g);
+        const uint32_t s = ring.stage(g), bar = ring.full(g);
+        mbar_expect(bar, Cfg::STAGE);
+        tma3(s, &xmap, k0, t0, m, bar);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma3_once(s + X_WIDE + c * W_CHUNK, &wmap, f0 + 64 * c, k0, m, bar);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __nv_bfloat16* es = reinterpret_cast<__nv_bfloat16*>(smem + Cfg::R::BYTES) + warp * 16 * WIDE_ES;
+  float* sbias = reinterpret_cast<float*>(smem + Cfg::R::BYTES + WIDE_EPI) + warp * BN;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int g = 0; g < steps; ++g) {
+    int m, t0, f0;
+    tile(g / nk, m, t0, f0);
+    if (bias && g % nk == 0)         // this tile's bias, in flight until its epilogue
+      for (int c = 4 * lane; c < BN; c += 128)
+        cp16(smem_addr(sbias + c), f0 + c < F ? bias + (size_t)m * F + f0 + c : bias, f0 + c < F);
+    ring.wait_full(g);
+    if (t0 + 64 * wg < T_) {
+      const uint32_t s = ring.stage(g), xs = s + wg * 64 * 128, ws = s + X_WIDE;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HK / 16; ++kk)
+        wide_mma<BN>(acc, gdesc(xs + kk * 32, 16, 1024), gdesc(ws + kk * 2048, W_CHUNK, 1024));
+      wg_commit();
+      wg_wait0();
+    }
+    mbar_arrive(ring.empty(g));
+    if (g % nk != nk - 1) continue;
+    // epilogue of the tile: rows r0 + lane / 4 (+ 8) of this warp, columns
+    // 8 j + 2 (lane % 4) (+ 1), 128 at a time through the staging rows
+    const int r0 = t0 + 64 * wg + 16 * (warp & 3);
+    __nv_bfloat16* om = out + (size_t)m * T_ * F;
+    if (bias) {
+      cp_wait_all();
+      __syncwarp();                  // the warp's bias copy has landed
+    }
+#pragma unroll
+    for (int h = 0; h < BN / 128; ++h) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + 2 * (lane & 3), a = 4 * (16 * h + j);
+        const float2 b = bias ? *reinterpret_cast<const float2*>(sbias + 128 * h + c)
+                              : make_float2(0.f, 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(es + (lane >> 2) * WIDE_ES + c) =
+            __floats2bfloat162_rn(acc[a] + b.x, acc[a + 1] + b.y);
+        *reinterpret_cast<__nv_bfloat162*>(es + ((lane >> 2) + 8) * WIDE_ES + c) =
+            __floats2bfloat162_rn(acc[a + 2] + b.x, acc[a + 3] + b.y);
+        acc[a] = acc[a + 1] = acc[a + 2] = acc[a + 3] = 0.f;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {   // 16 rows x 16 pieces of 16 bytes
+        const int p = lane + 32 * i, rr = p >> 4, c = (p & 15) * 8;
+        const int t = r0 + rr, f = f0 + 128 * h + c;
+        if (t < T_ && f < F)
+          *reinterpret_cast<uint4*>(om + (size_t)t * F + f) =
+              *reinterpret_cast<const uint4*>(es + rr * WIDE_ES + c);
+      }
+      __syncwarp();                  // staging rows free again
+    }
+  }
+}
+
+// Skinny (T <= 16): the operands swap, out^T (F x T) = w^T x^T, so the 64
+// rows of a wgmma run along F and T is its N (8 or 16): A = w (MN-major),
+// B = x (K-major).  A block of two consumer warpgroups and a producer warp
+// owns columns [f0, f0 + 128) of one instance (warpgroup g the 64 at f0 +
+// 64g) over k-steps [kb, ke) of D, a ring of 6 stages.  split > 1: the split
+// blocks of an output tile form one cluster; each leaves its f32 partial
+// in its shared memory, and the cluster's first block sums them over
+// distributed shared memory in split order (the remote loads all in
+// flight at once), adds the bias and writes the tile (no scratch, no
+// second launch, no atomics).
+struct SkinnyCfg {
+  static constexpr int TILE = 128, STAGES = 6, STAGE = 2 * W_CHUNK + X_SKINNY;
+  static constexpr int CS = TILE + 4;        // f32 partial stride: conflict-free writes
+  using R = Ring<STAGES, STAGE, 256>;
+  static constexpr int SMEM = 1024 + R::BYTES;
+  static_assert(16 * CS * 4 <= STAGES * STAGE && SMEM <= MAX_SMEM, "skinny shared memory");
+};
+
+template <int N>
+__global__ void __launch_bounds__(288)
+matmul_skinny(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+              const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int T_, int D,
+              int F, int split) {
+  using Cfg = SkinnyCfg;
+  constexpr int CONSUMERS = 256;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1k(smem_raw);
+  typename Cfg::R ring;
+  ring.init(smem);
+  const int f0 = blockIdx.x * Cfg::TILE, sp = blockIdx.y, m = blockIdx.z;
+  const int nk_all = (D + HK - 1) / HK;
+  const int kb = sp * nk_all / split, nk = (sp + 1) * nk_all / split - kb;
+  cg::cluster_group cl = cg::this_cluster();
+
+  if (threadIdx.x >= CONSUMERS) {            // the producer warp
+    if (threadIdx.x == CONSUMERS) {
+      for (int i = 0; i < nk; ++i) {
+        const int k0 = (kb + i) * HK;
+        ring.wait_empty(i);
+        const uint32_t s = ring.stage(i), bar = ring.full(i);
+        mbar_expect(bar, 2 * W_CHUNK + N * HK * 2);
+        tma3_once(s, &wmap, f0, k0, m, bar);
+        tma3_once(s + W_CHUNK, &wmap, f0 + 64, k0, m, bar);
+        tma3(s + 2 * W_CHUNK, &xmap, k0, 0, m, bar);
+      }
+    }
+  } else {
+    const int wg = threadIdx.x >> 7;
+    float acc[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < nk; ++i) {
+      ring.wait_full(i);
+      const uint32_t s = ring.stage(i), ws = s + wg * W_CHUNK, xs = s + 2 * W_CHUNK;
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HK / 16; ++kk) {
+        if constexpr (N == 8)
+          wgmma_n8<1, 0>(acc, gdesc(ws + kk * 2048, W_CHUNK, 1024), gdesc(xs + kk * 32, 16, 1024));
+        else
+          wgmma_n16<1, 0>(acc, gdesc(ws + kk * 2048, W_CHUNK, 1024), gdesc(xs + kk * 32, 16, 1024));
+      }
+      wg_commit();
+      wg_wait0();
+      mbar_arrive(ring.empty(i));
+    }
+    // every stage is consumed (and no more arrive): the partial goes where
+    // the ring was.  f = 64 wg + 16 warp + lane / 4 (+ 8), t = 8 j + 2
+    // (lane % 4) (+ 1) -> cs[t][f]
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+    float* cs = reinterpret_cast<float*>(smem);
+    const int lane = threadIdx.x & 31;
+    const int fr = 64 * wg + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const int t = 8 * j + 2 * (lane & 3);
+      cs[t * Cfg::CS + fr] = acc[4 * j];
+      cs[(t + 1) * Cfg::CS + fr] = acc[4 * j + 1];
+      cs[t * Cfg::CS + fr + 8] = acc[4 * j + 2];
+      cs[(t + 1) * Cfg::CS + fr + 8] = acc[4 * j + 3];
+    }
+  }
+  if (split > 1)
+    cl.sync();                       // every split's partial is in its shared memory
   else
-    fused_matmul_bf16<VEC><<<g, THREADS, 0, s>>>((const __nv_bfloat16*)x,
-                                                   (const __nv_bfloat16*)w, bias,
-                                                   (__nv_bfloat16*)out, T_, D, F);
+    __syncthreads();
+  if (cl.block_rank() == 0 && threadIdx.x < CONSUMERS) {
+    const float* cs = reinterpret_cast<const float*>(smem);
+    const float* bm = bias ? bias + (size_t)m * F : nullptr;
+    __nv_bfloat16* om = out + (size_t)m * T_ * F;
+    for (int p = threadIdx.x; p < N * Cfg::TILE / 8; p += CONSUMERS) {
+      const int t = p / (Cfg::TILE / 8), c = p % (Cfg::TILE / 8) * 8, f = f0 + c;
+      if (t >= T_ || f >= F) continue;
+      float a[8], b[MAX_SPLIT][8];
+#pragma unroll
+      for (int r = 1; r < MAX_SPLIT; ++r)     // every remote load in flight at once
+        if (r < split) Load8<float>::run(cl.map_shared_rank(cs, r) + t * Cfg::CS + c, b[r]);
+      Load8<float>::run(cs + t * Cfg::CS + c, a);
+#pragma unroll
+      for (int r = 1; r < MAX_SPLIT; ++r)
+        if (r < split) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) a[q] += b[r][q];
+        }
+      if (bm) {
+        Load8<float>::run(bm + f, b[0]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) a[q] += b[0][q];
+      }
+      *reinterpret_cast<uint4*>(om + (size_t)t * F + f) = pack8(a);
+    }
+  }
+  if (split > 1) cl.sync();          // the first block is done reading the others
+}
+
+template <typename K>
+cudaError_t allow_smem(K kern, int bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The FMA (f32) and element-wise (bf16 rows not 16-byte aligned) kernels on
+// instances [0, g.z) of x, w, bias, out (already offset).
+cudaError_t launch_simt(int dt, const dim3& g, cudaStream_t s, const void* x, const void* w,
+                        const float* bias, void* out, int T_, int D, int F) {
+  const bool vec = D % 8 == 0 && F % 8 == 0;
+  if (dt == 0 && vec)
+    fused_matmul_f32<true><<<g, THREADS, 0, s>>>((const float*)x, (const float*)w, bias,
+                                                   (float*)out, T_, D, F);
+  else if (dt == 0)
+    fused_matmul_f32<false><<<g, THREADS, 0, s>>>((const float*)x, (const float*)w, bias,
+                                                    (float*)out, T_, D, F);
+  else
+    fused_matmul_bf16<false><<<g, THREADS, 0, s>>>((const __nv_bfloat16*)x,
+                                                     (const __nv_bfloat16*)w, bias,
+                                                     (__nv_bfloat16*)out, T_, D, F);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled of the CUDA driver API, found through the runtime's
+// entry-point query, so the library needs no -lcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 3-d tensor map of a bf16 (n2, n1, n0) array (n0 contiguous), boxes
+// of (1, b1, 64) in the 128-byte swizzle, zero past the edges.
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int n0, int n1, int n2, int b1) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {(cuuint64_t)n0 * 2, (cuuint64_t)n0 * n1 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)b1, 1}, one[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// The wide instantiations the launch plan picks from: 128 or 256 columns.
+#define WIDE_KERNELS(X) X(128, 5) X(256, 3)
+
+// Raise the dynamic shared-memory limit of the wgmma kernels, once per
+// device.
+cudaError_t allow_hopper_smem() {
+  static unsigned done = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = 1u << (dev & 31);
+  if (done & bit) return cudaSuccess;
+#define ALLOW_WIDE(BN, ST) \
+  if ((e = allow_smem(matmul_wide<BN, ST>, WideCfg<BN, ST>::SMEM)) != cudaSuccess) return e;
+  WIDE_KERNELS(ALLOW_WIDE)
+  if ((e = allow_smem(matmul_skinny<8>, SkinnyCfg::SMEM)) != cudaSuccess) return e;
+  if ((e = allow_smem(matmul_skinny<16>, SkinnyCfg::SMEM)) != cudaSuccess) return e;
+  done |= bit;
+  return cudaSuccess;
+}
+
+// The wgmma path on instances [0, mc): variant 1 wide (cols 128 or 256) on
+// `grid` blocks; variant 2 skinny (cols 128; N 8 where T <= 8, else 16) in
+// clusters of `split` blocks along y.
+cudaError_t launch_hopper(int variant, int cols, int grid, int mc, cudaStream_t s, const void* x,
+                          const void* w, const float* bias, __nv_bfloat16* out, int T_, int D,
+                          int F, int split) {
+  const int n = T_ <= 8 ? 8 : 16;
+  CUtensorMap xmap, wmap;
+  cudaError_t e = tensor_map(&xmap, x, D, T_, mc, variant == 1 ? WIDE_ROWS : n);
+  if (e == cudaSuccess) e = tensor_map(&wmap, w, F, D, mc, HK);
+  if (e != cudaSuccess) return e;
+  if (variant == 1) {
+#define LAUNCH_WIDE(BN, ST)                                                                \
+  if (cols == BN) {                                                                        \
+    matmul_wide<BN, ST><<<grid, 288, WideCfg<BN, ST>::SMEM, s>>>(xmap, wmap, bias, out, mc, \
+                                                                 T_, D, F);                \
+    return cudaGetLastError();                                                             \
+  }
+    WIDE_KERNELS(LAUNCH_WIDE)
+    return cudaErrorInvalidValue;
+  }
+  if (cols != SkinnyCfg::TILE) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((F + cols - 1) / cols, split, mc);
+  cfg.blockDim = dim3(288);
+  cfg.dynamicSmemBytes = SkinnyCfg::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = n == 8 ? cudaLaunchKernelEx(&cfg, matmul_skinny<8>, xmap, wmap, bias, out, T_, D, F, split)
+             : cudaLaunchKernelEx(&cfg, matmul_skinny<16>, xmap, wmap, bias, out, T_, D, F, split);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
@@ -265,31 +867,46 @@ extern "C" {
 
 // x (M,T,D), w (M,D,F) of one dtype (dt: 0 = float32, 1 = bfloat16), bias
 // (M,F) float32 or null -> out (M,T,F) in x's dtype, any M, T, D, F >= 1.
-// Returns cudaGetLastError() after the launch.
+// variant, cols, grid and split come from fused_matmul.py's launch_plan:
+// 0 the FMA / element-wise kernel (split 1); bf16 with D and F multiples
+// of 8 only: 1 wide, tiles of 128 rows x cols (128 or 256) walked by
+// `grid` blocks (split 1); 2 skinny, T <= 16, tiles of cols = 128
+// columns, 1 <= split <= min(8, ceil(D / 64)) blocks (a cluster) per
+// tile.  Returns the first error of the tensor-map, attribute and launch
+// calls.
 int fused_matmul(int dt, const void* x, const void* w, const void* bias, void* out, int M,
-                 int T_, int D, int F, void* stream) {
+                 int T_, int D, int F, int variant, int cols, int grid, int split,
+                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (M < 1 || T_ < 1 || D < 1 || F < 1 || (dt != 0 && dt != 1))
+  if (M < 1 || T_ < 1 || D < 1 || F < 1 || (dt != 0 && dt != 1) || variant < 0 || variant > 2)
     return (int)cudaErrorInvalidValue;
+  if (variant == 0 ? split != 1
+                   : (dt != 1 || D % 8 || F % 8 || split < 1 || split > MAX_SPLIT ||
+                      split > (D + HK - 1) / HK || (variant == 2 && T_ > 16) ||
+                      (variant == 1 && (split != 1 || grid < 1))))
+    return (int)cudaErrorInvalidValue;
+  if (variant != 0) {
+    const cudaError_t e = allow_hopper_smem();
+    if (e != cudaSuccess) return (int)e;
+  }
   const size_t esz = dt == 0 ? 4 : 2;
-  // 16-byte rows (every instance's too) where D and F are multiples of 8:
-  // vector loads; any other shape gathers element by element
-  const bool vec = D % 8 == 0 && F % 8 == 0;
-  const dim3 grid((F + BN - 1) / BN, (T_ + BM - 1) / BM, M);
   for (int m = 0; m < M; m += 65535) {
     // gridDim.z is at most 65535; M never comes near it, but stay correct
     const int mc = M - m < 65535 ? M - m : 65535;
-    const dim3 g(grid.x, grid.y, mc);
     const char* xm = (const char*)x + m * esz * T_ * D;
     const char* wm = (const char*)w + m * esz * D * F;
     char* om = (char*)out + m * esz * T_ * F;
     const float* b = bias ? (const float*)bias + (size_t)m * F : nullptr;
-    if (vec)
-      launch<true>(dt, g, s, xm, wm, b, om, T_, D, F);
+    cudaError_t e;
+    if (variant == 0)
+      e = launch_simt(dt, dim3((F + BN - 1) / BN, (T_ + BM - 1) / BM, mc), s, xm, wm, b, om, T_,
+                      D, F);
     else
-      launch<false>(dt, g, s, xm, wm, b, om, T_, D, F);
+      e = launch_hopper(variant, cols, grid, mc, s, xm, wm, b, (__nv_bfloat16*)om, T_, D, F,
+                        split);
+    if (e != cudaSuccess) return (int)e;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

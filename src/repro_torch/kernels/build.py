@@ -115,6 +115,19 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_sms: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the launch plans size
+    their grids by it), read once per device."""
+    import torch
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _sms:
+        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sms[i]
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:

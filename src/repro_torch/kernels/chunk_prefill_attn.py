@@ -10,6 +10,7 @@ causality, sliding window, attention sink), f32 throughout.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -17,6 +18,41 @@ from repro_torch.kernels import build
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
+# csrc/chunk_prefill_attn.cu's blocks: query rows per block, keys per
+# tile; most splits (a cluster of blocks)
+ROWS, KEYS, MAX_SPLITS = 64, 64, 8
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: the key tiles of [0, S + C), the blocks (one
+    cluster) per (lane, kv head, row block) that split them, and the grid
+    (row blocks x splits, kv heads, lanes)."""
+    tiles: int
+    splits: int
+    grid: tuple[int, int, int]
+
+
+def split_ranges(n: int, parts: int) -> list[tuple[int, int]]:
+    """The kernel's split of ``n`` key tiles into ``parts`` contiguous
+    ranges: part s covers [s * n // parts, (s + 1) * n // parts)."""
+    return [(s * n // parts, (s + 1) * n // parts) for s in range(parts)]
+
+
+def launch_plan(lanes: int, c: int, h: int, kvh: int, hd: int, s_cache: int,
+                dtype: str = "bfloat16", sms: int = H100_SMS) -> Plan:
+    """The launch of ``csrc/chunk_prefill_attn.cu``: f32 one block per
+    (lane, kv head, row block); bf16 that many times the split count, the
+    smallest that makes two waves of ``sms`` blocks, at most one split per
+    key tile and ``MAX_SPLITS``."""
+    tiles = math.ceil((s_cache + c) / KEYS)
+    row_blocks = math.ceil(c * (h // kvh) / ROWS)
+    blocks = row_blocks * kvh * lanes
+    splits = 1
+    if dtype == "bfloat16":
+        splits = min(tiles, MAX_SPLITS, max(1, math.ceil(2 * sms / blocks)))
+    return Plan(tiles, splits, (row_blocks * splits, kvh, lanes))
 
 
 def _check(q, k, s_cache):
@@ -62,7 +98,8 @@ def chunk_prefill_attention_plain(q, k, v, offset, *, s_cache: int, pin: int = 0
 
 def chunk_prefill_attention_cuda(q, k, v, offset, *, s_cache: int, pin: int = 0,
                                  window: int = 0, sink: int = 0, causal: bool = True):
-    """The Hopper kernel: same contract as the plain version."""
+    """The Hopper kernel: same contract as the plain version; launched as
+    :func:`launch_plan` says (one wrapper call, one kernel launch)."""
     _check(q, k, s_cache)
     m, b, c, h, hd = q.shape
     kvh = k.shape[3]
@@ -73,10 +110,13 @@ def chunk_prefill_attention_cuda(q, k, v, offset, *, s_cache: int, pin: int = 0,
         raise ValueError(f"the kernel takes head_dim <= 128 in multiples of 8, not {hd}")
     off = offset.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    plan = launch_plan(m * b, c, h, kvh, hd, s_cache, str(q.dtype).removeprefix("torch."),
+                       build.sm_count(q.device))
     fn = build.entry("chunk_prefill_attn", "chunk_prefill_attention",
-                     "ipppppiiiiiiiiiifp")
+                     "ipppppiiiiiiiiiifip")
     P = build.ptr
     build.check(fn(build.dtype_code(q), P(q), P(k), P(v), P(off), P(out), m * b, c, h,
                    kvh, hd, s_cache, pin, window, sink, int(causal),
-                   math.sqrt(hd), build.stream_ptr(q)), "chunk_prefill_attention")
+                   math.sqrt(hd), plan.splits, build.stream_ptr(q)),
+                "chunk_prefill_attention")
     return out

@@ -15,9 +15,72 @@ holds its block already (:func:`rank_block` cuts it from whole arrays,
 """
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+
 import torch
 
 from repro_torch.kernels import build
+
+# csrc/fused_matmul.cu's tiles: the FMA / element-wise kernel's blocks
+# (64 x 64), the wgmma path's k-step and wide tile rows, the skinny tile's
+# columns; variant codes of its C entry point
+SIMT_TILE, HK, WIDE_ROWS, SKINNY_COLS = 64, 64, 128, 128
+VARIANTS = {"simt": 0, "wide": 1, "skinny": 2}
+# fewest k-steps a split of D keeps (a shorter walk would not fill the
+# ring); most splits (a cluster of blocks)
+MIN_SPLIT_STEPS, MAX_SPLIT = 4, 8
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: the kernel variant, its output tile (rows of T x
+    columns of F), the split of D's k-steps over the blocks of a cluster,
+    and the grid (wide: blocks that walk the tiles)."""
+    variant: str
+    rows: int
+    cols: int
+    split: int
+    grid: tuple[int, int, int]
+
+    @property
+    def code(self) -> int:
+        return VARIANTS[self.variant]
+
+
+def split_ranges(n: int, parts: int) -> list[tuple[int, int]]:
+    """The kernels' split of ``n`` steps into ``parts`` contiguous ranges:
+    part s covers [s * n // parts, (s + 1) * n // parts)."""
+    return [(s * n // parts, (s + 1) * n // parts) for s in range(parts)]
+
+
+def launch_plan(m: int, t: int, d: int, f: int, dtype: str = "bfloat16",
+                sms: int = H100_SMS) -> Plan:
+    """The launch of ``csrc/fused_matmul.cu`` for x (m, t, d) @ w (m, d, f).
+
+    f32, and bf16 rows not 16-byte aligned, take the FMA / element-wise
+    kernel.  Aligned bf16 takes the wgmma path.  Wide (t > 16): tiles of
+    128 rows x 256 columns, or x 128 where the 256-column tiles would
+    leave over half the SMs idle, walked by at most ``sms`` blocks.
+    Skinny (t <= 16, in a wgmma N of 8 or 16): 128-column tiles; where
+    they are fewer than a quarter of the SMs, D is split over the fewest
+    blocks (a cluster, at most ``MAX_SPLIT``, at least ``MIN_SPLIT_STEPS``
+    k-steps each) that reach a quarter.  (``benchmarks/torch_matmul_sweep.py``
+    on an H100, device ms: a 2x2 rank's block of the serving shape, 44
+    tiles, 0.0116 whole, 0.0125 split 2 ways, 0.0158 4 ways; (1, 4, 2048,
+    1024), 8 tiles, 0.0109 whole, 0.0067 split 5 ways.)"""
+    if dtype != "bfloat16" or d % 8 or f % 8:
+        return Plan("simt", SIMT_TILE, SIMT_TILE, 1,
+                    (math.ceil(f / SIMT_TILE), math.ceil(t / SIMT_TILE), m))
+    if t > 16:
+        rows = math.ceil(t / WIDE_ROWS)
+        cols = 256 if m * rows * math.ceil(f / 256) >= sms / 2 else 128
+        return Plan("wide", WIDE_ROWS, cols, 1, (min(m * rows * math.ceil(f / cols), sms), 1, 1))
+    tiles, steps = m * math.ceil(f / SKINNY_COLS), math.ceil(d / HK)
+    split = max(1, min(math.ceil(sms / 4 / tiles), MAX_SPLIT, steps // MIN_SPLIT_STEPS))
+    return Plan("skinny", 8 if t <= 8 else 16, SKINNY_COLS, split,
+                (math.ceil(f / SKINNY_COLS), split, m))
 
 
 def _check(x, w, b):
@@ -40,20 +103,32 @@ def fused_matmul_plain(x, w, b=None):
 def fused_matmul_cuda(x, w, b=None):
     """The Hopper kernel: same contract as the plain version; x and w
     contiguous CUDA tensors of float32 or bfloat16 (w is cast to x's dtype
-    first where it differs), any shape."""
+    first where it differs), any shape; launched as :func:`launch_plan`
+    says (one wrapper call, one kernel launch)."""
     _check(x, w, b)
     m, t, d = x.shape
-    f = w.shape[2]
     w = w.to(x.dtype)
+    return launch(x, w, b, launch_plan(m, t, d, w.shape[2], str(x.dtype).removeprefix("torch."),
+                                       build.sm_count(x.device)))
+
+
+def launch(x, w, b, plan: Plan):
+    """``csrc/fused_matmul.cu`` on x and w of one dtype as ``plan`` says (a
+    plan of :func:`launch_plan`, or one with another split of D); the
+    kernel checks the plan against the shapes."""
+    _check(x, w, b)
     for name, a in (("x", x), ("w", w)):
-        if not a.is_cuda or not a.is_contiguous() or a.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned CUDA tensor")
+        if not a.is_cuda or not a.is_contiguous() or a.data_ptr() % 16 or a.dtype != x.dtype:
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned CUDA tensor "
+                             f"of {x.dtype}")
+    m, t, d = x.shape
+    f = w.shape[2]
     bias = None if b is None else b.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty(m, t, f, dtype=x.dtype, device=x.device)
-    fn = build.entry("fused_matmul", "fused_matmul", "ippppiiiip")
+    fn = build.entry("fused_matmul", "fused_matmul", "ippppiiiiiiiip")
     P = build.ptr
-    build.check(fn(build.dtype_code(x), P(x), P(w), P(bias), P(out), m, t, d, f,
-                   build.stream_ptr(x)), "fused_matmul")
+    build.check(fn(build.dtype_code(x), P(x), P(w), P(bias), P(out), m, t, d, f, plan.code,
+                   plan.cols, plan.grid[0], plan.split, build.stream_ptr(x)), "fused_matmul")
     return out
 
 

@@ -11,6 +11,7 @@ reduction over warps, cuBLAS tiles it), bf16 3e-2 relative to the
 largest magnitude (one bf16 ulp is 2^-8 = 3.9e-3, and a changed order
 can flip the rounding of an intermediate that later stages amplify).
 """
+import dataclasses
 import math
 
 import pytest
@@ -462,3 +463,132 @@ def test_mlstm_chunkwise_kernel_padded_steps_exact(dev):
     for a, b_ in zip(st1, st2):
         assert torch.equal(a, b_)
     assert _err(h1, wh) <= 3e-2 and all(_err(a, w) <= 3e-2 for a, w in zip(st1, wst))
+
+
+# ---------------------------------------------------------------------------
+# the Hopper designs' edges: the merged matmul's wide / skinny / split-D
+# variants and the chunk attention's key split
+# ---------------------------------------------------------------------------
+
+
+def _matmul_inputs(dev, dt, m, t, d, f, bias, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, t, d, generator=g, device=dev).to(dt)
+    w = (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(dt)
+    b = torch.randn(m, f, generator=g, device=dev) if bias else None
+    return x, w, b
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("t", [1, 8, 16, 17, 64, 127, 128, 129, 257])
+def test_fused_matmul_kernel_rows(dev, t, bias):
+    """Every row count the bf16 variants meet: skinny N = 8 (t <= 8) and 16
+    (t <= 16), wide with one block row (t <= 128, w read once) and two or
+    three; D = 200 not a multiple of the 64-deep k-step, F = 200 not a
+    multiple of the 128-wide tile."""
+    m, d, f = 3, 200, 200
+    plan = fm.launch_plan(m, t, d, f)
+    assert (plan.variant, plan.rows) == (("skinny", 8) if t <= 8 else ("skinny", 16) if t <= 16
+                                         else ("wide", 128))
+    x, w, b = _matmul_inputs(dev, torch.bfloat16, m, t, d, f, bias)
+    got = fm.fused_matmul_cuda(x, w, b)
+    want = fm.fused_matmul_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and _err(got, want) <= 3e-2
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,t,d,f", [(89, 128, 128, 384), (397, 4, 64, 128),
+                                     (10, 128, 256, 2504)])
+def test_fused_matmul_kernel_partial_wave(dev, dt, m, t, d, f):
+    """Instance counts whose tiles leave the last wave of the card part
+    full: 267 wide tiles on 132 blocks, 397 skinny blocks; 100 wide tiles
+    of 256 columns, the last of each instance part past F."""
+    x, w, b = _matmul_inputs(dev, dt, m, t, d, f, True)
+    got = fm.fused_matmul_cuda(x, w, b)
+    want = fm.fused_matmul_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= _tol(dt)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("m,t,d,f,split", [(2, 4, 2048, 2816, 2), (2, 4, 2048, 2816, 8),
+                                           (1, 16, 2048, 5632, 3), (1, 13, 520, 136, 0)])
+def test_fused_matmul_kernel_split_d(dev, m, t, d, f, split, bias):
+    """D split over a cluster of blocks: a 2x2 rank's block of the serving
+    shape 2 and 8 ways, 3 ways (ragged: 32 k-steps) at T = 16, and the
+    plan's own split of a two-tile shape (9 k-steps: 4 and 5): the
+    partials summed in split order, the bias added once, and two calls
+    bit-identical."""
+    plan = fm.launch_plan(m, t, d, f)
+    if split:
+        plan = dataclasses.replace(plan, split=split, grid=(plan.grid[0], split, m))
+    assert plan.split > 1 and plan.variant == "skinny"
+    x, w, b = _matmul_inputs(dev, torch.bfloat16, m, t, d, f, bias)
+    got = fm.launch(x, w, b, plan)
+    again = fm.launch(x, w, b, plan)
+    want = fm.fused_matmul_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _err(got, want) <= 3e-2
+
+
+@pytest.mark.parametrize("m,t,d,f", [(32, 128, 768, 3072), (16, 128, 768, 1536),
+                                     (3, 77, 768, 3072), (4, 4, 64, 77)])
+def test_fused_matmul_kernel_bit_identical(dev, m, t, d, f):
+    """Two calls give the same bits: the wide variant at both widths (132
+    blocks over 384 tiles of 256 columns; 96 tiles of 256; 72 of 128), the
+    element-wise kernel (F = 77)."""
+    x, w, b = _matmul_inputs(dev, torch.bfloat16, m, t, d, f, True)
+    got, again = fm.fused_matmul_cuda(x, w, b), fm.fused_matmul_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def _chunk_inputs(dev, dt, lanes, c, h, kvh, sc, hd, offs, seed=8):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(lanes, 1, c, h, hd, generator=g, device=dev).to(dt)
+    k = torch.randn(lanes, 1, sc + c, kvh, hd, generator=g, device=dev).to(dt)
+    v = torch.randn(lanes, 1, sc + c, kvh, hd, generator=g, device=dev).to(dt)
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)[:, None]
+    return q, k, v, off
+
+
+@pytest.mark.parametrize("hd", [8, 64, 128])
+@pytest.mark.parametrize("pin,win,sink", [(0, 0, 0), (0, 300, 0), (16, 300, 16)])
+def test_chunk_prefill_kernel_split(dev, hd, pin, win, sink):
+    """bf16 keys split over a cluster of 8 blocks (17 tiles: 2 or 3
+    each): an all-junk lane (offset 0, empty cache), a visible range that
+    crosses split boundaries, a ring wrapped once and one wrapped many
+    times; two calls bit-identical."""
+    lanes, c, h, kvh, sc = 4, 32, 8, 2, 1024
+    plan = cpa.launch_plan(lanes, c, h, kvh, hd, sc)
+    assert plan.splits == 8 and plan.tiles == 17
+    q, k, v, off = _chunk_inputs(dev, torch.bfloat16, lanes, c, h, kvh, sc, hd,
+                                 [max(pin, 0), 700, 1500, 5000])
+    kw = dict(s_cache=sc, pin=pin, window=win, sink=sink)
+    got = cpa.chunk_prefill_attention_cuda(q, k, v, off, **kw)
+    again = cpa.chunk_prefill_attention_cuda(q, k, v, off, **kw)
+    want = cpa.chunk_prefill_attention_plain(q, k, v, off, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _err(got, want) <= 3e-2
+
+
+@pytest.mark.parametrize("sc,pin,win", [(1152, 128, 1024), (1536, 0, 1 << 30)])
+def test_chunk_prefill_kernel_split_hymba(dev, sc, pin, win):
+    """Hymba's G = 5 (H 25 / KVH 5, 160 rows per kv head: a part-full row
+    block) at the serve shape, the SWA group (pin = sink = 128, window
+    1024) and the global one, keys split over 5 blocks; two calls
+    bit-identical."""
+    lanes, c, h, kvh, hd = 4, 32, 25, 5, 64
+    assert cpa.launch_plan(lanes, c, h, kvh, hd, sc).splits == 5
+    q, k, v, off = _chunk_inputs(dev, torch.bfloat16, lanes, c, h, kvh, sc, hd,
+                                 [pin, 600, 1300, 2900], seed=9)
+    kw = dict(s_cache=sc, pin=pin, window=win, sink=128)
+    got = cpa.chunk_prefill_attention_cuda(q, k, v, off, **kw)
+    again = cpa.chunk_prefill_attention_cuda(q, k, v, off, **kw)
+    want = cpa.chunk_prefill_attention_plain(q, k, v, off, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _err(got, want) <= 3e-2
