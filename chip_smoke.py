@@ -9,9 +9,10 @@ non-zero before the result line is printed):
 1. device  -- the card's name and power limit (nvidia-smi);
 2. build   -- compile the seven kernel sources of ``src/repro_torch/csrc``
               with nvcc, one process per source, and print ptxas
-              registers / spills (for the two kernels redesigned for
-              Hopper, fused_matmul.cu and chunk_prefill_attn.cu, the
-              report's lines as ptxas prints them);
+              registers / spills (for the four kernels redesigned for
+              Hopper, fused_matmul.cu, chunk_prefill_attn.cu,
+              slstm_cell.cu and decode_layer.cu, the report's lines as
+              ptxas prints them);
 3. kernels -- each Hopper kernel against its plain PyTorch version: the
               dense kernels at the tinyllama-1.1b width (M=4, B=4, S=1024,
               C=32, D=2048, H=32, KVH=4, hd=64, F=5632, V=32000), the sLSTM
@@ -50,7 +51,15 @@ non-zero before the result line is printed):
               ways over a cluster at a 2x2 rank's block, 256-column tiles,
               bias on and off; the chunk attention with its keys split over
               a cluster of blocks (an all-junk lane, wrapped rings, hd 8,
-              64, 128) and at hymba's G = 5;
+              64, 128) and at hymba's G = 5; the ninth slice's redesigns,
+              each twice and bit for bit: the sLSTM cell at the xlstm-1.3b
+              width in every plan variant (f32 r in registers, shared
+              memory and streamed from L2 at S=32, all streamed at S=1;
+              bf16 r), a prefill reading r's instances through ``rows``
+              (bit for bit against the gathered copy), the co-resident
+              cluster count of each plan; the decode layer's wgmma path at
+              M=4 x B=4 and at B=12 (wgmma N 16), its weights' tensor maps
+              encoded once;
 4. serve   -- three main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
               the full tinyllama-1.1b config (dense: decode layer, chunk
@@ -128,7 +137,12 @@ non-zero before the result line is printed):
               matmul at a rank's block at 2x2), beside the bound from bytes
               and FLOPs; the chunk attention and the merged matmul (both
               shapes of each row) also as device time queued behind a spin
-              kernel, beside SDPA's and ``torch.bmm``'s timed the same way.
+              kernel, beside SDPA's and ``torch.bmm``'s timed the same way;
+              the whole decode layer and both sLSTM shapes (two copies of
+              r rotating, so r loads from HBM as in serving) also as device
+              time.  Each serve path logs the tensor maps it encoded; the
+              tinyllama serve's profile counts the decode layer's kernels
+              per layer (at most 6).
 
 The line before the last is the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -347,7 +361,7 @@ def phase_build():
                               r"ring_combine_kernel|logits_partial_kernel|logits_reduce_kernel|"
                               r"chunk_attn_kernel|slstm_kernel|decode_attn_kernel|"
                               r"decode_combine_kernel|fused_matmul_bf16|fused_matmul_f32|"
-                              r"matmul_wide|matmul_skinny|chunk_attn_tc|"
+                              r"matmul_wide|matmul_skinny|chunk_attn_tc|tc_matvec|"
                               r"group_rms_kernel|mlstm_state_kernel|mlstm_out_kernel)(I.*?E)?", fn)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
@@ -357,8 +371,8 @@ def phase_build():
                 registers=regs.group(1) if regs else "?",
                 static_smem=smem.group(1) if smem else 0,
                 spills=f"{spill.group(1)}/{spill.group(2)}" if spill else "?")
-    # the ptxas report of the two kernels redesigned for Hopper, as printed
-    for src in ("fused_matmul", "chunk_prefill_attn"):
+    # the ptxas report of the four kernels redesigned for Hopper, as printed
+    for src in ("fused_matmul", "chunk_prefill_attn", "slstm_cell", "decode_layer"):
         for line in reports.get(src, "").splitlines():
             if re.search(r"Compiling entry|Used \d+ registers|spill", line):
                 print(f"[ptxas] {src}.cu: {line.strip()}", flush=True)
@@ -480,6 +494,7 @@ def phase_kernels(torch, dev):
         del pre, r
     errs.update(new_kernel_cases(torch, dev))
     errs.update(hopper_design_cases(torch, dev))
+    errs.update(redesign_cases(torch, dev))
     errs.update(phase_kernel_cases(torch, dev))
     errs.update(sharded_attn_cases(torch, dev))
     errs.update(sharded_matmul_cases(torch, dev))
@@ -546,6 +561,92 @@ def hopper_design_cases(torch, dev):
                f"/s{sink}")
         assert e <= TOL["bfloat16"] and torch.equal(got, again), f"{key}: {e}"
         errs[key] = e
+    return errs
+
+
+def redesign_cases(torch, dev):
+    """The two kernels redesigned in the ninth slice against their plain
+    versions, each case twice and bit for bit.  The sLSTM cell at the
+    xlstm-1.3b width in every plan variant (f32 r: registers + shared
+    memory + rows streamed from L2 at S = 32, all rows streamed at S = 1;
+    bf16 r: resident at S = 32, streamed at S = 1), a prefill whose lanes
+    read r's instances through ``rows`` (bit for bit against the gathered
+    copy), and the card's count of co-resident clusters at both serve
+    shapes.  The decode layer's wgmma path at the tinyllama-1.1b width:
+    the whole layer at M = 4 x B = 4 and at B = 12 (the wgmma N of 16),
+    and the weights' tensor maps encoded once over repeated calls."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_layer as dl
+    from repro_torch.kernels import slstm_cell as sc
+
+    errs = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for dt, rdt, m, b, s in ((bf16, f32, 4, 1, C), (bf16, f32, M, B, 1), (f32, f32, M, B, 1),
+                             (bf16, bf16, 4, 1, C), (bf16, bf16, M, B, 1)):
+        rn = str(rdt).removeprefix("torch.")
+        plan = sc.launch_plan(m, b, s, XH, XHD, rn)
+        pre, r, state = slstm_inputs(torch, dev, dt, rdt, m, b, s, 9, junk=s > 1)
+        want = tuple(t.clone() for t in state)
+        want_hs, _ = sc.slstm_cell_plain(pre, r, want, num_heads=XH)
+        runs = []
+        for _ in range(2):
+            st = tuple(t.clone() for t in state)
+            runs.append((sc.slstm_cell_cuda(pre, r, st, num_heads=XH)[0], st))
+        torch.cuda.synchronize()
+        dtn = str(dt).removeprefix("torch.")
+        e = max(rel_err(runs[0][0], want_hs), *(rel_err(a, w) for a, w in zip(runs[0][1], want)))
+        key = (f"slstm_cell/plan/{dtn}/r_{rn}/S{s}/B{b}/regs{plan.reg_rows}/smem{plan.smem_rows}"
+               f"/stream{plan.stream_rows}")
+        same = torch.equal(runs[0][0], runs[1][0]) and all(
+            torch.equal(a, w) for a, w in zip(runs[0][1], runs[1][1]))
+        assert e <= TOL[dtn] and same, f"{key}: {e}, bit-identical {same}"
+        errs[key] = e
+        clusters = sc.max_active_clusters(plan, b, XHD, dtn, rn)
+        log("kernels", slstm_plan=key, smem_bytes=plan.smem_bytes, stages=plan.stages,
+            stream_mib_per_step=round(plan.stream_bytes_per_step / 2 ** 20, 2),
+            clusters=m * XH, max_active_clusters=clusters)
+        del pre, r, state, want, runs
+    # a prefill chunk's 4 lanes reading instances 2, 0, 2, 1 of the merged r
+    pre, r, state = slstm_inputs(torch, dev, bf16, f32, 4, 1, C, 10, junk=True)
+    rows = torch.tensor([2, 0, 2, 1], dtype=torch.int32, device=dev)
+    a, b_ = tuple(t.clone() for t in state), tuple(t.clone() for t in state)
+    hs_map, _ = sc.slstm_cell_cuda(pre, r, a, num_heads=XH, rows=rows)
+    hs_cat, _ = sc.slstm_cell_cuda(pre, r.index_select(0, rows.long()).contiguous(), b_,
+                                   num_heads=XH)
+    want = tuple(t.clone() for t in state)
+    want_hs, _ = sc.slstm_cell_plain(pre, r, want, num_heads=XH, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(hs_map, hs_cat) and all(torch.equal(u, v) for u, v in zip(a, b_))
+    e = max(rel_err(hs_map, want_hs), *(rel_err(u, w) for u, w in zip(a, want)))
+    assert e <= TOL["bfloat16"], f"slstm_cell rows: {e}"
+    errs["slstm_cell/rows/bfloat16/r_float32/S32/mapped==gathered"] = e
+    del pre, r, state
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    for m, b in ((M, B), (2, 12)):
+        lp = layer_inputs(torch, dev, bf16, 24, m=m)[0]
+        x = torch.randn(m, b, D, generator=g, device=dev).to(bf16)
+        ck, cv = (torch.randn(m, b, S, KVH, HD, generator=g, device=dev).to(bf16)
+                  for _ in range(2))
+        plans = dl.layer_plans(m, b, D, H, KVH, HD, F)
+        assert plans is not None
+        pos = (S + torch.randint(0, S, (m, b), generator=g, device=dev)).to(torch.int32)
+        kw = dict(num_heads=H, head_dim=HD, rope_theta=10000.0)
+        want = dl.decode_layer_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+        n0 = build.tensor_maps.encodes
+        got = dl.decode_layer_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+        n1 = build.tensor_maps.encodes
+        again = dl.decode_layer_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+        torch.cuda.synchronize()
+        assert build.tensor_maps.encodes == n1 and n1 - n0 <= 7, (n0, n1)
+        e = max(rel_err(u, w) for u, w in zip(got, want))
+        key = f"decode_layer/wgmma/bfloat16/M{m}/B{b}/N{plans['qkv'].rows}"
+        assert e <= TOL["bfloat16"] and all(torch.equal(u, v) for u, v in zip(got, again)), (
+            f"{key}: {e}")
+        errs[key] = e
+        log("kernels", decode_layer_plans=key, tensor_maps_encoded=n1 - n0,
+            splits={k: p.split for k, p in plans.items()})
+        del lp, x, ck, cv, got, again, want
     return errs
 
 
@@ -961,9 +1062,10 @@ def serve_path(torch, dev, arch, kernels, max_context=S):
     K=8.  Every launch counter is set to 0 just before the run and read
     just after; each kernel in ``kernels`` must have launched."""
     from repro_torch.configs import registry
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
 
     cfg = registry.get_config(arch).with_(num_instances=M)
+    maps0 = build.tensor_maps.encodes
     torch.cuda.reset_peak_memory_stats()
     srv = make_server(torch, dev, cfg, 0, slots_per_instance=B, max_context=max_context,
                       prefill_chunk=C, prefill_lanes=4, decode_steps=8)
@@ -996,7 +1098,8 @@ def serve_path(torch, dev, arch, kernels, max_context=S):
         prefill_tokens=snap["prefill_tokens"],
         launches=json.dumps(launches).replace(" ", ""),
         max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
-        setup_peak_gib=round(setup_peak / 2 ** 30, 2))
+        setup_peak_gib=round(setup_peak / 2 ** 30, 2),
+        tensor_maps_encoded=build.tensor_maps.encodes - maps0)
     profile_serve(torch, srv, requests(16, M, 16, 512, 32, cfg.vocab_size, 5), arch)
     # the server holds a reference cycle (its step is a bound method): free
     # it now, or the next path's memory peak counts this path's weights
@@ -1069,6 +1172,7 @@ def profile_serve(torch, srv, reqs, arch):
     The profiler's own overhead stretches this run's wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
+    steps0 = srv.metrics.snapshot()["decode_steps"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for r in reqs:
@@ -1080,6 +1184,16 @@ def profile_serve(torch, srv, reqs, arch):
     busy = device_busy_s(prof)
     log("profile", run=f"serve/{arch}", wall_s=round(wall, 3), device_busy_s=round(busy, 3),
         device_idle_share=f"{1 - busy / wall:.1%}")
+    if arch == "tinyllama-1.1b":
+        # the whole decode layer's kernels against its launches in this run:
+        # the wgmma path is six a layer (QKV, ring attention, its combine,
+        # out-projection, gate/up, down)
+        layer = {e.key: e.count for e in ev
+                 if re.search(r"tc_matvec|ring_attn_kernel|ring_combine_kernel", e.key)}
+        layers = (srv.metrics.snapshot()["decode_steps"] - steps0) * srv.cfg.num_layers
+        per_layer = sum(layer.values()) / layers
+        log("profile", run=f"serve/{arch}", decode_layer_kernels_per_layer=per_layer)
+        assert per_layer <= 6, (per_layer, layer)
     for e in sorted(ev, key=device_us, reverse=True)[:8]:
         log("profile", run=f"serve/{arch}", kernel=e.key[:60], calls=e.count,
             device_ms=round(device_us(e) / 1e3, 2))
@@ -1618,15 +1732,20 @@ def phase_times(torch, dev, by_path, profile_launches):
     want = dl.decode_layer_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
     err = abs_err(got[0], want[0])
     ms = time_ms(torch, lambda: dl.decode_layer_cuda(lp, x, ck, cv, pos, **kw))
+    device_ms = time_queued_ms(torch, lambda: dl.decode_layer_cuda(lp, x, ck, cv, pos, **kw))
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
+        for _ in range(20):
             dl.decode_layer_cuda(lp, x, ck, cv, pos, **kw)
         torch.cuda.synchronize()
-    for e in sorted(prof.key_averages(), key=device_us, reverse=True)[:6]:
-        if device_us(e) > 0:
-            log("profile", run="decode_layer", kernel=e.key[:60], calls=e.count,
-                device_us_per_call=round(device_us(e) / e.count, 1))
+    kern = [e for e in prof.key_averages() if device_us(e) > 0]
+    for e in sorted(kern, key=device_us, reverse=True)[:8]:
+        log("profile", run="decode_layer", kernel=e.key[:60], calls=e.count,
+            device_us_per_call=round(device_us(e) / e.count, 1))
+    log("times", name="decode_layer", shape=f"M={M}, B={B}, bf16, whole layer",
+        kernels_per_call=sum(e.count for e in kern) / 20 if kern else "not measured",
+        device_ms=f"{device_ms:.4f}", ms=f"{ms:.4f}",
+        splits={k: p.split for k, p in dl.layer_plans(M, B, D, H, KVH, HD, F).items()})
     plain = time_ms(torch, lambda: dl.decode_layer_plain(lp, x, ck, cv, pos, **kw))
     n_w = D * (H + 2 * KVH) * HD + H * HD * D + 3 * D * F
     valid = (pos + 1).clamp(max=S).sum().item()
@@ -1639,7 +1758,8 @@ def phase_times(torch, dev, by_path, profile_launches):
                      replaces="src/repro/kernels/decode_layer.py:144",
                      launches=launches["decode_layer"],
                      launches_by_path=per_path("decode_layer"), max_abs_err=err, ms=ms,
-                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None))
+                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     device_ms=device_ms))
     del lp, x, ck, cv
 
     # greedy logits at the serve shapes: bf16 residual, f32 head (param_dtype)
@@ -1711,13 +1831,21 @@ def phase_times(torch, dev, by_path, profile_launches):
     from repro_torch.kernels import slstm_cell as sc
 
     def slstm_time(m, b, s):
-        pre, r, state = slstm_inputs(torch, dev, torch.bfloat16, torch.float32, m, b, s, 12)
+        # two copies of (pre, r) rotate, so every call loads r from HBM as
+        # a serve does (a decode step streams 48 layers between two calls)
+        sets = [slstm_inputs(torch, dev, torch.bfloat16, torch.float32, m, b, s, 12 + i)
+                for i in range(2)]
+        pre, r, state = sets[0]
         got = tuple(t.clone() for t in state)
         want = tuple(t.clone() for t in state)
         ghs, _ = sc.slstm_cell_cuda(pre, r, got, num_heads=XH)
         whs, _ = sc.slstm_cell_plain(pre, r, want, num_heads=XH)
         err = max(abs_err(a, w) for a, w in zip((ghs,) + got, (whs,) + want))
-        ms = time_ms(torch, lambda: sc.slstm_cell_cuda(pre, r, got, num_heads=XH))
+        it = iter(range(10 ** 9))
+        call = lambda: (lambda s_: sc.slstm_cell_cuda(s_[0], s_[1], s_[2], num_heads=XH))(
+            sets[next(it) % 2])
+        ms = time_ms(torch, call)
+        dev_ms = time_queued_ms(torch, call)
         plain = time_ms(torch, lambda: sc.slstm_cell_plain(pre, r, want, num_heads=XH), reps=5)
         d = XH * XHD
         # each input read once, each output written once: pre, r, the state
@@ -1725,21 +1853,28 @@ def phase_times(torch, dev, by_path, profile_launches):
         nbytes = (pre.numel() * 2 + r.numel() * 4 + 2 * m * b * d * (3 * 4 + 2)
                   + m * b * s * d * 2)
         flops = 2 * m * b * s * 4 * d * XHD
-        return err, ms, plain, bound_ms(nbytes, flops, "float32")
+        plan = sc.launch_plan(m, b, s, XH, XHD, "float32")
+        log("times", name="slstm_cell", shape=f"S={s}, {m} x {b} lanes, f32 r, bf16 pre",
+            ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}", regs_rows=plan.reg_rows,
+            smem_rows=plan.smem_rows, stream_rows=plan.stream_rows,
+            stream_mib_per_step=round(plan.stream_bytes_per_step / 2 ** 20, 2))
+        del sets
+        return err, ms, dev_ms, plain, bound_ms(nbytes, flops, "float32")
 
-    err, ms, plain, (bms, by) = slstm_time(4, 1, C)
-    d_err, d_ms, d_plain, (d_bms, d_by) = slstm_time(M, B, 1)
+    err, ms, dev_ms, plain, (bms, by) = slstm_time(4, 1, C)
+    d_err, d_ms, d_dev_ms, d_plain, (d_bms, d_by) = slstm_time(M, B, 1)
     rows.append(dict(name="slstm_cell", route="cuda",
                      source="src/repro_torch/csrc/slstm_cell.cu",
                      replaces="src/repro/kernels/slstm_cell.py:37",
                      launches=launches["slstm_cell"],
                      launches_by_path=per_path("slstm_cell"), max_abs_err=err, ms=ms,
                      plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-                     shape="prefill S=32, 4 lanes", decode_ms=d_ms, decode_plain_ms=d_plain,
+                     shape="prefill S=32, 4 lanes", device_ms=dev_ms, decode_ms=d_ms,
+                     decode_device_ms=d_dev_ms, decode_plain_ms=d_plain,
                      decode_bound_ms=d_bms, decode_bound_by=d_by, decode_max_abs_err=d_err))
     log("times", name="slstm_cell", shape="decode S=1, M=4 x B=4", ms=f"{d_ms:.4f}",
-        plain_ms=f"{d_plain:.4f}", bound_ms=f"{d_bms:.4f}", bound_by=d_by,
-        of_bound=f"{d_bms / d_ms:.1%}")
+        device_ms=f"{d_dev_ms:.4f}", plain_ms=f"{d_plain:.4f}", bound_ms=f"{d_bms:.4f}",
+        bound_by=d_by, of_bound=f"{d_bms / d_dev_ms:.1%}")
     # decode attention at the hymba serve shapes: M=4 x B=4 slots, bf16,
     # kv_len inside the served positions (128 meta + 16..512 prompt + 32
     # new); 8 input copies rotate so K/V come from HBM, as in a decode step

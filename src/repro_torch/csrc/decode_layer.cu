@@ -49,6 +49,11 @@
 // PyTorch version (src/repro_torch/kernels/decode_layer.py) stores them.
 
 #include "common.cuh"
+#include "hopper.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -699,12 +704,12 @@ int launch_attn(const void* qkv, void* ck, void* cv, const int* pos, const uint8
   float* psum = part + nrow;
   float* pacc = part + 2 * nrow;
   dim3 grid(KVH, B, M * splits);
+  const size_t total = (size_t)M * B * H * hd;
   kern<<<grid, THREADS, smem, stream>>>((const T*)qkv, (T*)ck, (T*)cv, pos, alive, pmax, psum,
                                         pacc, B, S, H, KVH, hd, neg_log_theta, use_rope,
                                         window, scale, splits, sk);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t total = (size_t)M * B * H * hd;
   ring_combine_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
       pmax, psum, pacc, (T*)out, M * B, H, KVH, hd, splits);
   return (int)cudaGetLastError();
@@ -787,6 +792,391 @@ int ring_attention(int dt, const void* qkv, void* ck, void* cv, const void* pos,
                                       (float*)part, part_elems, M, B, S, H, KVH, hd,
                                       neg_log_theta, use_rope, window, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on Hopper: the layer's products as skinny wgmma matvecs
+// ---------------------------------------------------------------------------
+//
+// The lanes of an instance are few (B <= 16), so out^T = w^T x^T: the 64
+// rows of a wgmma run along the output columns and the lanes are its N (8
+// or 16), the design of the merged matmul's skinny kernel
+// (fused_matmul.cu).  A block of two consumer warpgroups and a producer
+// warp owns 128 output columns of one instance (warpgroup g the 64 at f0 +
+// 64 g) over k-steps [kb, kb + nk) of the reduction; the producer streams
+// the weight tiles through a ring of 128-byte-swizzled stages by TMA, with
+// an evict-first L2 hint (a decode step reads each weight once), a full
+// and an empty mbarrier per stage.  Weights depend on nothing before the
+// kernel, so the producer starts at once.  x never enters the ring: the consumers write the
+// lanes' rows for the block's k range once into shared memory, in the
+// wgmma's K-major swizzled layout, rms-normalised and rounded to bf16
+// where the plain version rounds them (the statistic over the whole row
+// in f32, each block computing it for itself).  Where the plan splits the
+// reduction, the split blocks of an output tile form one cluster and sum
+// their f32 partials through distributed shared memory in split order
+// (every block a share of the columns): no scratch, no second launch, no
+// atomics.  The epilogue adds the bias (QKV), the residual (out- and
+// down-projection) or applies SiLU(gate) * up (gate and up tiles in one
+// block, two accumulator sets), rounding as the lanes matvec's epilogue
+// does.  QKV's three weights are three segments of the grid's tiles.
+// The layer is six launches: QKV, ring attention, its combine,
+// out-projection, gate/up, down.  (Programmatic dependent launch, which
+// would start each while the one before finishes, gave greedy streams
+// that differed between identical serves now and then; the cause was not
+// found, so the launches are plain.)
+
+constexpr int TC_TILE = 128;                 // output columns per block
+constexpr int TC_CONSUMERS = 256;            // two warpgroups
+constexpr int TC_THREADS = TC_CONSUMERS + 32;
+constexpr int TC_MAX_SPLIT = 8;
+constexpr int TC_CS = TC_TILE + 4;           // f32 partial row stride
+
+enum { TC_PLAIN = 0, TC_RESIDUAL = 1, TC_SWIGLU = 2 };
+
+template <int MODE> struct TcCfg {
+  static constexpr int WEIGHTS = MODE == TC_SWIGLU ? 2 : 1;   // weights per stage
+  static constexpr int STAGES = MODE == TC_SWIGLU ? 4 : 6;
+  static constexpr int STAGE = WEIGHTS * 2 * W_CHUNK;
+  using R = Ring<STAGES, STAGE, TC_CONSUMERS>;
+};
+
+// shared memory of a tc_matvec launch whose blocks walk at most nk k-steps
+size_t tc_smem(int mode, int n, int nk) {
+  const int ring = mode == TC_SWIGLU ? TcCfg<TC_SWIGLU>::R::BYTES : TcCfg<TC_PLAIN>::R::BYTES;
+  return 1024 + (size_t)(ring + 1023) / 1024 * 1024 + (size_t)nk * n * 128 + 16 * 4;
+}
+
+struct TcMaps {
+  CUtensorMap m[3];      // PLAIN: the segments' weights; SWIGLU: gate, up; RESIDUAL: m[0]
+};
+
+struct TcArgs {
+  const __nv_bfloat16* x;        // (M, B, K)
+  const float* norm;             // (M, K) or null: rms-normalise x first
+  float eps;
+  const __nv_bfloat16* bias[3];  // PLAIN: per segment (M, n_seg) or null
+  const __nv_bfloat16* res;      // RESIDUAL: (M, B, nout) or null
+  __nv_bfloat16* out;            // (M, B, nout)
+  int n[3];                      // PLAIN: segment widths; else n[0]
+  int tiles0, tiles1;            // PLAIN: column tiles of segments 0 and 1
+  int nout, B, K, split;
+};
+
+template <int N>
+__device__ __forceinline__ void tc_mma(float (&acc)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 8) wgmma_n8<1, 0>(acc, da, db);
+  else wgmma_n16<1, 0>(acc, da, db);
+}
+
+template <int N, int MODE>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+tc_matvec(const __grid_constant__ TcMaps maps, const TcArgs a) {
+  using Cfg = TcCfg<MODE>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1k(smem_raw);
+  typename Cfg::R ring;
+  ring.init(smem);
+  unsigned char* xs = align_1k(smem + Cfg::R::BYTES);
+
+  int tile = blockIdx.x, seg = 0, off = 0;
+  if (MODE == TC_PLAIN && tile >= a.tiles0) {
+    tile -= a.tiles0;
+    seg = 1;
+    off = a.n[0];
+    if (tile >= a.tiles1) {
+      tile -= a.tiles1;
+      seg = 2;
+      off += a.n[1];
+    }
+  }
+  // (selects, not an index into the parameter arrays: no local copy)
+  const int nseg = seg == 0 ? a.n[0] : seg == 1 ? a.n[1] : a.n[2], f0 = tile * TC_TILE;
+  const __nv_bfloat16* bias = seg == 0 ? a.bias[0] : seg == 1 ? a.bias[1] : a.bias[2];
+  const int sp = blockIdx.y, m = blockIdx.z;
+  const int nk_all = (a.K + HK - 1) / HK;
+  const int kb = sp * nk_all / a.split, nk = (sp + 1) * nk_all / a.split - kb;
+  const bool two = f0 + 64 < nseg;               // the second 64 columns exist
+  const size_t row0 = (size_t)m * a.B;           // lane 0 of the instance
+  cg::cluster_group cl = cg::this_cluster();
+
+  if (threadIdx.x >= TC_CONSUMERS) {             // the producer warp
+    if (threadIdx.x == TC_CONSUMERS) {
+      const CUtensorMap* w0 = seg == 0 ? &maps.m[0] : seg == 1 ? &maps.m[1] : &maps.m[2];
+      const int bytes = Cfg::WEIGHTS * (two ? 2 : 1) * W_CHUNK;
+      for (int i = 0; i < nk; ++i) {
+        const int k0 = (kb + i) * HK;
+        ring.wait_empty(i);
+        const uint32_t s = ring.stage(i), bar = ring.full(i);
+        mbar_expect(bar, bytes);
+        tma3_once(s, w0, f0, k0, m, bar);
+        if (two) tma3_once(s + W_CHUNK, w0, f0 + 64, k0, m, bar);
+        if (MODE == TC_SWIGLU) {
+          tma3_once(s + 2 * W_CHUNK, &maps.m[1], f0, k0, m, bar);
+          if (two) tma3_once(s + 3 * W_CHUNK, &maps.m[1], f0 + 64, k0, m, bar);
+        }
+      }
+    }
+  } else {
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid >> 7;
+    float* inv = reinterpret_cast<float*>(xs + (size_t)nk * N * 128);
+    if (a.norm != nullptr) {
+      for (int b = warp; b < a.B; b += TC_CONSUMERS / 32) {
+        const bf16* xr = a.x + (row0 + b) * a.K;
+        float ss = 0.f;
+        for (int k = 8 * lane; k < a.K; k += 256) {
+          float v[8];
+          Load8<bf16>::run(xr + k, v);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) ss = fmaf(v[i], v[i], ss);
+        }
+        ss = warp_sum(ss);
+        if (lane == 0) inv[b] = rsqrtf(ss / (float)a.K + a.eps);
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
+    }
+    // x^T for k-steps [kb, kb + nk): 16-byte chunks (lane row b, k-step,
+    // chunk c) at row b of the k-step's N x 128-byte tile, chunk c ^ (b & 7)
+    for (int e = tid; e < N * nk * 8; e += TC_CONSUMERS) {
+      const int c = e & 7, b = (e >> 3) % N, kl = (e >> 3) / N;
+      const int k = (kb + kl) * HK + 8 * c;
+      uint4 u = make_uint4(0, 0, 0, 0);
+      if (b < a.B && k < a.K) {
+        float v[8];
+        Load8<bf16>::run(a.x + (row0 + b) * a.K + k, v);
+        if (a.norm != nullptr) {
+          const float iv = inv[b];
+          const float* nr = a.norm + (size_t)m * a.K + k;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[i] = rnd<bf16>((v[i] * iv) * nr[i]);
+        }
+        u = pack8(v);
+      }
+      *reinterpret_cast<uint4*>(xs + (size_t)kl * N * 128 + b * 128 + ((c ^ (b & 7)) << 4)) = u;
+    }
+    fence_async_shared();                        // visible to wgmma
+    asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
+
+    const bool live = wg == 0 || two;
+    float acc[N / 2], acc2[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = acc2[i] = 0.f;
+    for (int i = 0; i < nk; ++i) {
+      ring.wait_full(i);
+      if (live) {
+        const uint32_t s = ring.stage(i) + wg * W_CHUNK, xb = smem_addr(xs) + i * N * 128;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < HK / 16; ++kk) {
+          const uint64_t dx = gdesc(xb + kk * 32, 16, 1024);
+          tc_mma<N>(acc, gdesc(s + kk * 2048, W_CHUNK, 1024), dx);
+          if (MODE == TC_SWIGLU) tc_mma<N>(acc2, gdesc(s + 2 * W_CHUNK + kk * 2048, W_CHUNK, 1024), dx);
+        }
+        wg_commit();
+        wg_wait0();
+      }
+      mbar_arrive(ring.empty(i));
+    }
+    // every stage is consumed: the f32 partial(s) go where the ring was,
+    // cs[ch][t][f] for lane t and column f of the tile
+    asm volatile("bar.sync 1, %0;\n" ::"n"(TC_CONSUMERS) : "memory");
+    float* cs = reinterpret_cast<float*>(smem);
+    const int fr = 64 * wg + 16 * (warp & 3) + (lane >> 2);
+    auto park = [&](float* cc, const float (&ac)[N / 2]) {
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        const int t = 8 * j + 2 * (lane & 3);
+        cc[t * TC_CS + fr] = ac[4 * j];
+        cc[(t + 1) * TC_CS + fr] = ac[4 * j + 1];
+        cc[t * TC_CS + fr + 8] = ac[4 * j + 2];
+        cc[(t + 1) * TC_CS + fr + 8] = ac[4 * j + 3];
+      }
+    };
+    park(cs, acc);
+    if (MODE == TC_SWIGLU) park(cs + N * TC_CS, acc2);
+  }
+  if (a.split > 1)
+    cl.sync();                       // every split's partial is in its shared memory
+  else
+    __syncthreads();
+  if (threadIdx.x < TC_CONSUMERS) {
+    const int rank = a.split > 1 ? (int)cl.block_rank() : 0;
+    const float* cs = reinterpret_cast<const float*>(smem);
+    for (int p = rank + a.split * threadIdx.x; p < a.B * (TC_TILE / 8);
+         p += a.split * TC_CONSUMERS) {
+      const int t = p / (TC_TILE / 8), c = p % (TC_TILE / 8) * 8, f = f0 + c;
+      if (f >= nseg) continue;
+      float s[2][8];
+#pragma unroll
+      for (int ch = 0; ch < Cfg::WEIGHTS; ++ch) {
+        const int o = ch * N * TC_CS + t * TC_CS + c;
+        float b[TC_MAX_SPLIT][8];
+        if (a.split == 1) {
+          Load8<float>::run(cs + o, b[0]);
+        } else {
+#pragma unroll
+          for (int r = 0; r < TC_MAX_SPLIT; ++r)   // every remote load in flight at once
+            if (r < a.split) Load8<float>::run(cl.map_shared_rank(cs, r) + o, b[r]);
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          float v = b[0][q];
+#pragma unroll
+          for (int r = 1; r < TC_MAX_SPLIT; ++r)
+            if (r < a.split) v += b[r][q];
+          s[ch][q] = v;
+        }
+      }
+      const size_t row = row0 + t;
+      float y[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int fq = f + q < nseg ? f + q : nseg - 1;
+        float v = rnd<bf16>(s[0][q]);
+        if (MODE == TC_PLAIN) {
+          if (bias != nullptr) v = rnd<bf16>(v + Ty<bf16>::to_f(bias[(size_t)m * nseg + fq]));
+        } else if (MODE == TC_RESIDUAL) {
+          if (a.res != nullptr) v = rnd<bf16>(Ty<bf16>::to_f(a.res[row * a.nout + off + fq]) + v);
+        } else {
+          const float u = rnd<bf16>(s[1][q]);
+          v = rnd<bf16>(rnd<bf16>(v / (1.f + expf(-v))) * u);
+        }
+        y[q] = v;
+      }
+      bf16* o = a.out + row * a.nout + off + f;
+      if (f + 8 <= nseg && ((off + f) & 7) == 0 && (a.nout & 7) == 0) {
+        *reinterpret_cast<uint4*>(o) = pack8(y);
+      } else {
+        for (int q = 0; q < 8 && f + q < nseg; ++q) o[q] = Ty<bf16>::from_f(y[q]);
+      }
+    }
+  }
+  if (a.split > 1) cl.sync();        // no block leaves while another reads it
+}
+
+// One tc_matvec launch: grid (column tiles, split, M), clusters of (1,
+// split, 1) where split > 1, the programmatic-dependent attribute.
+template <int N, int MODE>
+cudaError_t launch_tc_n(const TcMaps& maps, const TcArgs& a, int tiles, int M, cudaStream_t s) {
+  auto kern = tc_matvec<N, MODE>;
+  static unsigned allowed = 0;                   // devices whose limit is raised
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (!(allowed & (1u << (dev & 31)))) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (e != cudaSuccess) return e;
+    allowed |= 1u << (dev & 31);
+  }
+  const int nk_all = (a.K + HK - 1) / HK;
+  const size_t smem = tc_smem(MODE, N, (nk_all + a.split - 1) / a.split);
+  if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, a.split, M);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = a.split;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.split > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kern, maps, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_tc(const TcMaps& maps, const TcArgs& a, int tiles, int M, cudaStream_t s) {
+  if (a.B < 1 || a.B > 16 || a.split < 1 || a.split > TC_MAX_SPLIT || a.K % 8 ||
+      a.split > (a.K + HK - 1) / HK)
+    return cudaErrorInvalidValue;
+  return a.B <= 8 ? launch_tc_n<8, MODE>(maps, a, tiles, M, s)
+                  : launch_tc_n<16, MODE>(maps, a, tiles, M, s);
+}
+
+int tc_tiles(int n) { return (n + TC_TILE - 1) / TC_TILE; }
+
+void load_map(CUtensorMap* dst, const void* host) { memcpy(dst, host, sizeof(CUtensorMap)); }
+
+// The attention phase on the wgmma path: rms + QKV (+bias), ring attention
+// and its combine, out-projection (+ residual when res is given).
+int attn_phase_tc(const void* x, const void* norm, float eps, const void* mq, const void* mk,
+                  const void* mv, const void* bq, const void* bk, const void* bv, const void* mo,
+                  void* ck, void* cv, const void* pos, const void* alive, const void* res,
+                  void* qkv, void* attn, void* out, void* part, long long part_elems, int M,
+                  int B, int D, int S, int H, int KVH, int hd, float neg_log_theta, int use_rope,
+                  int window, float scale, int split_qkv, int split_o, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  TcMaps maps;
+  load_map(&maps.m[0], mq);
+  load_map(&maps.m[1], mk);
+  load_map(&maps.m[2], mv);
+  TcArgs a = {};
+  a.x = (const bf16*)x;
+  a.norm = (const float*)norm;
+  a.eps = eps;
+  a.bias[0] = (const bf16*)bq;
+  a.bias[1] = (const bf16*)bk;
+  a.bias[2] = (const bf16*)bv;
+  a.out = (bf16*)qkv;
+  a.n[0] = H * hd;
+  a.n[1] = a.n[2] = KVH * hd;
+  a.tiles0 = tc_tiles(a.n[0]);
+  a.tiles1 = tc_tiles(a.n[1]);
+  a.nout = (H + 2 * KVH) * hd;
+  a.B = B;
+  a.K = D;
+  a.split = split_qkv;
+  cudaError_t e = launch_tc<TC_PLAIN>(maps, a, a.tiles0 + 2 * a.tiles1, M, s);
+  if (e != cudaSuccess) return (int)e;
+  const int ea = launch_attn<bf16>(qkv, ck, cv, (const int*)pos, (const uint8_t*)alive, attn,
+                                   (float*)part, part_elems, M, B, S, H, KVH, hd, neg_log_theta,
+                                   use_rope, window, scale, s);
+  if (ea != 0) return ea;
+  load_map(&maps.m[0], mo);
+  TcArgs o = {};
+  o.x = (const bf16*)attn;
+  o.res = (const bf16*)res;
+  o.out = (bf16*)out;
+  o.n[0] = o.nout = D;
+  o.B = B;
+  o.K = H * hd;
+  o.split = split_o;
+  return (int)launch_tc<TC_RESIDUAL>(maps, o, tc_tiles(D), M, s);
+}
+
+// The FFN phase on the wgmma path: rms + gate/up + SiLU * up, then the
+// down-projection (+ residual when res is given).
+int ffn_phase_tc(const void* x, const void* norm, float eps, const void* mg, const void* mu,
+                 const void* md, const void* res, void* hid, void* out, int M, int B, int D,
+                 int F, int split_gu, int split_d, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  TcMaps maps;
+  load_map(&maps.m[0], mg);
+  load_map(&maps.m[1], mu);
+  TcArgs a = {};
+  a.x = (const bf16*)x;
+  a.norm = (const float*)norm;
+  a.eps = eps;
+  a.out = (bf16*)hid;
+  a.n[0] = a.nout = F;
+  a.B = B;
+  a.K = D;
+  a.split = split_gu;
+  cudaError_t e = launch_tc<TC_SWIGLU>(maps, a, tc_tiles(F), M, s);
+  if (e != cudaSuccess) return (int)e;
+  load_map(&maps.m[0], md);
+  TcArgs d = {};
+  d.x = (const bf16*)hid;
+  d.res = (const bf16*)res;
+  d.out = (bf16*)out;
+  d.n[0] = d.nout = D;
+  d.B = B;
+  d.K = F;
+  d.split = split_d;
+  return (int)launch_tc<TC_RESIDUAL>(maps, d, tc_tiles(D), M, s);
 }
 
 long long max3(long long a, long long b, long long c) {
@@ -874,6 +1264,65 @@ int logits_argmax(int dt_x, int dt_w, const void* x, const void* norm, float eps
   if (dt_x == 1 && dt_w == 1) return LG(__nv_bfloat16, __nv_bfloat16);
 #undef LG
   return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 with B <= 16 lanes per instance, on the wgmma path: every weight
+// comes as its TMA tensor map (tensor_map_encode: boxes of 64 x 64, the
+// 128-byte swizzle; 128 bytes on the host), encoded once
+// per weight by the wrapper; the splits of the reduction (1..8 blocks of a
+// cluster) come from decode_layer.py's matvec_plan.
+// ---------------------------------------------------------------------------
+
+// The attention phase: res + out-proj into out when res is given, else
+// the bare partial rounded to bf16.  Four launches.
+int decode_layer_attn_phase_tc(const void* x, const void* norm, float eps, const void* mq,
+                               const void* mk, const void* mv, const void* bq, const void* bk,
+                               const void* bv, const void* mo, void* ck, void* cv,
+                               const void* pos, const void* alive, const void* res, void* qkv,
+                               void* attn, void* out, void* part, long long part_elems, int M,
+                               int B, int D, int S, int H, int KVH, int hd, float neg_log_theta,
+                               int use_rope, int window, float scale, int split_qkv,
+                               int split_o, void* stream) {
+  return attn_phase_tc(x, norm, eps, mq, mk, mv, bq, bk, bv, mo, ck, cv, pos, alive, res, qkv,
+                       attn, out, part, part_elems, M, B, D, S, H, KVH, hd, neg_log_theta,
+                       use_rope, window, scale, split_qkv, split_o, (cudaStream_t)stream);
+}
+
+// The FFN phase: res + down-proj into out when res is given, else the
+// bare partial.  Two launches.
+int decode_layer_ffn_phase_tc(const void* x, const void* norm, float eps, const void* mg,
+                              const void* mu, const void* md, const void* res, void* hid,
+                              void* out, int M, int B, int D, int F, int split_gu, int split_d,
+                              void* stream) {
+  return ffn_phase_tc(x, norm, eps, mg, mu, md, res, hid, out, M, B, D, F, split_gu, split_d,
+                      (cudaStream_t)stream);
+}
+
+// The whole layer: the attention phase with its residual into x2, the FFN
+// phase with its residual into out.  Six launches.  splits: QKV, out,
+// gate/up, down.
+int decode_layer_tc(const void* x, const void* attn_norm, const void* mlp_norm, float eps,
+                    const void* mq, const void* mk, const void* mv, const void* bq,
+                    const void* bk, const void* bv, const void* mo, const void* mg,
+                    const void* mu, const void* md, void* ck, void* cv, const void* pos,
+                    const void* alive, void* qkv, void* attn, void* x2, void* hid, void* out,
+                    void* part, long long part_elems, int M, int B, int D, int S, int H,
+                    int KVH, int hd, int F, float neg_log_theta, int use_rope, int window,
+                    float scale, int split_qkv, int split_o, int split_gu, int split_d,
+                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int e = attn_phase_tc(x, attn_norm, eps, mq, mk, mv, bq, bk, bv, mo, ck, cv, pos, alive,
+                              x, qkv, attn, x2, part, part_elems, M, B, D, S, H, KVH, hd,
+                              neg_log_theta, use_rope, window, scale, split_qkv, split_o, s);
+  if (e != 0) return e;
+  return ffn_phase_tc(x2, mlp_norm, eps, mg, mu, md, x2, hid, out, M, B, D, F, split_gu, split_d,
+                      s);
+}
+
+int tensor_map_encode(void* out, const void* base, int dt, int n0, int n1, int n2, int b0, int b1,
+                      int swizzle) {
+  return (int)encode_map(out, base, dt, n0, n1, n2, b0, b1, swizzle);
 }
 
 }  // extern "C"

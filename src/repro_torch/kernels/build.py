@@ -21,6 +21,8 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("decode_layer", "chunk_prefill_attn", "slstm_cell", "decode_attn", "fused_matmul",
            "group_norm", "mlstm_chunk")
+# bytes of an encoded TMA tensor map (CUtensorMap)
+TENSOR_MAP_BYTES = 128
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -94,14 +96,19 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong,
            "f": ctypes.c_float}
 
 
+_entries: dict[tuple[str, str], object] = {}
+
+
 def entry(name: str, fn: str, sig: str, restype: str = "i"):
     """C entry point ``fn`` of library ``name`` with argtypes from ``sig``
     ('p' pointer or stream, 'i' int, 'q' long long, 'f' float) and an
-    int (or ``restype``) result."""
-    f = getattr(load(name), fn)
-    if f.argtypes is None:
+    int (or ``restype``) result; resolved once."""
+    f = _entries.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
         f.argtypes = [_CTYPES[c] for c in sig]
         f.restype = _CTYPES[restype]
+        _entries[(name, fn)] = f
     return f
 
 
@@ -142,3 +149,56 @@ def dtype_code(t) -> int:
     if name not in DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[name]
+
+
+class TensorMaps:
+    """The TMA tensor maps of the kernels' weights, encoded once each.
+
+    A map describes a (n2, n1, n0) array (n0 contiguous, f32 or bf16) by
+    its address, extents and strides, read in boxes of (1, b1, b0)
+    elements, in the 128-byte swizzle (the wgmma operands) or dense.  Maps
+    are kept by (device, data pointer, shape, strides, dtype, box,
+    swizzle), everything the encoding reads, so a hit is always the map a
+    fresh encode would give, even for another tensor at a reused address.
+    ``encodes`` counts the maps encoded; a serve that reuses its weights
+    encodes each once.  ``encode`` (tests) replaces the C encoder:
+    fn(out, ptr, dt, n0, n1, n2, b0, b1, swizzle) -> 0 on success."""
+
+    def __init__(self, encode=None, limit: int = 4096):
+        self._encode = encode
+        self._maps: dict[tuple, ctypes.Array] = {}
+        self.limit = limit
+        self.encodes = 0
+
+    @staticmethod
+    def key(t, b1: int, b0: int = 64, swizzle: bool = True) -> tuple:
+        return (t.device, t.data_ptr(), t.shape, t.stride(), t.dtype, b1, b0, swizzle)
+
+    def get(self, t, b1: int, lib: str = "fused_matmul", b0: int = 64,
+            swizzle: bool = True) -> int:
+        """Host address of the map of ``t`` (a contiguous 3-d tensor, or 2-d
+        as one plane of one) with boxes of b1 rows of b0 elements; encoded
+        with library ``lib``'s encoder on first use."""
+        key = self.key(t, b1, b0, swizzle)
+        buf = self._maps.get(key)
+        if buf is None:
+            name = str(t.dtype).removeprefix("torch.")
+            if t.dim() not in (2, 3) or not t.is_contiguous() or name not in DTYPE_CODES:
+                raise ValueError("a tensor map needs a contiguous 2-d or 3-d float32 or "
+                                 f"bfloat16 tensor, got {tuple(t.shape)} {t.dtype}")
+            n2, n1, n0 = (1, *t.shape) if t.dim() == 2 else tuple(t.shape)
+            if len(self._maps) >= self.limit:
+                self.clear()
+            buf = ctypes.create_string_buffer(TENSOR_MAP_BYTES)
+            encode = self._encode or entry(lib, "tensor_map_encode", "ppiiiiiii")
+            check(encode(ctypes.addressof(buf), t.data_ptr(), DTYPE_CODES[name], n0, n1, n2, b0,
+                         b1, int(swizzle)), "tensor map")
+            self._maps[key] = buf
+            self.encodes += 1
+        return ctypes.addressof(buf)
+
+    def clear(self) -> None:
+        self._maps.clear()
+
+
+tensor_maps = TensorMaps()

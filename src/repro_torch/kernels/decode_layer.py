@@ -14,10 +14,16 @@ The ring cache is updated in place (the reference aliases it in and
 out).  ``alive`` (M, B) bool, when given, leaves the ring of every lane
 where it is False untouched: the serving K-step block freezes a stopped
 lane's cache that way.
+
+In bf16 with at most 16 lanes per instance the layer's products run on
+the wgmma path (:func:`matvec_plan` says how each is split); f32, and
+more lanes, keep the lanes matvec of CUDA cores.
 """
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -118,6 +124,101 @@ def logits_argmax_plain(x, scale, head, *, eps: float = 1e-5):
 
 
 # ---------------------------------------------------------------------------
+# launch plans of the wgmma path
+# ---------------------------------------------------------------------------
+
+# csrc/decode_layer.cu's wgmma matvec: output columns per block, k per
+# stage, most blocks of a split cluster, fewest k-steps a split keeps, the
+# ring's bytes (plain: 6 stages of one weight's 16 KB tile; gate/up: 4 of
+# both weights' 32 KB), largest dynamic shared memory
+TC_TILE, TC_HK, TC_MAX_SPLIT, TC_MIN_SPLIT_STEPS = 128, 64, 8, 4
+TC_RING = {False: 6 * 16384 + 16 * 6, True: 4 * 32768 + 16 * 4}
+MAX_SMEM = 232448
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class MatvecPlan:
+    """One product x (m, b, k) @ w (m, k, n): the variant ("tc", the
+    wgmma kernel, or "simt", the lanes matvec), the lanes' wgmma N (8 or
+    16), the output tile, the split of k's steps over a cluster, the grid
+    (column tiles, split, m) and the shared memory of a block."""
+    variant: str
+    rows: int
+    tile: int
+    split: int
+    grid: tuple[int, int, int]
+    smem: int
+
+
+def tc_smem(n_rows: int, nk: int, pair: bool = False) -> int:
+    """csrc/decode_layer.cu's ``tc_smem``: ring, the lanes' x^T over nk
+    k-steps, the norm statistics."""
+    return 1024 + -(-TC_RING[pair] // 1024) * 1024 + nk * n_rows * 128 + 64
+
+
+def matvec_plan(m: int, b: int, k: int, n, dtype: str = "bfloat16", sms: int = H100_SMS,
+                pair: bool = False) -> MatvecPlan:
+    """The launch of one decode-layer product: x (m, b, k) @ w (m, k, n),
+    ``n`` an int or the widths of the segments the grid's tiles walk (QKV:
+    q, k, v); ``pair``: two weights per tile (gate and up).
+
+    bf16 with b <= 16 lanes and 16-byte rows takes the wgmma kernel: the
+    lanes are its N (8, or 16 past 8 lanes), each block owns 128 output
+    columns of one instance.  Where those blocks fill under half the SMs,
+    the k-steps split over a cluster of blocks (at most 8, each keeping at
+    least 4 steps) until they fill half; the split also grows until the
+    lanes' x^T for a block's k range fits in shared memory.  Anything else
+    keeps the lanes matvec (``variant == "simt"``)."""
+    segs = (n,) if isinstance(n, int) else tuple(n)
+    tiles = sum(-(-w // TC_TILE) for w in segs)
+    if dtype != "bfloat16" or b > 16 or k % 8 or any(w % 8 for w in segs):
+        return MatvecPlan("simt", b, 256, 1, (tiles, 1, m), 0)
+    rows = 8 if b <= 8 else 16
+    steps = -(-k // TC_HK)
+    split = 1
+    while (split < min(TC_MAX_SPLIT, steps // TC_MIN_SPLIT_STEPS)
+           and tiles * m * split < sms / 2):
+        split += 1
+    while tc_smem(rows, -(-steps // split), pair) > MAX_SMEM and split < min(TC_MAX_SPLIT, steps):
+        split += 1
+    smem = tc_smem(rows, -(-steps // split), pair)
+    if smem > MAX_SMEM:
+        return MatvecPlan("simt", b, 256, 1, (tiles, 1, m), 0)
+    return MatvecPlan("tc", rows, TC_TILE, split, (tiles, split, m), smem)
+
+
+@functools.lru_cache(maxsize=256)
+def attn_plans(m: int, b: int, d: int, h: int, kvh: int, hd: int, dtype: str = "bfloat16",
+               sms: int = H100_SMS) -> dict[str, MatvecPlan] | None:
+    """The plans of the attention phase's products, QKV and out (a rank's
+    share of the heads under tensor parallelism), or None where either
+    keeps the lanes matvec: then the whole phase does."""
+    plans = {"qkv": matvec_plan(m, b, d, (h * hd, kvh * hd, kvh * hd), dtype, sms),
+             "out": matvec_plan(m, b, h * hd, d, dtype, sms)}
+    return plans if all(p.variant == "tc" for p in plans.values()) else None
+
+
+@functools.lru_cache(maxsize=256)
+def ffn_plans(m: int, b: int, d: int, ff: int, dtype: str = "bfloat16",
+              sms: int = H100_SMS) -> dict[str, MatvecPlan] | None:
+    """The plans of the FFN phase's products, gate/up and down, or None
+    where either keeps the lanes matvec."""
+    plans = {"gate_up": matvec_plan(m, b, d, ff, dtype, sms, pair=True),
+             "down": matvec_plan(m, b, ff, d, dtype, sms)}
+    return plans if all(p.variant == "tc" for p in plans.values()) else None
+
+
+@functools.lru_cache(maxsize=256)
+def layer_plans(m: int, b: int, d: int, h: int, kvh: int, hd: int, ff: int,
+                dtype: str = "bfloat16", sms: int = H100_SMS) -> dict[str, MatvecPlan] | None:
+    """The plans of a whole layer's four products, or None where any of
+    them keeps the lanes matvec: then the whole layer does."""
+    a, f = attn_plans(m, b, d, h, kvh, hd, dtype, sms), ffn_plans(m, b, d, ff, dtype, sms)
+    return None if a is None or f is None else {**a, **f}
+
+
+# ---------------------------------------------------------------------------
 # CUDA launchers
 # ---------------------------------------------------------------------------
 
@@ -196,27 +297,169 @@ def _ffn_phase(x, mlp_norm, w_gate, w_up, w_down, res, *, eps):
     return out
 
 
+_ATTN_TC_SIG = "ppf" + "p" * 16 + "q" + "i" * 7 + "fiif" + "iip"
+_FFN_TC_SIG = "ppf" + "p" * 6 + "iiii" + "iip"
+_LAYER_TC_SIG = "pppf" + "p" * 20 + "q" + "i" * 8 + "fiif" + "iiiip"
+
+# scratch of the wgmma path, kept per (device, stream, shapes): the layer's
+# intermediates never leave the wrapper, and a decode step reuses them
+_scratch: dict[tuple, dict] = {}
+
+
+def _tc_scratch(x, s_cache, h, kvh, hd, ff):
+    m, b, d = x.shape
+    dev = x.device
+    key = (str(dev), build.stream_ptr(x), m, b, d, s_cache, h, kvh, hd, ff, x.dtype)
+    sc = _scratch.get(key)
+    if sc is None:
+        if len(_scratch) >= 64:
+            _scratch.clear()
+        n_part = build.entry("decode_layer", "decode_layer_attn_scratch_elems", "iiiiiii",
+                             restype="q")(m, b, d, s_cache, h, kvh, hd) if h else 0
+        sc = _scratch[key] = {
+            "n_part": n_part,
+            "part": torch.empty((n_part,), dtype=torch.float32, device=dev),
+            "qkv": torch.empty((m, b, (h + 2 * kvh) * hd), dtype=x.dtype, device=dev),
+            "attn": torch.empty((m, b, h * hd), dtype=x.dtype, device=dev),
+            "x2": torch.empty_like(x),
+            "hid": torch.empty((m, b, max(ff, 1)), dtype=x.dtype, device=dev)}
+    return sc
+
+
+def _map(w) -> int:
+    """Host address of weight ``w``'s tensor map (boxes of 64 x 64, the
+    128-byte swizzle), encoded once."""
+    if w.data_ptr() % 16:
+        raise ValueError("a weight must be 16-byte aligned for its tensor map")
+    return build.tensor_maps.get(w, TC_HK, "decode_layer")
+
+
+def _norm32(t):
+    """The norm scale as a contiguous f32 tensor: itself where it is one
+    (a caller holds the result until the launch: a converted copy freed
+    earlier could hand its memory to the next allocation)."""
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.contiguous().float()
+
+
+def _attn_args(lp, x, ck, cv, pos, alive, num_heads, head_dim, rope_theta, window, eps):
+    h, hd = num_heads, head_dim
+    kvh = ck.shape[3]
+    bias = [lp.get(n) for n in ("bq", "bk", "bv")]
+    _check_operands(x.dtype, x=x, ck=ck, cv=cv, wq=lp["wq"], wk=lp["wk"], wv=lp["wv"],
+                    wo=lp["wo"], bq=bias[0], bk=bias[1], bv=bias[2])
+    if pos.dtype != torch.int32 or not pos.is_contiguous():
+        raise TypeError("pos must be a contiguous int32 tensor")
+    if alive is not None and (alive.dtype != torch.bool or not alive.is_contiguous()):
+        raise TypeError("alive must be a contiguous bool tensor")
+    if lp["wq"].shape[-1] != h * hd or lp["wk"].shape[-1] != kvh * hd:
+        raise ValueError(f"wq/wk do not hold {h} / {kvh} heads of {hd}")
+    P = build.ptr
+    return ([_map(lp["wq"]), _map(lp["wk"]), _map(lp["wv"]), *(P(t) for t in bias),
+             _map(lp["wo"]), P(ck), P(cv), P(pos), P(alive)],
+            [-math.log(rope_theta) if rope_theta > 0 else 0.0, int(rope_theta > 0), int(window),
+             1.0 / math.sqrt(hd)])
+
+
+def _attn_phase_tc(lp, x, ck, cv, pos, res, plans, *, num_heads, head_dim, rope_theta,
+                   window, eps, alive):
+    """``decode_layer_attn_phase_tc``: the attention phase on the wgmma
+    path (four launches)."""
+    m, b, d = x.shape
+    s_cache, kvh = ck.shape[2], ck.shape[3]
+    _check_operands(x.dtype, res=res)
+    sc = _tc_scratch(x, s_cache, num_heads, kvh, head_dim, 0)
+    w, tail = _attn_args(lp, x, ck, cv, pos, alive, num_heads, head_dim, rope_theta, window, eps)
+    out, norm = torch.empty_like(x), _norm32(lp["attn_norm"])
+    P = build.ptr
+    fn = build.entry("decode_layer", "decode_layer_attn_phase_tc", _ATTN_TC_SIG)
+    build.check(fn(P(x), P(norm), eps, *w, P(res), P(sc["qkv"]),
+                   P(sc["attn"]), P(out), P(sc["part"]),
+                   sc["n_part"], m, b, d, s_cache, num_heads, kvh, head_dim, *tail,
+                   plans["qkv"].split, plans["out"].split, build.stream_ptr(x)),
+                "decode_layer attention phase (wgmma)")
+    return out
+
+
+def _ffn_phase_tc(x, mlp_norm, w_gate, w_up, w_down, res, plans, *, eps):
+    """``decode_layer_ffn_phase_tc``: the FFN phase on the wgmma path (two
+    launches)."""
+    m, b, d = x.shape
+    ff = w_gate.shape[2]
+    _check_operands(x.dtype, x=x, w_gate=w_gate, w_up=w_up, w_down=w_down, res=res)
+    sc = _tc_scratch(x, 0, 0, 0, 0, ff)
+    out, norm = torch.empty_like(x), _norm32(mlp_norm)
+    P = build.ptr
+    fn = build.entry("decode_layer", "decode_layer_ffn_phase_tc", _FFN_TC_SIG)
+    build.check(fn(P(x), P(norm), eps, _map(w_gate), _map(w_up), _map(w_down),
+                   P(res), P(sc["hid"]), P(out), m, b, d, ff, plans["gate_up"].split,
+                   plans["down"].split, build.stream_ptr(x)), "decode_layer FFN phase (wgmma)")
+    return out
+
+
+def _layer_tc(lp, x, ck, cv, pos, plans, *, num_heads, head_dim, rope_theta, window, eps,
+              alive):
+    """``decode_layer_tc``: the whole layer on the wgmma path, one call
+    into the library, six launches."""
+    m, b, d = x.shape
+    s_cache, kvh = ck.shape[2], ck.shape[3]
+    ff = lp["w_gate"].shape[2]
+    _check_operands(x.dtype, w_gate=lp["w_gate"], w_up=lp["w_up"], w_down=lp["w_down"])
+    sc = _tc_scratch(x, s_cache, num_heads, kvh, head_dim, ff)
+    w, tail = _attn_args(lp, x, ck, cv, pos, alive, num_heads, head_dim, rope_theta, window, eps)
+    out = torch.empty_like(x)
+    norms = _norm32(lp["attn_norm"]), _norm32(lp["mlp_norm"])
+    P = build.ptr
+    fn = build.entry("decode_layer", "decode_layer_tc", _LAYER_TC_SIG)
+    build.check(fn(P(x), P(norms[0]), P(norms[1]), eps,
+                   *w[:7], _map(lp["w_gate"]), _map(lp["w_up"]), _map(lp["w_down"]), *w[7:],
+                   P(sc["qkv"]), P(sc["attn"]), P(sc["x2"]), P(sc["hid"]), P(out),
+                   P(sc["part"]), sc["n_part"], m, b, d, s_cache, num_heads, kvh, head_dim, ff,
+                   *tail, plans["qkv"].split, plans["out"].split, plans["gate_up"].split,
+                   plans["down"].split, build.stream_ptr(x)), "decode_layer (wgmma)")
+    return out
+
+
+def _dt(x) -> str:
+    return str(x.dtype).removeprefix("torch.")
+
+
 def decode_layer_attn_cuda(lp, x, ck, cv, pos, *, num_heads, head_dim, rope_theta,
                            window: int = 0, eps: float = 1e-5, alive=None):
-    """The attention phase on the card: six launches (see the note in
-    csrc/decode_layer.cu).  Same contract as :func:`decode_layer_attn_plain`."""
-    part = _attn_phase(lp, x, ck, cv, pos, None, num_heads=num_heads, head_dim=head_dim,
-                       rope_theta=rope_theta, window=window, eps=eps, alive=alive)
-    return part, ck, cv
+    """The attention phase on the card: four launches on the wgmma path,
+    six on the lanes matvec (see the note in csrc/decode_layer.cu).  Same
+    contract as :func:`decode_layer_attn_plain`."""
+    kw = dict(num_heads=num_heads, head_dim=head_dim, rope_theta=rope_theta, window=window,
+              eps=eps, alive=alive)
+    m, b, d = x.shape
+    plans = attn_plans(m, b, d, num_heads, ck.shape[3], head_dim, _dt(x), build.sm_count(x.device))
+    if plans is not None:
+        return _attn_phase_tc(lp, x, ck, cv, pos, None, plans, **kw), ck, cv
+    return _attn_phase(lp, x, ck, cv, pos, None, **kw), ck, cv
 
 
 def ffn_cuda(x, mlp_norm, w_gate, w_up, w_down, *, eps: float = 1e-5):
-    """The FFN phase on the card: four launches.  Same contract as
-    :func:`ffn_plain`."""
+    """The FFN phase on the card: two launches on the wgmma path, four on
+    the lanes matvec.  Same contract as :func:`ffn_plain`."""
+    m, b, d = x.shape
+    ff = w_gate.shape[2]
+    plans = ffn_plans(m, b, d, ff, _dt(x), build.sm_count(x.device))
+    if plans is not None:
+        return _ffn_phase_tc(x, mlp_norm, w_gate, w_up, w_down, None, plans, eps=eps)
     return _ffn_phase(x, mlp_norm, w_gate, w_up, w_down, None, eps=eps)
 
 
 def decode_layer_cuda(lp, x, ck, cv, pos, *, num_heads, head_dim, rope_theta,
                       window: int = 0, eps: float = 1e-5, alive=None):
     """One dense decode layer for the whole (M, B) grid: the two phases,
-    each adding its residual in its last epilogue (ten launches).  Same
-    contract as :func:`decode_layer_plain`; the cache is appended in
-    place."""
+    each adding its residual in its last epilogue (six launches on the
+    wgmma path, ten on the lanes matvec).  Same contract as
+    :func:`decode_layer_plain`; the cache is appended in place."""
+    m, b, d = x.shape
+    plans = layer_plans(m, b, d, num_heads, ck.shape[3], head_dim, lp["w_gate"].shape[2], _dt(x),
+                        build.sm_count(x.device))
+    if plans is not None:
+        return _layer_tc(lp, x, ck, cv, pos, plans, num_heads=num_heads, head_dim=head_dim,
+                         rope_theta=rope_theta, window=window, eps=eps, alive=alive), ck, cv
     x2 = _attn_phase(lp, x, ck, cv, pos, x, num_heads=num_heads, head_dim=head_dim,
                      rope_theta=rope_theta, window=window, eps=eps, alive=alive)
     out = _ffn_phase(x2, lp["mlp_norm"], lp["w_gate"], lp["w_up"], lp["w_down"], x2, eps=eps)

@@ -125,10 +125,13 @@ def launch(x, w, b, plan: Plan):
     f = w.shape[2]
     bias = None if b is None else b.to(device=x.device, dtype=torch.float32).contiguous()
     out = torch.empty(m, t, f, dtype=x.dtype, device=x.device)
-    fn = build.entry("fused_matmul", "fused_matmul", "ippppiiiiiiiip")
+    fn = build.entry("fused_matmul", "fused_matmul", "ipppppiiiiiiiip")
     P = build.ptr
-    build.check(fn(build.dtype_code(x), P(x), P(w), P(bias), P(out), m, t, d, f, plan.code,
-                   plan.cols, plan.grid[0], plan.split, build.stream_ptr(x)), "fused_matmul")
+    # w's tensor map, encoded once per weight (the x map changes every call)
+    wmap = build.tensor_maps.get(w, HK) if plan.variant != "simt" else None
+    build.check(fn(build.dtype_code(x), P(x), P(w), wmap, P(bias), P(out), m, t, d, f,
+                   plan.code, plan.cols, plan.grid[0], plan.split, build.stream_ptr(x)),
+                "fused_matmul")
     return out
 
 

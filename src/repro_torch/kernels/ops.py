@@ -159,10 +159,11 @@ def chunk_prefill_attention(q, k, v, offset, *, s_cache: int, pin: int = 0,
                   sink=sink, causal=causal)
 
 
-def slstm_cell(pre, r, state, *, num_heads: int, alive=None):
+def slstm_cell(pre, r, state, *, num_heads: int, alive=None, rows=None):
     """The sLSTM scan over S steps; state (c, n, h, m) updated in place.
-    Returns (hs (M, B, S, D), state)."""
-    return _slstm(pre, pre, r, state, num_heads=num_heads, alive=alive)
+    ``rows`` (M,) int32, when given, names the instance of r (M_r, ...)
+    each row reads.  Returns (hs (M, B, S, D), state)."""
+    return _slstm(pre, pre, r, state, num_heads=num_heads, alive=alive, rows=rows)
 
 
 def decode_attention(q, k, v, kv_len):

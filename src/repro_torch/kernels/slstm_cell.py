@@ -20,44 +20,175 @@ f32 within one call).  ``log_sigmoid`` is the stable
 
 The state (c, n, h, m) is updated in place.  ``alive`` (M, B) bool, when
 given, leaves the state of every lane where it is False untouched: the
-serving K-step block freezes a stopped lane that way.
+serving K-step block freezes a stopped lane that way.  ``rows`` (M,)
+int32, when given, names the instance of r that each row of ``pre``
+reads (r then holds the merged model's instances, not one per row): a
+prefill chunk's lanes read their instances' weights in place.
+
+:func:`launch_plan` decides where the kernel keeps r during a call: in
+registers, in shared memory, or streamed from L2 every step.
 """
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build
 
-# CTAs of one thread-block cluster, which owns one (instance, head); a
-# CTA's 256 threads split 4 x hd/CLUSTER gate columns into float4 quads
+# CTAs of one thread-block cluster, which owns one (instance, head): 8, the
+# portable size, or 16 where that holds a prefill's r whole on chip; a
+# CTA's 256 consumer threads split 4 x hd/cluster gate columns into float4
+# quads (and a producer warp feeds the ring of streamed rows)
 CLUSTER = 8
+CLUSTER_WIDE = 16
 _THREADS = 256
+H100_SMS = 132
+# csrc/slstm_cell.cu: largest dynamic shared memory of a block; the most
+# register rows a thread holds (28 float4 quads of f32, 48 of bf16: 112
+# and 96 registers, under the 168 that a 9-warp block leaves a thread
+# with the rest of the kernel's); the ring's stages (a TMA box per gate)
+# and depth: 3 of 16 KB where rows stream from L2 every step (each stage
+# costs resident rows), 2 of 32 KB for decode's one pass from HBM (a
+# block under half an SM's shared memory: two to an SM, so all clusters
+# of a serve shape are resident at once; benchmarks/torch_slstm_sweep.py
+# times the others)
+MAX_SMEM = 232448
+NRR_MAX = {8: {"float32": 28, "bfloat16": 48}, 16: {"float32": 16, "bfloat16": 24}}
+STAGE_BYTES = {"l2": 16384, "hbm": 32768}
+STAGES = {"l2": 3, "hbm": 2}
+
+
+@dataclass(frozen=True)
+class CellPlan:
+    """Where a call keeps r (per CTA, rows of its 4 x hd/cluster slice):
+    rows [0, reg_rows) in registers (``nrr`` per thread), the next
+    ``smem_rows`` in shared memory, the last ``stream_rows`` streamed each
+    step in stages of ``stage_rows`` through a ring of ``stages``; ``lanes``
+    lanes per pass of the recurrent product."""
+    grid: tuple[int]
+    cluster: int
+    lanes: int
+    nrr: int
+    reg_rows: int
+    smem_rows: int
+    stream_rows: int
+    stage_rows: int
+    stages: int
+    smem_bytes: int
+    stream_bytes_per_step: int
+
+
+def _round128(b: int) -> int:
+    return -(-b // 128) * 128
+
+
+def smem_bytes(b: int, hd: int, rsz: int, lanes: int, ks: int, sr: int, stages: int,
+               cluster: int = CLUSTER) -> int:
+    """csrc/slstm_cell.cu's ``smem_bytes``: the dynamic shared memory of
+    a launch."""
+    cw = hd // cluster
+    kg, rowb = _THREADS // cw, 4 * cw * rsz
+    return (128 + _round128(16 * stages) + _round128(stages * sr * rowb) + _round128(ks * rowb)
+            + _round128(2 * b * hd * 4) + _round128(kg * lanes * 4 * cw * 4) + 3 * b * cw * 4)
+
+
+def launch_plan(m: int, b: int, s: int, h: int, hd: int, r_dtype: str = "float32",
+                sms: int = H100_SMS) -> CellPlan:
+    """The launch of ``csrc/slstm_cell.cu`` for ``m`` rows of ``b`` lanes,
+    ``s`` steps, ``h`` heads of ``hd``, r in ``r_dtype``.
+
+    A CTA's slice of r is 4 x hd/cluster columns over hd rows.  Where it
+    fits in shared memory beside the state, it is loaded there once.
+    Decode (s = 1) reads r once, so it streams every row through a deep
+    ring at the HBM rate.  A prefill chunk (s > 1) re-reads r every step,
+    so it keeps it on chip: the first rows in registers (each thread's
+    fixed quads), the next in shared memory.  Where a cluster of 8 cannot
+    hold it all, one of 16 (twice the SMs per (row, head), fewer clusters
+    resident at once) holds it whole if it can; else the rows left over
+    stream each step, from L2.  ``sms`` sizes nothing: one cluster per
+    (row, head) either way."""
+    if hd % (4 * CLUSTER) or hd // CLUSTER > _THREADS:
+        raise ValueError(f"the kernel takes head_dim a multiple of {4 * CLUSTER} "
+                         f"up to {CLUSTER * _THREADS}, not {hd}")
+    rsz = 4 if r_dtype == "float32" else 2
+    lanes = 1 if b == 1 else 4
+
+    def fit(cl):
+        """(nrr, rows left after registers, shared memory free) at cl."""
+        cw = hd // cl
+        kg = _THREADS // cw
+        avail = MAX_SMEM - smem_bytes(b, hd, rsz, lanes, 0, 0, 1, cl)
+        nrr = min(NRR_MAX[cl][r_dtype], hd // kg) if s > 1 and _THREADS % cw == 0 else 0
+        return cw, kg, nrr, hd - kg * nrr, avail
+
+    cl = CLUSTER
+    cw, kg, nrr, rest, avail = fit(cl)
+    rowb = 4 * cw * rsz
+    if s > 1 and rest * rowb > avail and hd % (4 * CLUSTER_WIDE) == 0:
+        cw16, kg16, nrr16, rest16, avail16 = fit(CLUSTER_WIDE)
+        if rest16 * 4 * cw16 * rsz <= avail16:
+            cl, cw, kg, nrr, rest, avail = CLUSTER_WIDE, cw16, kg16, nrr16, rest16, avail16
+            rowb = 4 * cw * rsz
+    ks, sr, stages = hd, 0, 1
+    if hd * rowb <= avail:
+        nrr, rest = 0, hd
+    elif s > 1 and rest * rowb <= avail:
+        ks = rest
+    else:
+        if (cw * rsz) % 16:
+            raise ValueError(f"r's slice of {hd} rows does not fit, and its rows are not "
+                             "16-byte pieces to stream")
+        if s == 1:
+            nrr, rest = 0, hd
+        # a stage's box per gate: at most 256 rows, 128-byte aligned
+        src = "hbm" if s == 1 else "l2"
+        align = 128 // math.gcd(128, cw * rsz)
+        sr = min(256, STAGE_BYTES[src] // rowb) // align * align
+        stages = STAGES[src]
+        ring = (smem_bytes(b, hd, rsz, lanes, 0, sr, stages, cl)
+                - smem_bytes(b, hd, rsz, lanes, 0, 0, 1, cl))
+        ks = 0 if s == 1 else min(rest, max(0, (avail - ring - 128) // rowb))
+    kr = kg * nrr
+    ns = hd - kr - ks
+    smem = smem_bytes(b, hd, rsz, lanes, ks, sr, stages, cl)
+    assert smem <= MAX_SMEM, (m, b, s, h, hd, smem)
+    return CellPlan(grid=(m * h * cl,), cluster=cl, lanes=lanes, nrr=nrr,
+                    reg_rows=kr, smem_rows=ks, stream_rows=ns, stage_rows=sr, stages=stages,
+                    smem_bytes=smem,
+                    stream_bytes_per_step=m * h * cl * ns * rowb * math.ceil(b / lanes))
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
 
 
-def _check_shapes(pre, r, state, num_heads):
+def _check_shapes(pre, r, state, num_heads, rows=None):
     m, b, s, four, d = pre.shape
     if four != 4 or d % num_heads:
         raise ValueError(f"pre must be (M, B, S, 4, D) with D % H == 0, got {tuple(pre.shape)}")
     hd = d // num_heads
-    if tuple(r.shape) != (m, 4, num_heads, hd, hd):
-        raise ValueError(f"r must be {(m, 4, num_heads, hd, hd)}, got {tuple(r.shape)}")
+    m_r = m if rows is None else r.shape[0]
+    if tuple(r.shape) != (m_r, 4, num_heads, hd, hd):
+        raise ValueError(f"r must be {(m_r, 4, num_heads, hd, hd)}, got {tuple(r.shape)}")
+    if rows is not None and (rows.dtype != torch.int32 or tuple(rows.shape) != (m,)):
+        raise TypeError(f"rows must be an int32 ({m},) tensor")
     for name, t in zip("cnhm", state):
         if tuple(t.shape) != (m, b, d):
             raise ValueError(f"state {name} must be {(m, b, d)}, got {tuple(t.shape)}")
     return m, b, s, d, hd
 
 
-def slstm_cell_plain(pre, r, state, *, num_heads: int, alive=None):
-    """pre (M, B, S, 4, D) gate pre-activations; r (M, 4, H, hd, hd);
-    state (c, n, h, m) each (M, B, D): c/n/m f32, h in its storage dtype,
-    updated in place.  Returns (hs (M, B, S, D) in h's dtype, state)."""
-    m, b, s, d, hd = _check_shapes(pre, r, state, num_heads)
+def slstm_cell_plain(pre, r, state, *, num_heads: int, alive=None, rows=None):
+    """pre (M, B, S, 4, D) gate pre-activations; r (M, 4, H, hd, hd), or
+    (M_r, 4, H, hd, hd) with ``rows`` (M,) int32 naming each row's
+    instance; state (c, n, h, m) each (M, B, D): c/n/m f32, h in its
+    storage dtype, updated in place.  Returns (hs (M, B, S, D) in h's
+    dtype, state)."""
+    m, b, s, d, hd = _check_shapes(pre, r, state, num_heads, rows)
     c0, n0, h0, m0 = state
-    rf = r.float()
+    rf = (r if rows is None else r.index_select(0, rows.long())).float()
     c, n, h, mst = c0.float(), n0.float(), h0, m0.float()
     hs = torch.empty((m, b, s, d), dtype=h0.dtype, device=pre.device)
     for t in range(s):
@@ -80,11 +211,21 @@ def slstm_cell_plain(pre, r, state, *, num_heads: int, alive=None):
     return hs, state
 
 
-def slstm_cell_cuda(pre, r, state, *, num_heads: int, alive=None):
+def slstm_cell_cuda(pre, r, state, *, num_heads: int, alive=None, rows=None):
     """The Hopper kernel: one launch scans all S steps; one cluster of
-    CLUSTER CTAs per (instance, head) exchanges h through distributed
-    shared memory each step.  Same contract as the plain version."""
-    m, b, s, d, hd = _check_shapes(pre, r, state, num_heads)
+    CTAs per (row, head) exchanges h through distributed shared memory
+    each step and keeps r on chip as :func:`launch_plan` says.  Same
+    contract as the plain version."""
+    m, b, s, d, hd = _check_shapes(pre, r, state, num_heads, rows)
+    return launch(pre, r, state, num_heads, alive, rows,
+                  launch_plan(m, b, s, num_heads, hd, str(r.dtype).removeprefix("torch.")))
+
+
+def launch(pre, r, state, num_heads: int, alive, rows, plan: CellPlan):
+    """``csrc/slstm_cell.cu`` as ``plan`` says (a plan of
+    :func:`launch_plan`, or one with another ring); the kernel checks the
+    plan against the shapes."""
+    m, b, s, d, hd = _check_shapes(pre, r, state, num_heads, rows)
     c, n, h, mst = state
     for name, t in (("pre", pre), ("r", r), ("c", c), ("n", n), ("h", h), ("m", mst)):
         if not t.is_cuda or not t.is_contiguous():
@@ -97,13 +238,28 @@ def slstm_cell_cuda(pre, r, state, *, num_heads: int, alive=None):
     if alive is not None and (alive.dtype != torch.bool or not alive.is_contiguous()
                               or tuple(alive.shape) != (m, b)):
         raise TypeError("alive must be a contiguous (M, B) bool tensor")
-    if hd % (4 * CLUSTER) or hd // CLUSTER > _THREADS:
-        raise ValueError(f"the kernel takes head_dim a multiple of {4 * CLUSTER} "
-                         f"up to {CLUSTER * _THREADS}, not {hd}")
+    if rows is not None and (not rows.is_cuda or not rows.is_contiguous()):
+        raise ValueError("rows must be a contiguous CUDA tensor")
+    p = plan
     hs = torch.empty((m, b, s, d), dtype=h.dtype, device=pre.device)
-    fn = build.entry("slstm_cell", "slstm_cell", "ii" + "p" * 8 + "iiiii" + "p")
+    # r as (M_r * 4 * H) planes of hd x hd, read in boxes of the stage's
+    # rows by a CTA's columns; encoded once per weight
+    rmap = (build.tensor_maps.get(r.view(-1, hd, hd), p.stage_rows, "slstm_cell",
+                                  b0=hd // p.cluster, swizzle=False) if p.stream_rows else None)
+    fn = build.entry("slstm_cell", "slstm_cell", "ii" + "p" * 10 + "i" * 12 + "p")
     P = build.ptr
-    build.check(fn(build.dtype_code(pre), build.dtype_code(r), P(pre), P(r), P(c), P(n),
-                   P(h), P(mst), P(alive), P(hs), m, b, s, num_heads, hd,
+    build.check(fn(build.dtype_code(pre), build.dtype_code(r), rmap, P(pre), P(r), P(rows), P(c),
+                   P(n), P(h), P(mst), P(alive), P(hs), m, b, s, num_heads, hd, p.cluster, p.nrr,
+                   p.reg_rows, p.smem_rows, p.stage_rows, p.stages, p.lanes,
                    build.stream_ptr(pre)), "slstm_cell")
     return hs, state
+
+
+def max_active_clusters(plan: CellPlan, b: int, hd: int, dtype: str, r_dtype: str) -> int:
+    """How many of the plan's clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``): at most this many (row, head)
+    units run together, the rest in later waves."""
+    codes = build.DTYPE_CODES
+    return build.entry("slstm_cell", "slstm_cell_max_clusters", "i" * 11)(
+        codes[dtype], codes[r_dtype], b, hd, plan.cluster, plan.nrr, plan.lanes, plan.reg_rows,
+        plan.smem_rows, plan.stage_rows, plan.stages)

@@ -39,6 +39,7 @@ class LaneGroups:
         self.reps = max(seen.values())
         self.identity = list(instances) == list(range(m_w))
         self.t = torch.tensor(instances, dtype=torch.long, device=device)
+        self.t32 = self.t.to(torch.int32)
         self.r = torch.tensor(rank, dtype=torch.long, device=device)
 
     def rows(self, leaf: torch.Tensor, dim: int = 0) -> torch.Tensor:

@@ -357,7 +357,10 @@ def slstm_block(cfg: ModelConfig, lp, x, state: dict, *, valid=None, groups=None
     re-taken at the last valid step afterwards."""
     m, b, s, d = x.shape
     h_heads = cfg.num_heads
-    lp = _lane_rows(lp, groups, _SLSTM_MATMUL)
+    # r stays the merged model's (M_w, ...) and the cell reads each lane's
+    # instance through ``rows``: no per-lane copy of the recurrent weights
+    lp = _lane_rows(lp, groups, _SLSTM_MATMUL + ("r",))
+    rows = None if groups is None or groups.identity else groups.t32
     xn = L.rms_norm(x, lp["norm"], cfg.norm_eps)
     # pre-activations stay in the storage dtype; the cell computes in f32
     pre = L.linear(xn, lp["w_in"], lp["b_in"], groups).reshape(m, b, s, 4, d)
@@ -367,7 +370,7 @@ def slstm_block(cfg: ModelConfig, lp, x, state: dict, *, valid=None, groups=None
                                device=pre.device).reshape(1, 1, 1, 4, 1)
         pre = torch.where(valid[..., None, None], pre, neutral)
         h_in = state["h"].clone()
-    hs, _ = K.slstm_cell(pre, lp["r"], st, num_heads=h_heads, alive=alive)
+    hs, _ = K.slstm_cell(pre, lp["r"], st, num_heads=h_heads, alive=alive, rows=rows)
     if valid is not None:
         nv = valid.sum(-1)                                          # (M,B)
         idx = torch.clamp(nv - 1, 0, s - 1).long()[..., None, None].expand(m, b, 1, d)

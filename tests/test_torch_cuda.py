@@ -592,3 +592,135 @@ def test_chunk_prefill_kernel_split_hymba(dev, sc, pin, win):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     assert _err(got, want) <= 3e-2
+
+
+# the sLSTM cell's launch plans at xlstm-1.3b's head width (hd 512), each
+# variant: (dt, rdt, m, b, s) -> a cluster of 16 holding r whole (f32 r, s
+# > 1), everything streamed (s = 1), registers + shared memory only at 8
+# (bf16 r), registers + shared memory + rows streamed from L2 in two lane
+# passes (b = 6)
+SLSTM_PLANS = [
+    (torch.bfloat16, torch.float32, 4, 1, 32), (torch.float32, torch.float32, 2, 1, 32),
+    (torch.bfloat16, torch.float32, 4, 4, 1), (torch.float32, torch.float32, 2, 4, 1),
+    (torch.bfloat16, torch.bfloat16, 4, 1, 32), (torch.bfloat16, torch.bfloat16, 4, 4, 1),
+    (torch.bfloat16, torch.float32, 1, 6, 5), (torch.float32, torch.bfloat16, 2, 2, 3),
+]
+
+
+@pytest.mark.parametrize("dt,rdt,m,b,s", SLSTM_PLANS)
+def test_slstm_cell_kernel_plans(dev, dt, rdt, m, b, s):
+    """Every plan variant at hd 512 against the plain version, junk steps
+    and a lane frozen by ``alive`` included; two calls bit-identical."""
+    h, hd = 2, 512
+    p = sc.launch_plan(m, b, s, h, hd, str(rdt).removeprefix("torch."))
+    pre, r, state = _cell(dev, dt, rdt, m, b, s, h, hd, seed=5)
+    alive = torch.ones(m, b, dtype=torch.bool, device=dev)
+    alive[0, 0] = False
+    want_st = tuple(t.clone() for t in state)
+    want_hs, _ = sc.slstm_cell_plain(pre, r, want_st, num_heads=h, alive=alive)
+    outs = []
+    for _ in range(2):
+        st = tuple(t.clone() for t in state)
+        outs.append((sc.slstm_cell_cuda(pre, r, st, num_heads=h, alive=alive)[0], st))
+    torch.cuda.synchronize()
+    (got_hs, got_st), (again_hs, again_st) = outs
+    assert _err(got_hs, want_hs) <= _tol(dt), p
+    for gt, wt, name in zip(got_st, want_st, "cnhm"):
+        assert _err(gt, wt) <= _tol(dt), (name, p)
+        assert torch.equal(gt[0, 0], state["cnhm".index(name)][0, 0]), name
+    assert torch.equal(got_hs, again_hs)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got_st, again_st))
+
+
+@pytest.mark.parametrize("hd,s", [(32, 4), (512, 32), (512, 1)])
+def test_slstm_cell_kernel_rows(dev, hd, s):
+    """``rows`` reads r's instances in place: equal, bit for bit, to the
+    call on the gathered copy of r."""
+    m, b, h = 4, 1 if s > 1 else 2, 2
+    pre, r, state = _cell(dev, torch.bfloat16, torch.float32, m, b, s, h, hd, seed=6)
+    r3 = r[:3].contiguous()
+    rows = torch.tensor([2, 0, 2, 1], dtype=torch.int32, device=dev)
+    st_map = tuple(t.clone() for t in state)
+    st_cat = tuple(t.clone() for t in state)
+    hs_map, _ = ops.slstm_cell(pre, r3, st_map, num_heads=h, rows=rows)
+    hs_cat, _ = ops.slstm_cell(pre, r3.index_select(0, rows.long()).contiguous(), st_cat,
+                               num_heads=h)
+    torch.cuda.synchronize()
+    assert torch.equal(hs_map, hs_cat)
+    assert all(torch.equal(a, b_) for a, b_ in zip(st_map, st_cat))
+    want = tuple(t.clone() for t in state)
+    want_hs, _ = sc.slstm_cell_plain(pre, r3, want, num_heads=h, rows=rows)
+    assert _err(hs_map, want_hs) <= 3e-2
+
+
+def test_slstm_cell_kernel_clusters_resident(dev):
+    """Decode's 16 clusters of 8 (two CTAs to an SM) are all resident at
+    once; prefill's clusters of 16 one-SM CTAs run in waves, at least 6 at
+    a time."""
+    for m, b, s, least in ((4, 1, 32, 6), (4, 4, 1, 16)):
+        p = sc.launch_plan(m, b, s, 4, 512, "float32")
+        assert sc.max_active_clusters(p, b, 512, "bfloat16", "float32") >= least, p
+
+
+# the wgmma path of the decode layer: (m, b, d, h, kvh, hd, ff, bias) ->
+# N = 8 and 16, k split over a cluster (d 512: few tiles), k not a
+# multiple of the 64-deep step (d 200), a half tile (kv segment of 64)
+TC_LAYERS = [
+    (2, 3, 512, 4, 2, 64, 384, True), (2, 12, 512, 4, 2, 64, 384, False),
+    (1, 4, 200, 4, 1, 64, 136, True), (3, 16, 256, 8, 1, 32, 512, False),
+    (2, 4, 2048, 16, 2, 64, 2816, False),
+]
+
+
+@pytest.mark.parametrize("m,b,d,h,kvh,hd,ff,bias", TC_LAYERS)
+def test_decode_layer_kernel_tc(dev, m, b, d, h, kvh, hd, ff, bias):
+    """The wgmma path (bf16, <= 16 lanes) against the plain version: the
+    whole layer, both phases alone; two calls bit-identical."""
+    plans = dl.layer_plans(m, b, d, h, kvh, hd, ff)
+    assert plans is not None
+    lp, x, ck, cv = _layer(dev, torch.bfloat16, m, b, d, h, kvh, hd, ff, 300, bias)
+    pos = (290 + torch.arange(m * b, device=dev, dtype=torch.int32)).reshape(m, b)
+    kw = dict(num_heads=h, head_dim=hd, rope_theta=10000.0)
+    want = dl.decode_layer_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    got = dl.decode_layer_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    again = dl.decode_layer_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    torch.cuda.synchronize()
+    for gt, wt, name in zip(got, want, ("x", "k", "v")):
+        assert _err(gt, wt) <= 3e-2, (name, plans)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    part = dl.decode_layer_attn_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)[0]
+    want_part = dl.decode_layer_attn_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)[0]
+    ffn = [lp[k] for k in ("mlp_norm", "w_gate", "w_up", "w_down")]
+    torch.cuda.synchronize()
+    assert _part_err(part, want_part) <= 3e-2
+    assert _part_err(dl.ffn_cuda(x, *ffn), dl.ffn_plain(x, *ffn)) <= 3e-2
+
+
+def test_decode_layer_kernel_more_lanes_keep_lanes_matvec(dev):
+    """Past 16 lanes per instance the layer keeps the lanes matvec."""
+    assert dl.layer_plans(1, 20, 64, 4, 2, 16, 96) is None
+    lp, x, ck, cv = _layer(dev, torch.bfloat16, 1, 20, 64, 4, 2, 16, 96, 40, False)
+    pos = torch.arange(20, device=dev, dtype=torch.int32).reshape(1, 20)
+    kw = dict(num_heads=4, head_dim=16, rope_theta=10000.0)
+    want = dl.decode_layer_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    got = dl.decode_layer_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    torch.cuda.synchronize()
+    assert _err(got[0], want[0]) <= 3e-2
+
+
+def test_tensor_maps_encoded_once_per_weight(dev):
+    """A weight's map is encoded on its first call only."""
+    from repro_torch.kernels import build
+
+    lp, x, ck, cv = _layer(dev, torch.bfloat16, 2, 3, 512, 4, 2, 64, 384, 16, False)
+    pos = torch.full((2, 3), 7, dtype=torch.int32, device=dev)
+    kw = dict(num_heads=4, head_dim=64, rope_theta=10000.0)
+    dl.decode_layer_cuda(lp, x, ck, cv, pos, **kw)
+    n = build.tensor_maps.encodes
+    for _ in range(3):
+        dl.decode_layer_cuda(lp, x, ck, cv, pos, **kw)
+    w = (torch.randn(2, 64, 256, device=dev) * 0.1).to(torch.bfloat16)
+    fm.fused_matmul_cuda(torch.randn(2, 4, 64, device=dev).to(torch.bfloat16), w)
+    fm.fused_matmul_cuda(torch.randn(2, 4, 64, device=dev).to(torch.bfloat16), w)
+    torch.cuda.synchronize()
+    assert build.tensor_maps.encodes == n + 1

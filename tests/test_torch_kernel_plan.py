@@ -1,19 +1,25 @@
-"""The launch plans of the merged-matmul and chunk-attention kernels, on
-the CPU: pure functions of the shapes (``fused_matmul.launch_plan``,
-``chunk_prefill_attn.launch_plan``) that decide the kernel variant, the
-split of the reduction over blocks, the grid and the scratch.  Checked
-here: the blocks cover every output element exactly once, the splits
-cover the reduction exactly once, and the grid fills the card where the
-shape allows it.
+"""The launch plans of the port's Hopper kernels, on the CPU: pure
+functions of the shapes (``fused_matmul.launch_plan``,
+``chunk_prefill_attn.launch_plan``, ``slstm_cell.launch_plan``,
+``decode_layer.matvec_plan``) that decide the kernel variant, the split
+of the reduction over blocks, the grid, what stays on chip and the
+scratch.  Checked here: the blocks cover every output element exactly
+once, the splits cover the reduction exactly once and in a fixed order,
+shared memory fits, and the grid fills the card where the shape allows
+it.  Also the tensor-map cache's keys, with a stand-in encoder.
 """
 import itertools
 import math
 
 import numpy as np
 import pytest
+import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import chunk_prefill_attn as cpa
+from repro_torch.kernels import decode_layer as dl
 from repro_torch.kernels import fused_matmul as fm
+from repro_torch.kernels import slstm_cell as sc
 
 SMS = 132
 
@@ -155,3 +161,231 @@ def test_chunk_plan_serving_shapes():
     half of the 132 SMs), 320 after; hymba's: 60, then 300."""
     assert cpa.launch_plan(4, 32, 32, 4, 64, 1024).grid == (20, 4, 4)
     assert cpa.launch_plan(4, 32, 25, 5, 64, 1152).grid == (15, 5, 4)
+
+
+# ---------------------------------------------------------------------------
+# the sLSTM cell's plan: where r lives during a call
+# ---------------------------------------------------------------------------
+
+SLSTM_SHAPES = [
+    # (m, b, s, h, hd, r dtype): xlstm-1.3b's prefill and decode, f32 and
+    # bf16 r; the CUDA tests' shapes; a wide head
+    (4, 1, 32, 4, 512, "float32"), (4, 4, 1, 4, 512, "float32"),
+    (4, 1, 32, 4, 512, "bfloat16"), (4, 4, 1, 4, 512, "bfloat16"),
+    (1, 6, 5, 2, 512, "float32"), (2, 2, 3, 2, 512, "bfloat16"), (16, 4, 32, 4, 512, "float32"),
+    (2, 1, 1, 2, 32, "float32"), (1, 6, 5, 1, 96, "bfloat16"), (2, 4, 32, 4, 128, "float32"),
+    (1, 1, 8, 1, 32, "bfloat16"), (2, 1, 8, 1, 1024, "float32"), (2, 3, 4, 2, 256, "float32"),
+]
+
+
+def _slstm_thread_rows(p, hd):
+    """The rows each thread group kg sums, in the kernel's order:
+    registers, shared memory, then stage by stage."""
+    kg_n = 256 // (hd // p.cluster)
+    k_stream = p.reg_rows + p.smem_rows
+    out = {}
+    for kg in range(kg_n):
+        rows = [kg + kg_n * i for i in range(p.nrr)]
+        rows += list(range(p.reg_rows + kg, k_stream, kg_n))
+        for k0 in range(k_stream, hd, max(p.stage_rows, 1)):
+            nr = min(p.stage_rows, hd - k0)
+            first = (kg - k0 % kg_n) % kg_n
+            rows += [k0 + k for k in range(first, nr, kg_n)]
+        out[kg] = rows
+    return out
+
+
+@pytest.mark.parametrize("m,b,s,h,hd,rdt", SLSTM_SHAPES)
+def test_slstm_plan_covers_r_once(m, b, s, h, hd, rdt):
+    """Registers, shared memory and the streamed stages cover each of a
+    CTA's hd rows exactly once, and every thread group sums its rows in
+    increasing order whatever the plan (so the result does not depend on
+    it); the ring only exists where rows stream."""
+    p = sc.launch_plan(m, b, s, h, hd, rdt)
+    assert p.reg_rows + p.smem_rows + p.stream_rows == hd
+    assert min(p.reg_rows, p.smem_rows, p.stream_rows) >= 0
+    rows = _slstm_thread_rows(p, hd)
+    flat = sorted(k for r in rows.values() for k in r)
+    assert flat == list(range(hd))
+    kg_n = len(rows)
+    for kg, r in rows.items():
+        assert r == list(range(kg, hd, kg_n))
+    assert (p.stream_rows > 0) == (p.stage_rows > 0)
+    assert p.grid == (m * h * p.cluster,) and p.cluster in (sc.CLUSTER, sc.CLUSTER_WIDE)
+
+
+@pytest.mark.parametrize("m,b,s,h,hd,rdt", SLSTM_SHAPES)
+def test_slstm_plan_fits_shared_memory(m, b, s, h, hd, rdt):
+    """A block's shared memory stays within the 227 KB a block may use,
+    and matches the kernel's formula; streamed pieces are 16-byte bulk
+    copies; decode streams everything it does not hold whole."""
+    p = sc.launch_plan(m, b, s, h, hd, rdt)
+    rsz = 4 if rdt == "float32" else 2
+    assert p.smem_bytes <= 227 * 1024
+    assert p.smem_bytes == sc.smem_bytes(b, hd, rsz, p.lanes, p.smem_rows, p.stage_rows, p.stages,
+                                         p.cluster)
+    if p.stream_rows:
+        assert (hd // p.cluster * rsz) % 16 == 0 and p.stage_rows <= 256
+        assert (p.stage_rows * hd // p.cluster * rsz) % 128 == 0
+    # the wide cluster only where it holds a prefill's r whole
+    assert p.cluster == sc.CLUSTER or (s > 1 and p.stream_rows == 0)
+    if s == 1 and p.stream_rows:
+        assert p.stream_rows == hd and p.nrr == 0
+    assert p.lanes == (1 if b == 1 else 4)
+
+
+def test_slstm_plan_serving_shapes():
+    """xlstm-1.3b (hd 512, 4 heads, M = 4): prefill with f32 r takes
+    clusters of 16, whose CTAs hold their 256 KB of r whole (128 rows in
+    registers, 384 in shared memory): nothing streams; with bf16 r a
+    cluster of 8 holds it whole; decode streams all 512 rows through 2
+    stages of 32 KB, in under half an SM's shared memory.  With 6 lanes a
+    prefill's state leaves no room for r whole at 16, and a cluster of 8
+    streams ~260 rows each step through 3 stages of 16 rows."""
+    p = sc.launch_plan(4, 1, 32, 4, 512, "float32")
+    assert (p.cluster, p.nrr, p.reg_rows, p.smem_rows, p.stream_rows) == (16, 16, 128, 384, 0)
+    p = sc.launch_plan(4, 1, 32, 4, 512, "bfloat16")
+    assert (p.cluster, p.reg_rows, p.smem_rows, p.stream_rows) == (8, 192, 320, 0)
+    p = sc.launch_plan(1, 6, 5, 2, 512, "float32")
+    assert (p.cluster, p.nrr, p.reg_rows, p.stage_rows, p.stages) == (8, 28, 112, 16, 3)
+    assert p.stream_rows == 400 - p.smem_rows > 0
+    p = sc.launch_plan(4, 4, 1, 4, 512, "float32")
+    assert (p.reg_rows, p.smem_rows, p.stream_rows, p.stages, p.stage_rows) == (0, 0, 512, 2, 32)
+    assert p.stream_bytes_per_step == 64 * 2 ** 20 and p.smem_bytes <= 113 * 1024
+
+
+# ---------------------------------------------------------------------------
+# the decode layer's wgmma matvecs
+# ---------------------------------------------------------------------------
+
+MATVEC_SHAPES = [
+    # (m, b, k, n, pair): tinyllama-1.1b's QKV, out, gate/up and down at
+    # M = 4 and a data rank's M = 2; a TP=2 and a TP=4 rank's; qwen1.5's
+    # TP=2 rank; the CUDA tests' shapes
+    (4, 4, 2048, (2048, 256, 256), False), (4, 4, 2048, 2048, False),
+    (4, 4, 2048, 5632, True), (4, 4, 5632, 2048, False),
+    (2, 4, 2048, (2048, 256, 256), False), (2, 4, 5632, 2048, False), (2, 4, 2048, 5632, True),
+    (4, 4, 2048, (1024, 128, 128), False), (4, 4, 1024, 2048, False),
+    (4, 4, 2048, 2816, True), (4, 4, 2816, 2048, False),
+    (4, 4, 2048, (512, 64, 64), False), (4, 4, 1408, 2048, False), (4, 4, 2048, 1408, True),
+    (2, 3, 1024, (512, 512, 512), False), (2, 3, 512, 1024, False),
+    (2, 3, 512, (256, 128, 128), False), (2, 12, 512, 384, True), (1, 4, 200, (256, 64, 64), False),
+    (3, 16, 256, 512, True), (3, 16, 5632, 2048, False), (2, 3, 64, (64, 32, 32), False),
+]
+
+
+@pytest.mark.parametrize("m,b,k,n,pair", MATVEC_SHAPES)
+def test_matvec_plan_covers_outputs_once(m, b, k, n, pair):
+    """The blocks' 128-column tiles cover each segment's columns exactly
+    once per split, the splits walk k's 64-deep steps exactly once in
+    order (the kernel's ranges), and a block fits its shared memory."""
+    p = dl.matvec_plan(m, b, k, n, "bfloat16", SMS, pair)
+    assert p.variant == "tc" and p.rows == (8 if b <= 8 else 16)
+    segs = (n,) if isinstance(n, int) else n
+    tiles = [math.ceil(w / p.tile) for w in segs]
+    assert p.grid == (sum(tiles), p.split, m)
+    for w, t in zip(segs, tiles):
+        hits = np.zeros(w, np.int32)
+        for i in range(t):
+            hits[i * p.tile:(i + 1) * p.tile] += 1
+        assert (hits == 1).all()
+    steps = math.ceil(k / dl.TC_HK)
+    ranges = fm.split_ranges(steps, p.split)
+    assert ranges == sorted(ranges) and _covered(fm.split_ranges, steps, p.split) == [1] * steps
+    assert all(b_ - a >= 1 for a, b_ in ranges)
+    assert p.smem == dl.tc_smem(p.rows, math.ceil(steps / p.split), pair) <= dl.MAX_SMEM
+
+
+@pytest.mark.parametrize("m,b,k,n,pair", MATVEC_SHAPES)
+def test_matvec_plan_split_rule(m, b, k, n, pair):
+    """A split only where the blocks fill under half of the SMs, each
+    split at least 4 steps (unless shared memory forced more), at most a
+    cluster of 8; f32 and more than 16 lanes keep the lanes matvec."""
+    p = dl.matvec_plan(m, b, k, n, "bfloat16", SMS, pair)
+    tiles, steps = p.grid[0], math.ceil(k / dl.TC_HK)
+    assert 1 <= p.split <= min(dl.TC_MAX_SPLIT, steps)
+    if p.split > 1 and dl.tc_smem(p.rows, math.ceil(steps / (p.split - 1)), pair) <= dl.MAX_SMEM:
+        assert tiles * m * (p.split - 1) < SMS / 2 and steps // p.split >= dl.TC_MIN_SPLIT_STEPS
+    assert dl.matvec_plan(m, b, k, n, "float32", SMS, pair).variant == "simt"
+    assert dl.matvec_plan(m, 17, k, n, "bfloat16", SMS, pair).variant == "simt"
+
+
+def test_matvec_plan_serving_shapes():
+    """tinyllama-1.1b at M = 4, B = 4: QKV 80 blocks and gate/up 176 run
+    whole, out and down (64 tiles) split in 2; a TP=2 rank's QKV (40
+    tiles) splits in 2; a 2x1 data rank (M = 2) splits out and down in 3.
+    Every product takes N = 8."""
+    plans = dl.layer_plans(4, 4, 2048, 32, 4, 64, 5632)
+    assert {k: (p.split, p.grid) for k, p in plans.items()} == {
+        "qkv": (1, (20, 1, 4)), "out": (2, (16, 2, 4)), "gate_up": (1, (44, 1, 4)),
+        "down": (2, (16, 2, 4))}
+    assert dl.layer_plans(4, 4, 2048, 16, 2, 64, 2816)["qkv"].split == 2
+    rank = dl.layer_plans(2, 4, 2048, 32, 4, 64, 5632)
+    assert rank["out"].split == rank["down"].split == 3
+    assert all(p.rows == 8 for p in plans.values())
+    assert dl.layer_plans(4, 4, 2048, 32, 4, 64, 5632, "float32") is None
+
+
+# ---------------------------------------------------------------------------
+# the tensor-map cache of the TMA kernels
+# ---------------------------------------------------------------------------
+
+
+def _fake_maps(limit=4096):
+    calls = []
+
+    def encode(out, ptr, dt, n0, n1, n2, b0, b1, swizzle):
+        calls.append((ptr, dt, n0, n1, n2, b0, b1, swizzle))
+        return 0
+
+    return build.TensorMaps(encode=encode, limit=limit), calls
+
+
+def test_tensor_maps_encode_each_weight_once():
+    """The same weight, or a new view of it, hits; another box, another
+    tensor or another shape at the same address encodes anew; the
+    encoder gets the dtype code and the (n0, n1, n2) extents, contiguous
+    last; f32 in dense boxes (the sLSTM's r) is a map of its own."""
+    maps, calls = _fake_maps()
+    w = torch.zeros(3, 5, 8, dtype=torch.bfloat16)
+    a = maps.get(w, 64)
+    assert maps.get(w, 64) == a and maps.get(w[:], 64) == a
+    assert calls == [(w.data_ptr(), 1, 8, 5, 3, 64, 64, 1)] and maps.encodes == 1
+    assert maps.get(w, 8) != a and maps.encodes == 2
+    assert maps.get(w.view(3, 8, 5), 64) != a and maps.encodes == 3
+    v = torch.zeros(5, 8, dtype=torch.bfloat16)
+    maps.get(v, 64)
+    assert calls[-1] == (v.data_ptr(), 1, 8, 5, 1, 64, 64, 1) and maps.encodes == 4
+    r = torch.zeros(16, 64, 64)
+    maps.get(r, 8, b0=8, swizzle=False)
+    assert calls[-1] == (r.data_ptr(), 0, 64, 64, 16, 8, 8, 0) and maps.encodes == 5
+    assert maps.get(r, 8, b0=8, swizzle=False) == maps.get(r, 8, b0=8, swizzle=False)
+    assert maps.encodes == 5
+
+
+def test_tensor_maps_key_reads_everything_the_encoding_does():
+    """The key holds the device, pointer, shape, strides, dtype, box and
+    swizzle: the fields a map encodes."""
+    w = torch.zeros(2, 4, 8, dtype=torch.bfloat16)
+    k = build.TensorMaps.key(w, 64)
+    assert k == (torch.device("cpu"), w.data_ptr(), (2, 4, 8), (32, 8, 1), torch.bfloat16, 64,
+                 64, True)
+    assert build.TensorMaps.key(w, 64, 32) != k
+    assert build.TensorMaps.key(w, 64, swizzle=False) != k
+    assert build.TensorMaps.key(w.view(torch.float16), 64) != k
+    assert build.TensorMaps.key(w[:, :2], 64) != k
+    assert build.TensorMaps.key(w, 32) != k
+
+
+def test_tensor_maps_refuse_what_no_map_describes_and_stay_bounded():
+    maps, calls = _fake_maps(limit=2)
+    with pytest.raises(ValueError):
+        maps.get(torch.zeros(4, 8, 2, dtype=torch.bfloat16).transpose(1, 2), 64)
+    with pytest.raises(ValueError):
+        maps.get(torch.zeros(4, 8, dtype=torch.float16), 64)
+    ws = [torch.zeros(2, 8, 8, dtype=torch.bfloat16) for _ in range(3)]
+    for w in ws:
+        maps.get(w, 64)
+    assert maps.encodes == 3 and len(maps._maps) == 1
+    maps.get(ws[2], 64)
+    assert maps.encodes == 3

@@ -233,6 +233,48 @@ def test_slstm_block_matches_reference_block_with_junk_steps():
         assert torch.equal(tst[k][1], torch.from_numpy(st[k][1]))
 
 
+@pytest.mark.parametrize("instances", [[1, 0, 1], [0, 0, 1, 1], [1, 1]])
+def test_slstm_block_reads_r_through_rows_bit_for_bit(monkeypatch, instances):
+    """A prefill chunk's lanes read the merged r through the row map
+    (``rows``): the block's output and state equal, bit for bit, the same
+    block fed a per-lane copy of r (the gathered form it replaced)."""
+    from repro_torch.models import layers as TL
+
+    jcfg, tcfg, jp, tp = _both()
+    rng = np.random.default_rng(7)
+    k, d, s = len(instances), tcfg.d_model, 5
+    x = torch.from_numpy(rng.standard_normal((k, 1, s, d)).astype(np.float32))
+    valid = torch.from_numpy(np.arange(s)[None, None] < rng.integers(1, s + 1, (k, 1, 1)))
+    st0 = {"c": rng.standard_normal((k, 1, d)), "n": np.abs(rng.standard_normal((k, 1, d))) + 1,
+           "h": rng.standard_normal((k, 1, d)) * 0.3, "m": rng.standard_normal((k, 1, d))}
+    st0 = {n: torch.from_numpy(v.astype(np.float32)) for n, v in st0.items()}
+    groups = TL.LaneGroups(instances, M, "cpu")
+    st_map = {n: v.clone() for n, v in st0.items()}
+    y_map = tssm.slstm_block(tcfg, tp["slstm"][0], x, st_map, valid=valid, groups=groups)
+
+    seen, cell = [], ops.slstm_cell
+
+    def gathered_cell(pre, r, state, *, num_heads, alive=None, rows=None):
+        seen.append(rows)
+        return cell(pre, r.index_select(0, rows.long()), state, num_heads=num_heads, alive=alive)
+
+    monkeypatch.setattr(tssm.K, "slstm_cell", gathered_cell)
+    st_cat = {n: v.clone() for n, v in st0.items()}
+    y_cat = tssm.slstm_block(tcfg, tp["slstm"][0], x, st_cat, valid=valid, groups=groups)
+    assert seen and seen[0].tolist() == instances
+    assert torch.equal(y_map, y_cat)
+    assert all(torch.equal(st_map[n], st_cat[n]) for n in "cnhm")
+    # the plain cell itself: rows against the gathered copy
+    pre = torch.from_numpy(rng.standard_normal((k, 1, s, 4, d)).astype(np.float32))
+    r = tp["slstm"][0]["r"]
+    rows = torch.tensor(instances, dtype=torch.int32)
+    a = tuple(v.clone() for v in st0.values())
+    b = tuple(v.clone() for v in st0.values())
+    ha, _ = sc.slstm_cell_plain(pre, r, a, num_heads=tcfg.num_heads, rows=rows)
+    hb, _ = sc.slstm_cell_plain(pre, r.index_select(0, rows.long()), b, num_heads=tcfg.num_heads)
+    assert torch.equal(ha, hb) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
 def test_mlstm_step_alive_freezes_dead_lanes():
     rng = np.random.default_rng(6)
     m, b, h, hd = 2, 2, 2, 8
