@@ -2,8 +2,10 @@
 """Time the Hopper kernels of a checkout on the card, to compare two
 versions of them on one card in one run: the merged matmul
 (``csrc/fused_matmul.cu``), the chunk attention
-(``csrc/chunk_prefill_attn.cu``), the sLSTM cell (``csrc/slstm_cell.cu``)
-and the dense decode layer (``csrc/decode_layer.cu``).
+(``csrc/chunk_prefill_attn.cu``), the sLSTM cell (``csrc/slstm_cell.cu``),
+the dense decode layer (``csrc/decode_layer.cu``), the decode attention
+(``csrc/decode_attn.cu``) and the chunkwise mLSTM
+(``csrc/mlstm_chunk.cu``).
 
   python3 benchmarks/torch_kernel_ab.py [ROOT] [--tag NAME] [--only PREFIX,...]
 
@@ -27,6 +29,17 @@ wrapper timed here has the same Python contract in both versions.
   1024, positions inside the prompts' range): the whole layer, bf16 and
   f32, and a TP=2 rank's attention and FFN phases (16/2 heads, F 2816),
   bf16 and f32; 4 weight sets rotating.
+- The decode attention at hymba-1.5b's serve shape (M=4 x B=4 lanes, S
+  1536, 25 / 5 heads of 64, kv_len in [144, 673), the TP=2 rank's shape
+  too) and at the per-rank shapes of the other two TP plans ("kv" at
+  TP=5: 5 / 1 heads; "expand" at TP=25: 1 / 1), bf16 and f32; 8 input
+  sets rotating, so K and V come from HBM.  Beside it SDPA with the
+  prefix mask (GQA), and the latency floor: an empty kernel launched on
+  the decode attention's grid and cluster shape (where the checkout has
+  one).
+- The chunkwise mLSTM at xlstm-1.3b's profiler shape (q, k, v (4, 4, 4,
+  32, 1024), chunk 32) and over four chunks (4, 1, 4, 256, 1024, chunk 64),
+  bf16 and f32; 2 input sets rotating.
 - Each also as device time: the same calls queued behind a ~10 ms spin
   kernel, so the device runs them back to back however slowly the host
   enqueues them.
@@ -41,8 +54,9 @@ wrapper timed here has the same Python contract in both versions.
 Prints one line ``AB {"tag": ..., "ms": {...}, "device_ms": {...},
 "library_ms": {...}, "library_device_ms": {...}, "rate_tb_s": {...}}``,
 keys ``matmul/MxTxDxF/dtype``, ``chunk/NAME/dtype``,
-``slstm/prefill|decode/dtype``, ``decode_layer/layer|attn_tp2|ffn_tp2/dtype``
-and ``l2``/``hbm``.
+``slstm/prefill|decode/dtype``, ``decode_layer/layer|attn_tp2|ffn_tp2/dtype``,
+``decode_attn/hymba|kv_tp5|expand_tp25/dtype``, ``floor/decode_attn``,
+``mlstm/profiler|multichunk/dtype`` and ``l2``/``hbm``.
 """
 from __future__ import annotations
 
@@ -61,6 +75,12 @@ SLSTM = {"prefill": (4, 1, 32), "decode": (4, 4, 1)}
 LAYERS = {"layer": (32, 4, 5632), "attn_tp2": (16, 2, 2816), "ffn_tp2": (16, 2, 2816)}
 CHUNKS = {"tinyllama": (4, 32, 32, 4, 64, 1024, 0, 0, 0, (0, 96, 256, 480)),
           "hymba_swa": (4, 32, 25, 5, 64, 1152, 128, 1024, 128, (128, 400, 900, 1500))}
+# the decode attention: name: (q heads, kv heads) of a call at M=4 x B=4,
+# S 1536, hd 64 (hymba-1.5b whole, as one device and a TP=2 rank run it;
+# a TP=5 rank's "kv" block; a TP=25 rank's "expand" block)
+DECODE = {"hymba": (25, 5), "kv_tp5": (5, 1), "expand_tp25": (1, 1)}
+# the chunkwise mLSTM: name: (M, B, H, S, hd, chunk)
+MLSTM = {"profiler": (4, 4, 4, 32, 1024, 32), "multichunk": (4, 1, 4, 256, 1024, 64)}
 
 
 def timed(torch, fn, reps=200, warmup=10):
@@ -202,6 +222,56 @@ def main() -> int:
                 fn = lambda st: dl.ffn_cuda(st[1], *(st[0][k] for k in ("mlp_norm", "w_gate",
                                                                         "w_up", "w_down")))
             record(key, lambda: fn(sets[next(it) % 4]))
+            del sets
+
+    # the decode attention: hymba-1.5b's serve shape and the TP plans' rank
+    # blocks, kv_len inside the served positions (128 meta + 16..512 prompt
+    # + 32 new)
+    from repro_torch.kernels import decode_attn as da
+    for name, (h, kvh) in DECODE.items():
+        for dt in (torch.bfloat16, torch.float32):
+            key = f"decode_attn/{name}/{str(dt).removeprefix('torch.')}"
+            if not want(key):
+                continue
+            m, b, s, hd = 4, 4, 1536, 64
+            sets = []
+            for _ in range(8):
+                q = torch.randn(m, b, h, hd, generator=g, device=dev).to(dt)
+                k, v = (torch.randn(m, b, s, kvh, hd, generator=g, device=dev).to(dt)
+                        for _ in range(2))
+                lens = torch.randint(144, 673, (m, b), generator=g, device=dev,
+                                     dtype=torch.int32)
+                mask = (torch.arange(s, device=dev) < lens[..., None]).reshape(m * b, 1, 1, s)
+                lib = (q.reshape(m * b, h, 1, hd), k.reshape(m * b, s, kvh, hd).transpose(1, 2),
+                       v.reshape(m * b, s, kvh, hd).transpose(1, 2), mask)
+                sets.append(((q, k, v, lens), lib))
+            it = iter(range(10 ** 9))
+            sdpa = lambda st: Fn.scaled_dot_product_attention(*st[:3], attn_mask=st[3],
+                                                               enable_gqa=True)
+            record(key, lambda: da.decode_attention_cuda(*sets[next(it) % 8][0]),
+                   lambda: sdpa(sets[next(it) % 8][1]))
+            if hasattr(da, "launch_floor") and name == "hymba" and dt == torch.bfloat16:
+                plan = da.launch_plan(m * b, s, h, kvh, hd)
+                res["ms"]["floor/decode_attn"], res["device_ms"]["floor/decode_attn"] = timed(
+                    torch, lambda: da.launch_floor(plan, dev))
+            del sets
+
+    # the chunkwise mLSTM
+    from repro_torch.kernels import mlstm_chunk as ml
+    for name, (m, b, h, s, hd, chunk) in MLSTM.items():
+        for dt in (torch.bfloat16, torch.float32):
+            key = f"mlstm/{name}/{str(dt).removeprefix('torch.')}"
+            if not want(key):
+                continue
+            sets = []
+            for _ in range(2):
+                q, k, v = (torch.randn(m, b, h, s, hd, generator=g, device=dev).to(dt)
+                           for _ in range(3))
+                lf = Fn.logsigmoid(2 + torch.randn(m, b, h, s, generator=g, device=dev))
+                li = torch.randn(m, b, h, s, generator=g, device=dev)
+                sets.append((q, k, v, lf, li))
+            it = iter(range(10 ** 9))
+            record(key, lambda: ml.mlstm_chunkwise_cuda(*sets[next(it) % 2], chunk=chunk))
             del sets
 
     # the L2 probe: one streaming read of 1 GiB, 32 times over a 24 MiB

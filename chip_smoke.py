@@ -9,10 +9,10 @@ non-zero before the result line is printed):
 1. device  -- the card's name and power limit (nvidia-smi);
 2. build   -- compile the seven kernel sources of ``src/repro_torch/csrc``
               with nvcc, one process per source, and print ptxas
-              registers / spills (for the four kernels redesigned for
+              registers / spills (for the six kernels redesigned for
               Hopper, fused_matmul.cu, chunk_prefill_attn.cu,
-              slstm_cell.cu and decode_layer.cu, the report's lines as
-              ptxas prints them);
+              slstm_cell.cu, decode_layer.cu, decode_attn.cu and
+              mlstm_chunk.cu, the report's lines as ptxas prints them);
 3. kernels -- each Hopper kernel against its plain PyTorch version: the
               dense kernels at the tinyllama-1.1b width (M=4, B=4, S=1024,
               C=32, D=2048, H=32, KVH=4, hd=64, F=5632, V=32000), the sLSTM
@@ -59,7 +59,13 @@ non-zero before the result line is printed):
               (bit for bit against the gathered copy), the co-resident
               cluster count of each plan; the decode layer's wgmma path at
               M=4 x B=4 and at B=12 (wgmma N 16), its weights' tensor maps
-              encoded once;
+              encoded once; the tenth slice's redesigns, each twice and bit
+              for bit: the decode attention at the hymba-1.5b width (8
+              splits over a cluster) with kv_len on both sides of every
+              split boundary and NaN in every slot past kv_len (bit for
+              bit), bf16 and f32; the chunkwise mLSTM at hd 1024 in one
+              chunk of 32 (64 lanes), one and two chunks of 128 and four of
+              64, bf16 and f32;
 4. serve   -- three main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
               the full tinyllama-1.1b config (dense: decode layer, chunk
@@ -127,7 +133,10 @@ non-zero before the result line is printed):
               attention at hymba-1.5b, M=4; the merged matmul also and
               the group RMS norm at bert-base, M=32), every launch counter
               set to 0 just before and read just after: the three kernels
-              of this path must have launched;
+              of this path must have launched; one call of the decode
+              attention runs exactly one device kernel, of the mLSTM (one
+              and four chunks) exactly two (torch.profiler, in a fresh
+              process);
 11. times  -- each kernel, its plain version and, where one PyTorch call
               computes the same function, that call (SDPA for chunk and
               decode attention, ``torch.bmm`` for the merged matmul) timed
@@ -140,7 +149,10 @@ non-zero before the result line is printed):
               kernel, beside SDPA's and ``torch.bmm``'s timed the same way;
               the whole decode layer and both sLSTM shapes (two copies of
               r rotating, so r loads from HBM as in serving) also as device
-              time.  Each serve path logs the tensor maps it encoded; the
+              time; the decode attention beside SDPA's device time and its
+              latency floor (an empty kernel on its grid of clusters); the
+              mLSTM's device time at the profiler shape, over four chunks
+              of 64 and two of 128.  Each serve path logs the tensor maps it encoded; the
               tinyllama serve's profile counts the decode layer's kernels
               per layer (at most 6).
 
@@ -359,10 +371,11 @@ def phase_build():
                                    rep, re.S):
             short = re.search(r"(matvec_partial_kernel|matvec_epilogue_kernel|ring_attn_kernel|"
                               r"ring_combine_kernel|logits_partial_kernel|logits_reduce_kernel|"
-                              r"chunk_attn_kernel|slstm_kernel|decode_attn_kernel|"
-                              r"decode_combine_kernel|fused_matmul_bf16|fused_matmul_f32|"
-                              r"matmul_wide|matmul_skinny|chunk_attn_tc|tc_matvec|"
-                              r"group_rms_kernel|mlstm_state_kernel|mlstm_out_kernel)(I.*?E)?", fn)
+                              r"chunk_attn_kernel|slstm_kernel|decode_attn_tc|"
+                              r"decode_attn_f32|decode_attn_floor|fused_matmul_bf16|"
+                              r"fused_matmul_f32|matmul_wide|matmul_skinny|chunk_attn_tc|"
+                              r"tc_matvec|group_rms_kernel|mlstm_gates_kernel|mlstm_state_kernel|"
+                              r"mlstm_one_chunk_kernel)(I.*?E)?", fn)
             regs = re.search(r"Used (\d+) registers", body)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
             smem = re.search(r"(\d+) bytes smem", body)
@@ -371,8 +384,9 @@ def phase_build():
                 registers=regs.group(1) if regs else "?",
                 static_smem=smem.group(1) if smem else 0,
                 spills=f"{spill.group(1)}/{spill.group(2)}" if spill else "?")
-    # the ptxas report of the four kernels redesigned for Hopper, as printed
-    for src in ("fused_matmul", "chunk_prefill_attn", "slstm_cell", "decode_layer"):
+    # the ptxas report of the six kernels redesigned for Hopper, as printed
+    for src in ("fused_matmul", "chunk_prefill_attn", "slstm_cell", "decode_layer",
+                "decode_attn", "mlstm_chunk"):
         for line in reports.get(src, "").splitlines():
             if re.search(r"Compiling entry|Used \d+ registers|spill", line):
                 print(f"[ptxas] {src}.cu: {line.strip()}", flush=True)
@@ -498,6 +512,7 @@ def phase_kernels(torch, dev):
     errs.update(phase_kernel_cases(torch, dev))
     errs.update(sharded_attn_cases(torch, dev))
     errs.update(sharded_matmul_cases(torch, dev))
+    errs.update(attn_mlstm_cases(torch, dev))
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
@@ -834,6 +849,63 @@ def sharded_matmul_cases(torch, dev):
     return errs
 
 
+def attn_mlstm_cases(torch, dev):
+    """The two kernels redesigned in the tenth slice against their plain
+    versions, each case twice and bit for bit.  The decode attention at
+    the hymba-1.5b width (S 1536, 8 splits over a cluster), bf16 and f32,
+    with kv_len at 1, S and on both sides of every split boundary, and
+    with NaN in every slot past kv_len (bit for bit: those slots are never
+    read).  The chunkwise mLSTM at hd 1024: the profiler's one chunk of 32
+    (64 lanes), xlstm-1.3b's reference chunk of 128 in one chunk and over
+    two, four chunks of 64 (C kept in registers over the chunks, clusters
+    of 8 blocks); bf16 and f32."""
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import mlstm_chunk as ml
+
+    errs = {}
+    for dtn in ("bfloat16", "float32"):
+        dt = getattr(torch, dtn)
+        q, k, v, kv_len = decode_attn_inputs(torch, dev, dt, 16)
+        plan = da.launch_plan(M * B, YS, YH, YKVH, HD, dtn)
+        starts = [a for a, _ in plan.ranges[1:]]
+        edges = [1, YS, starts[-1]] + [x for a in starts[:4] for x in (a - 1, a, a + 1)]
+        kv_len.view(-1)[:len(edges)] = torch.tensor(edges, dtype=torch.int32)
+        got = da.decode_attention_cuda(q, k, v, kv_len)
+        again = da.decode_attention_cuda(q, k, v, kv_len)
+        want = da.decode_attention_plain(q, k, v, kv_len)
+        mask = torch.arange(YS, device=dev) >= kv_len[..., None]
+        k[mask], v[mask] = float("nan"), float("nan")
+        poisoned = da.decode_attention_cuda(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        key = f"decode_attention/tc/{dtn}/S{YS}/G5/splits{plan.splits}/edges"
+        assert e <= TOL[dtn] and torch.equal(got, again), f"{key}: {e}"
+        assert torch.equal(got, poisoned), f"{key}: NaN past kv_len changed the output"
+        errs[key] = e
+        errs[key + "/nan_past_kv_len_bit_identical"] = 0.0
+        del q, k, v
+    for i, (m, b, h, s, hd, chunk) in enumerate(((4, 4, 4, 32, 1024, 32), (1, 1, 4, 128, 1024, 128),
+                                                 (1, 1, 4, 256, 1024, 128),
+                                                 (1, 1, 4, 256, 1024, 64))):
+        for dtn in ("bfloat16", "float32"):
+            dt = getattr(torch, dtn)
+            q, k, v, lf, li = mlstm_inputs(torch, dev, dt, m, b, h, s, hd, 25 + i)
+            plan = ml.launch_plan(m * b * h, s, hd, ml.chunk_size(s, chunk), dtn)
+            gh, gst = ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=chunk)
+            gh2, gst2 = ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=chunk)
+            wh, wst = ml.mlstm_chunkwise_plain(q, k, v, lf, li, chunk=chunk)
+            torch.cuda.synchronize()
+            e = max(rel_err(gh, wh), *(rel_err(a, w_) for a, w_ in zip(gst, wst)))
+            same = torch.equal(gh, gh2) and all(torch.equal(a, b_) for a, b_ in zip(gst, gst2))
+            key = (f"mlstm_chunkwise/tc/{dtn}/({m},{b},{h},{s},{hd})/chunk{chunk}"
+                   f"/pass1x{plan.kcluster}/blocks{plan.grid2[0]}x{plan.grid2[1]}"
+                   + ("/resident" if plan.resident else ""))
+            assert gh.dtype == dt and e <= TOL[dtn] and same, f"{key}: {e}, bit-identical {same}"
+            errs[key] = e
+            del q, k, v, gh, gh2, wh, gst, gst2, wst
+    return errs
+
+
 def mlstm_inputs(torch, dev, dt, m, b, h, s, hd, seed, ends=None):
     """q, k, v (m,b,h,s,hd) and the f32 gates (log-forget from a
     log-sigmoid, input gate N(0,1)); lanes listed in ``ends`` take
@@ -1030,7 +1102,55 @@ def phase_profile(torch, dev):
     for name in ("fused_matmul", "group_rms_norm", "mlstm_chunkwise"):
         assert launches[name] > 0, f"{name} was never launched by the profiler"
     log("profile", launches=json.dumps(launches).replace(" ", ""))
+    # the tenth slice's kernels: the decode attention one kernel per wrapper
+    # call (no combine pass), the mLSTM two (w and the gates, then the
+    # state).  Counted by torch.profiler in a fresh process: in this one,
+    # after the earlier phases' profiler sessions, a session has recorded
+    # no device event for these calls (the serve and paper profiles above
+    # do record them)
+    out = subprocess.run([sys.executable, "-c", KERNELS_PER_CALL], capture_output=True,
+                         text=True, timeout=300, cwd=HERE)
+    assert out.returncode == 0, out.stderr[-2000:]
+    for name, names in json.loads(out.stdout.strip().splitlines()[-1]).items():
+        want = 2 if name.startswith("mlstm") else 1
+        log("profile", wrapper=name, kernels_per_call=len(names),
+            names=",".join(sorted({n[:40] for n in names})) or "none recorded")
+        assert len(names) in (0, want), f"{name}: {names}"
     return launches
+
+
+# The device kernels one call of each tenth-slice wrapper runs:
+# torch.profiler's per-kernel counts over 8 calls, after a warm-up call
+# (a JSON object, wrapper -> kernel names, on the last line).
+KERNELS_PER_CALL = """
+import json, os, sys
+sys.path.insert(0, os.path.join(os.getcwd(), "src"))
+sys.path.insert(0, os.getcwd())
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from repro_torch.kernels import decode_attn as da
+from repro_torch.kernels import mlstm_chunk as ml
+dev, bf16 = torch.device("cuda"), torch.bfloat16
+attn_in = cs.decode_attn_inputs(torch, dev, bf16, 40, lens=(144, 673))
+one = cs.mlstm_inputs(torch, dev, bf16, 4, 4, 4, 32, 1024, 41)
+multi = cs.mlstm_inputs(torch, dev, bf16, 4, 1, 4, 256, 1024, 42)
+calls = {"decode_attention": lambda: da.decode_attention_cuda(*attn_in),
+         "mlstm_chunkwise": lambda: ml.mlstm_chunkwise_cuda(*one, chunk=32),
+         "mlstm_chunkwise/4x64": lambda: ml.mlstm_chunkwise_cuda(*multi, chunk=64)}
+res = {}
+for name, fn in calls.items():
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if cs.device_us(e) > 0]
+    assert all(e.count % 8 == 0 for e in ev), [(e.key, e.count) for e in ev]
+    res[name] = [e.key for e in ev for _ in range(e.count // 8)]
+print(json.dumps(res))
+"""
 
 
 def make_server(torch, dev, cfg, seed, **kw):
@@ -1900,16 +2020,25 @@ def phase_times(torch, dev, by_path, profile_launches):
         *lib_in[i % 8][:3], attn_mask=lib_in[i % 8][3], enable_gqa=True)
     assert abs_err(lib(0).reshape(M, B, YH, HD), want) < 0.05
     library = time_ms(torch, lambda: lib(next(it)))
+    library_device = time_queued_ms(torch, lambda: lib(next(it)))
+    # the latency floor: an empty kernel on the same grid of clusters
+    plan = da.launch_plan(M * B, YS, YH, YKVH, HD)
+    floor = time_queued_ms(torch, lambda: da.launch_floor(plan, dev))
     valid = kv_len.sum().item()
     nbytes = 2 * M * B * YH * HD * 2 + valid * YKVH * HD * 2 * 2 + M * B * 4
     bms, by = bound_ms(nbytes, 4 * YH * HD * valid, "bfloat16")
+    log("times", name="decode_attention", shape=f"M={M},B={B},S={YS},H={YH},KVH={YKVH} bf16",
+        ms=f"{ms:.4f}", device_ms=f"{device_ms:.4f}", library_ms=f"{library:.4f}",
+        library_device_ms=f"{library_device:.4f}", floor_device_ms=f"{floor:.4f}",
+        bound_ms=f"{bms:.4f}", splits=plan.splits, of_bound=f"{bms / device_ms:.1%}")
     rows.append(dict(name="decode_attention", route="cuda",
                      source="src/repro_torch/csrc/decode_attn.cu",
                      replaces="src/repro/kernels/decode_attn.py:25",
                      launches=launches["decode_attention"],
                      launches_by_path=per_path("decode_attention"), max_abs_err=err, ms=ms,
                      plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=library,
-                     device_ms=device_ms))
+                     device_ms=device_ms, library_device_ms=library_device,
+                     floor_device_ms=floor, library="SDPA, the prefix mask, GQA"))
     del sets, lib_in
 
     rows += new_time_rows(torch, dev, profile_launches)
@@ -2036,17 +2165,41 @@ def new_time_rows(torch, dev, launches):
     err = max(abs_err(a, w_) for a, w_ in zip((gh,) + gst, (wh,) + wst))
     del gh, gst, wh, wst
     ms = time_ms(torch, lambda: ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=32), reps=10)
+    device_ms = time_queued_ms(torch, lambda: ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=32))
     plain = time_ms(torch, lambda: ml.mlstm_chunkwise_plain(q, k, v, lf, li, chunk=32), reps=5)
-    lanes, s, hd = 64, 32, 1024
-    nbytes = (3 * q.numel() * 2 + 2 * lf.numel() * 4 + q.numel() * 2
-              + lanes * (hd * hd + hd + 1) * 4)
-    bms, by = bound_ms(nbytes, kp.mlstm_chunkwise_flops(lanes, s, hd, 32), "float32")
+
+    def mlstm_bound(lanes, s, hd, cs):
+        # q, k, v and h in bf16, the gates and the final C, n, m in f32
+        nbytes = 4 * lanes * s * hd * 2 + 2 * lanes * s * 4 + lanes * (hd * hd + hd + 1) * 4
+        return bound_ms(nbytes, kp.mlstm_chunkwise_flops(lanes, s, hd, cs), "bfloat16")
+
+    bms, by = mlstm_bound(64, 32, 1024, 32)
+    # beside it: four chunks of 64 and xlstm-1.3b's reference chunk of 128
+    # over two chunks (C kept in registers over the chunks)
+    extra = {}
+    for tag, (s_, cs) in (("4x64", (256, 64)), ("2x128", (256, 128))):
+        q2, k2, v2, lf2, li2 = mlstm_inputs(torch, dev, bf16, 4, 1, 4, s_, 1024, 43)
+        e2 = abs_err(ml.mlstm_chunkwise_cuda(q2, k2, v2, lf2, li2, chunk=cs)[0],
+                     ml.mlstm_chunkwise_plain(q2, k2, v2, lf2, li2, chunk=cs)[0])
+        d2 = time_queued_ms(torch, lambda: ml.mlstm_chunkwise_cuda(q2, k2, v2, lf2, li2,
+                                                                   chunk=cs))
+        b2, by2 = mlstm_bound(16, s_, 1024, cs)
+        extra.update({f"chunks{tag}_device_ms": d2, f"chunks{tag}_bound_ms": b2,
+                      f"chunks{tag}_bound_by": by2, f"chunks{tag}_max_abs_err": e2})
+        log("times", name="mlstm_chunkwise", shape=f"qkv (4,1,4,{s_},1024) bf16, chunk {cs}",
+            device_ms=f"{d2:.4f}", bound_ms=f"{b2:.4f}", bound_by=by2,
+            of_bound=f"{b2 / d2:.1%}")
+        del q2, k2, v2, lf2, li2
+    log("times", name="mlstm_chunkwise", shape="qkv (4,4,4,32,1024) bf16, chunk 32",
+        ms=f"{ms:.4f}", device_ms=f"{device_ms:.4f}", bound_ms=f"{bms:.4f}", bound_by=by,
+        of_bound=f"{bms / device_ms:.1%}")
     rows.append(dict(name="mlstm_chunkwise", route="cuda", source="src/repro_torch/csrc/mlstm_chunk.cu",
                      replaces="src/repro/kernels/mlstm_chunk.py:29",
                      launches=launches["mlstm_chunkwise"], max_abs_err=err, ms=ms,
-                     plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
+                     device_ms=device_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                     library_ms=None,
                      library="none: no one PyTorch call computes the chunkwise scan",
-                     shape="qkv (4,4,4,32,1024) bf16, chunk 32"))
+                     shape="qkv (4,4,4,32,1024) bf16, chunk 32", **extra))
     return rows
 
 

@@ -39,6 +39,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -240,43 +241,6 @@ constexpr int TKEYS = 64;       // keys per tile
 constexpr int TTHREADS = 128;
 constexpr int MAX_SPLITS = 8;   // blocks of a cluster (the portable limit)
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared, asynchronously; zero-filled (nothing read)
-// where !ok
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-// d (16 x 8, f32) += a (16 x 16, bf16) b (16 x 8, bf16)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // Block (split sp of row block rb, kv head kh, lane): query rows r0 .. r0 +
 // 64 of the C*G rows (C-major over G), warp w the 16 at r0 + 16w; key tiles
 // [ta, tb) of the S + C keys (csrc and chunk_prefill_attn.py's
@@ -354,8 +318,8 @@ chunk_attn_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       const bool ok = j < T_all;
       const size_t o = ok ? ((lane * T_all + j) * KVH + kh) * (size_t)hd + d0 : 0;
       const int so = (buf * TKEYS + jj) * RS + d0;
-      cp16(saddr(ks + so), k + o, ok);
-      cp16(saddr(vs + so), v + o, ok);
+      cp_async16(saddr(ks + so), k + o, ok);
+      cp_async16(saddr(vs + so), v + o, ok);
     }
   };
 
@@ -380,7 +344,7 @@ chunk_attn_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
       const bool ok = rr < nrow;
       const int c = ok ? row / G : 0, g = ok ? row - c * G : 0;
       const size_t src = ok ? ((lane * C + c) * H + kh * G + g) * (size_t)hd + d0 : 0;
-      cp16(saddr(qs + rr * RS + d0), q + src, ok);
+      cp_async16(saddr(qs + rr * RS + d0), q + src, ok);
     }
     load_kv(0, cur);
     cp_commit();
@@ -474,12 +438,7 @@ chunk_attn_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
                                {s[2 * kk + 1][0], s[2 * kk + 1][1]},
                                {s[2 * kk + 1][2], s[2 * kk + 1][3]}};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const __nv_bfloat162 h = __floats2bfloat162_rn(f[i][0], f[i][1]);
-          const float2 hf = __bfloat1622float2(h);
-          ph[i] = *reinterpret_cast<const uint32_t*>(&h);
-          pl[i] = pack2(f[i][0] - hf.x, f[i][1] - hf.y);
-        }
+        for (int i = 0; i < 4; ++i) split2(f[i][0], f[i][1], ph[i], pl[i]);
 #pragma unroll
         for (int dp = 0; dp < HDP / 16; ++dp) {
           uint32_t b[4];

@@ -18,13 +18,58 @@ kernel on that block.
 """
 from __future__ import annotations
 
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.chunk_prefill_attn import split_ranges
 
 NEG_INF = -1e30
+# csrc/decode_attn.cu: slots per tile, most splits (CTAs of a cluster),
+# query heads per kv head (one mma fragment's rows), head_dim
+TILE, MAX_SPLITS, MAX_G, MAX_HD = 64, 8, 16, 128
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: the 64-slot tiles of [0, S), the CTAs (one
+    cluster) per (lane, kv head) that split a lane's valid tiles, their
+    slot ranges [a, b) in order where kv_len = S (``split_slots`` gives
+    them for any kv_len), and the grid (splits, kv heads, lanes)."""
+    tiles: int
+    splits: int
+    ranges: tuple[tuple[int, int], ...]
+    grid: tuple[int, int, int]
+
+
+def split_slots(kv_len: int, splits: int) -> list[tuple[int, int]]:
+    """The kernel's ranges for one lane: the ceil(kv_len / 64) tiles of its
+    valid prefix split into ``splits`` contiguous ranges (split s: tiles
+    [s n // splits, (s + 1) n // splits)), as slots clipped to kv_len; a
+    split with no tile gets an empty range."""
+    n = math.ceil(kv_len / TILE)
+    return [(min(a * TILE, kv_len), min(b * TILE, kv_len)) for a, b in split_ranges(n, splits)]
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(lanes: int, s: int, h: int, kvh: int, hd: int,
+                dtype: str = "bfloat16") -> Plan:
+    """The launch of ``csrc/decode_attn.cu`` (bf16 and f32 alike): clusters
+    of min(ceil(S / 64), 8) CTAs.  The split count reads S alone, not the
+    lanes or the card, and the ranges a lane's kv_len alone, so a lane's
+    output never depends on M, B or K.  Raises on a shape the kernel does
+    not take."""
+    if dtype not in ("bfloat16", "float32"):
+        raise ValueError(f"the kernel takes float32 or bfloat16, not {dtype}")
+    if s < 1 or kvh < 1 or h % kvh or h // kvh > MAX_G or hd > MAX_HD or hd % 8 or hd < 8:
+        raise ValueError(f"the kernel takes head_dim <= {MAX_HD} in multiples of 8 and at most "
+                         f"{MAX_G} query heads per kv head, not hd={hd}, H={h}, KVH={kvh}")
+    tiles = math.ceil(s / TILE)
+    splits = min(tiles, MAX_SPLITS)
+    return Plan(tiles, splits, tuple(split_slots(s, splits)), (splits, kvh, lanes))
 
 
 def _check(q, k, v, kv_len):
@@ -71,27 +116,37 @@ def decode_attention_plain(q, k, v, kv_len):
     return o.reshape(m, b, h, hd).to(q.dtype)
 
 
+@functools.cache
+def _kernel():
+    """The C entry point, resolved once."""
+    return build.entry("decode_attn", "decode_attention", "ipppppiiiiifip")
+
+
 def decode_attention_cuda(q, k, v, kv_len):
     """The Hopper kernel: same contract as the plain version; G = H / KVH
-    up to 16, head_dim up to 128 in multiples of 8."""
+    up to 16, head_dim up to 128 in multiples of 8.  One launch, planned
+    by :func:`launch_plan`; no scratch."""
     _check(q, k, v, kv_len)
     m, b, h, hd = q.shape
     s, kvh = k.shape[2], k.shape[3]
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or not t.is_contiguous() or t.dtype != q.dtype:
             raise ValueError(f"{name} must be a contiguous CUDA tensor of {q.dtype}")
-    if hd > 128 or hd % 8 or h // kvh > 16:
-        raise ValueError(f"the kernel takes head_dim <= 128 in multiples of 8 and at most "
-                         f"16 query heads per kv head, not hd={hd}, G={h // kvh}")
-    lens = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    plan = launch_plan(m * b, s, h, kvh, hd, str(q.dtype).removeprefix("torch."))
+    lens = kv_len
+    if lens.dtype != torch.int32 or lens.device != q.device or not lens.is_contiguous():
+        lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    scratch = build.entry("decode_attn", "decode_attention_scratch_elems", "iiiii",
-                          restype="q")
-    n_part = scratch(m * b, s, h, kvh, hd)
-    part = torch.empty(n_part, dtype=torch.float32, device=q.device)
-    fn = build.entry("decode_attn", "decode_attention", "ipppppp" + "q" + "iiiii" + "fp")
-    P = build.ptr
-    build.check(fn(build.dtype_code(q), P(q), P(k), P(v), P(lens), P(out), P(part), n_part,
-                   m * b, s, h, kvh, hd, math.sqrt(hd), build.stream_ptr(q)),
-                "decode_attention")
+    build.check(_kernel()(build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          lens.data_ptr(), out.data_ptr(), m * b, s, h, kvh, hd, math.sqrt(hd),
+                          plan.splits, build.stream_ptr(q)), "decode_attention")
     return out
+
+
+def launch_floor(plan: Plan, device) -> None:
+    """One launch of an empty kernel on ``plan``'s grid and cluster shape:
+    the latency floor the kernel is measured against (its device time
+    queued behind other work).  Not on any path of the port."""
+    fn = build.entry("decode_attn", "decode_attention_floor", "iiip")
+    build.check(fn(plan.splits, plan.grid[1], plan.grid[2],
+                   torch.cuda.current_stream(device).cuda_stream), "decode_attention_floor")

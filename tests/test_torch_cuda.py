@@ -242,6 +242,35 @@ def test_decode_attention_kernel(dev, dt, h, kvh, hd, s):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,hd,s", [(25, 5, 64, 1536), (5, 5, 64, 700), (16, 1, 32, 1000),
+                                        (3, 1, 128, 129)])
+def test_decode_attention_kernel_split_edges(dev, dt, h, kvh, hd, s):
+    """kv_len at 1, S and on both sides of every split boundary of the
+    launch plan (a split ending at kv_len, one starting at kv_len and
+    loading nothing): one launch, within tolerance, bit for bit twice and
+    with NaN in every slot past kv_len."""
+    plan = da.launch_plan(1, s, h, kvh, hd, str(dt).removeprefix("torch."))
+    lens = sorted({1, s} | {x for a, _ in plan.ranges[1:] for x in (a - 1, a, a + 1)})
+    g = torch.Generator(device=dev).manual_seed(17)
+    n = len(lens)
+    q = torch.randn(n, 1, h, hd, generator=g, device=dev).to(dt)
+    k = torch.randn(n, 1, s, kvh, hd, generator=g, device=dev).to(dt)
+    v = torch.randn(n, 1, s, kvh, hd, generator=g, device=dev).to(dt)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)[:, None]
+    ops.reset_launches()
+    got = ops.decode_attention(q, k, v, kv_len)
+    again = ops.decode_attention(q, k, v, kv_len)
+    want = da.decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert ops.launches()["decode_attention"] == 2
+    assert got.dtype == dt and _err(got, want) <= _tol(dt) and torch.equal(got, again)
+    mask = torch.arange(s, device=dev)[None, None] >= kv_len[..., None]
+    k2, v2 = k.clone(), v.clone()
+    k2[mask], v2[mask] = float("nan"), float("nan")
+    assert torch.equal(ops.decode_attention(q, k2, v2, kv_len), got)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,kvh,n", [(25, 5, 2), (25, 5, 5), (25, 5, 25), (4, 2, 4),
                                      (12, 3, 2)])
 def test_decode_attention_sharded_kernel(dev, dt, h, kvh, n):
@@ -429,12 +458,16 @@ def _mlstm_inputs(dev, dt, m, b, h, s, hd, seed=2, ends=None):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,b,h,s,hd,chunk", [(2, 1, 2, 32, 1024, 32), (1, 2, 3, 256, 128, 64),
-                                              (1, 1, 1, 24, 64, 16), (2, 2, 2, 40, 64, 8)])
+                                              (1, 1, 1, 24, 64, 16), (2, 2, 2, 40, 64, 8),
+                                              (1, 1, 2, 256, 1024, 64), (1, 1, 2, 256, 1024, 128),
+                                              (2, 1, 2, 128, 512, 128), (1, 1, 1, 300, 128, 100)])
 def test_mlstm_chunkwise_kernel(dev, dt, m, b, h, s, hd, chunk):
     """h and the final C, n, m against the plain version: xlstm-1.3b's
     hd=1024 in one chunk, hd=128 over four chunks of 64, a chunk of 16
-    clamped to 12 on S=24 (not a multiple of the kernels' 16-row thread
-    grid), five chunks of 8."""
+    clamped to 12 on S=24 (not a multiple of the tensor cores' 16 rows),
+    five chunks of 8; hd=1024 over four chunks of 64 and two of 128 (C
+    kept in registers over the chunks, clusters of 8 blocks), xlstm-1.3b's
+    reference chunk of 128 in one chunk, three chunks of 100."""
     q, k, v, lf, li = _mlstm_inputs(dev, dt, m, b, h, s, hd)
     gh, gst = ml.mlstm_chunkwise_cuda(q, k, v, lf, li, chunk=chunk)
     wh, wst = ml.mlstm_chunkwise_plain(q, k, v, lf, li, chunk=chunk)

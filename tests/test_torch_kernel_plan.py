@@ -1,7 +1,8 @@
 """The launch plans of the port's Hopper kernels, on the CPU: pure
 functions of the shapes (``fused_matmul.launch_plan``,
 ``chunk_prefill_attn.launch_plan``, ``slstm_cell.launch_plan``,
-``decode_layer.matvec_plan``) that decide the kernel variant, the split
+``decode_layer.matvec_plan``, ``decode_attn.launch_plan``,
+``mlstm_chunk.launch_plan``) that decide the kernel variant, the split
 of the reduction over blocks, the grid, what stays on chip and the
 scratch.  Checked here: the blocks cover every output element exactly
 once, the splits cover the reduction exactly once and in a fixed order,
@@ -17,8 +18,10 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import chunk_prefill_attn as cpa
+from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import decode_layer as dl
 from repro_torch.kernels import fused_matmul as fm
+from repro_torch.kernels import mlstm_chunk as ml
 from repro_torch.kernels import slstm_cell as sc
 
 SMS = 132
@@ -161,6 +164,150 @@ def test_chunk_plan_serving_shapes():
     half of the 132 SMs), 320 after; hymba's: 60, then 300."""
     assert cpa.launch_plan(4, 32, 32, 4, 64, 1024).grid == (20, 4, 4)
     assert cpa.launch_plan(4, 32, 25, 5, 64, 1152).grid == (15, 5, 4)
+
+
+# ---------------------------------------------------------------------------
+# the decode attention's plan: the slots' split over a cluster
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s", [1, 129, 1536])
+@pytest.mark.parametrize("g", [1, 5, 16])
+def test_decode_attn_plan_ranges_cover_slots_once(s, g):
+    """The splits' slot ranges cover [0, S) exactly once and in order, each
+    non-empty and starting on a 64-slot tile; at most 8 splits, one per
+    tile at most; the grid is (splits, kv heads, lanes)."""
+    kvh = 5
+    for dtype in ("bfloat16", "float32"):
+        p = da.launch_plan(16, s, g * kvh, kvh, 64, dtype)
+        assert p.tiles == math.ceil(s / da.TILE)
+        assert 1 <= p.splits <= min(p.tiles, da.MAX_SPLITS) and len(p.ranges) == p.splits
+        slots = []
+        for a, b in p.ranges:
+            assert a < b and a % da.TILE == 0
+            slots += range(a, b)
+        assert slots == list(range(s))
+        assert p.grid == (p.splits, kvh, 16)
+
+
+@pytest.mark.parametrize("s", [1, 129, 1536])
+def test_decode_attn_split_slots_cover_the_valid_prefix_once(s):
+    """For every kv_len the splits' ranges cover [0, kv_len) exactly once
+    and in order, in whole 64-slot tiles (the last clipped to kv_len), and
+    the busiest split holds at most ceil(tiles / splits) tiles."""
+    splits = da.launch_plan(16, s, 25, 5, 64).splits
+    for kv_len in sorted({1, 2, 63, 64, 65, 128, 129, 191, 192, 193, 672, s} & set(range(1, s + 1))):
+        ranges = da.split_slots(kv_len, splits)
+        assert len(ranges) == splits
+        slots = []
+        for a, b in ranges:
+            assert a <= b and (a == b or a % da.TILE == 0)
+            slots += range(a, b)
+        assert slots == list(range(kv_len))
+        n = math.ceil(kv_len / da.TILE)
+        assert max(math.ceil((b - a) / da.TILE) for a, b in ranges) == math.ceil(n / splits)
+
+
+@pytest.mark.parametrize("s", [1, 64, 129, 1536, 4096])
+def test_decode_attn_plan_split_count_reads_no_lane_count(s):
+    """A lane's output depends on its own q, k, v, kv_len and S only: the
+    split count is the same for any M, B (so for K=1 and K=8 steps and any
+    TP rank's block of heads) and either dtype."""
+    plans = {(m, b, h, kvh, dt): da.launch_plan(m * b, s, h, kvh, 64, dt)
+             for m in (1, 2, 4, 8) for b in (1, 4, 16)
+             for h, kvh in ((25, 5), (5, 1), (1, 1), (16, 1))
+             for dt in ("bfloat16", "float32")}
+    assert len({(p.splits, p.ranges) for p in plans.values()}) == 1
+
+
+def test_decode_attn_plan_serving_shapes():
+    """hymba-1.5b's serve (16 lanes, S 1536): clusters of 8 over its 5 kv
+    heads, and the same for each TP plan's rank block (None: 25 / 5 heads,
+    "kv": 5 / 1, "expand": 1 / 1); at the served lengths (kv_len 144-672)
+    no split holds more than 2 of the 64-slot tiles."""
+    for h, kvh in ((25, 5), (5, 1), (1, 1)):
+        p = da.launch_plan(16, 1536, h, kvh, 64)
+        assert p.splits == 8 and p.grid == (8, kvh, 16)
+        assert p.ranges == tuple((192 * i, 192 * (i + 1)) for i in range(8))
+    assert max(b - a for n in range(144, 673) for a, b in da.split_slots(n, 8)) == 2 * da.TILE
+
+
+@pytest.mark.parametrize("h,kvh,hd", [(17, 1, 64), (25, 5, 136), (4, 2, 12), (5, 2, 64)])
+def test_decode_attn_plan_refuses_what_the_kernel_does_not_take(h, kvh, hd):
+    with pytest.raises(ValueError):
+        da.launch_plan(4, 300, h, kvh, hd)
+
+
+# ---------------------------------------------------------------------------
+# the chunkwise mLSTM's plan: pass 1 over (lane, chunk), pass 2's blocks of C
+# ---------------------------------------------------------------------------
+
+MLSTM_SHAPES = [
+    # (lanes, S, hd, chunk): xlstm-1.3b's profiler shape, the multi-chunk
+    # A/B shape, xlstm-1.3b's reference chunk 128 (one and two chunks), the
+    # CUDA tests' shapes
+    (64, 32, 1024, 32), (16, 256, 1024, 64), (16, 256, 1024, 128), (4, 128, 1024, 128),
+    (2, 128, 512, 128), (4, 256, 128, 64), (1, 24, 64, 12), (1, 8, 64, 4), (8, 40, 64, 8),
+    (4, 32, 1024, 32), (6, 24, 64, 12), (3, 384, 512, 96), (1, 300, 128, 100), (2, 64, 192, 32),
+]
+
+
+@pytest.mark.parametrize("lanes,s,hd,cs", MLSTM_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mlstm_plan_blocks_cover_c_once(lanes, s, hd, cs, dtype):
+    """Pass 2: each element of a lane's C (and so each strip's columns and
+    each CTA's rows) belongs to exactly one CTA of the grid (hd / rows,
+    hd / strip, lanes), in blocks the warps split evenly; pass 1: its
+    cluster's CTAs cover hd once in whole pieces, one grid row per chunk."""
+    p = ml.launch_plan(lanes, s, hd, cs, dtype)
+    assert p.grid2 == (hd // p.rows, p.groups, lanes) and p.grid2[0] <= ml.MAX_CLUSTER
+    assert p.groups == hd // p.strip or not p.resident
+    owner = np.zeros((hd, hd), dtype=int)
+    for r in range(p.grid2[0]):
+        for g in range(p.groups):
+            for y in range(g, hd // p.strip, p.groups):      # CTA (r, g)'s strips
+                owner[r * p.rows:(r + 1) * p.rows, y * p.strip:(y + 1) * p.strip] += 1
+    assert (owner == 1).all()
+    assert p.rows in (64, 128) and (p.rows // 16) in (4, 8)
+    assert p.grid1 == (p.kcluster, s // cs, lanes) and p.kcluster <= ml.MAX_CLUSTER
+    share = hd // p.kcluster
+    assert share * p.kcluster == hd and share % ml.TILES[dtype][0] == 0
+    assert p.resident == (s // cs > 1)
+
+
+@pytest.mark.parametrize("lanes,s,hd,cs", MLSTM_SHAPES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mlstm_plan_fits_shared_memory(lanes, s, hd, cs, dtype):
+    """Both passes' CTAs stay within the 227 KB a block may use, with the
+    sums the kernel carves; the record holds w and the gates."""
+    p = ml.launch_plan(lanes, s, hd, cs, dtype)
+    assert (p.smem1, p.smem2) == ml.smem_bytes(cs, hd, p.rows, p.resident, dtype)
+    assert max(p.smem1, p.smem2) <= 227 * 1024
+    csp = 16 * math.ceil(cs / 16)
+    assert p.record == csp * csp + 4 * csp + 4
+
+
+def test_mlstm_plan_chunk_128_and_serving_shapes():
+    """xlstm-1.3b's reference chunk (128) runs, in one chunk and over two;
+    the profiler's one chunk of 32 at hd 1024: pass 1 a cluster of 8 per
+    lane, pass 2 one CTA per block of 128 rows walking its 16 strips (512
+    CTAs, two waves' worth of 132 SMs already); the multi-chunk A/B shape
+    keeps C over clusters of 8."""
+    assert ml.launch_plan(16, 256, 1024, 128).grid2 == (8, 16, 16)
+    assert not ml.launch_plan(16, 128, 1024, 128).resident
+    p = ml.launch_plan(64, 32, 1024, 32)
+    assert not p.resident and p.grid1 == (8, 1, 64) and p.grid2 == (8, 1, 64)
+    assert ml.launch_plan(4, 32, 1024, 32).grid2 == (8, 9, 4)      # 2 x 132 / 32 blocks
+    p = ml.launch_plan(16, 256, 1024, 64)
+    assert p.resident and p.grid1 == (8, 4, 16) and p.grid2 == (8, 16, 16)
+
+
+@pytest.mark.parametrize("lanes,s,hd,cs", [(4, 258, 1024, 129), (4, 256, 96, 64),
+                                           (4, 100, 128, 64), (70000, 32, 64, 32),
+                                           (2, 256, 2048, 128), (2, 64, 576, 32)])
+def test_mlstm_plan_refuses_what_the_kernel_does_not_take(lanes, s, hd, cs):
+    with pytest.raises(ValueError):
+        ml.launch_plan(lanes, s, hd, cs)
 
 
 # ---------------------------------------------------------------------------

@@ -240,11 +240,13 @@ def test_group_rms_norm_plain_matches_ref(m, t, d):
                                **TOL)
 
 
-@pytest.mark.parametrize("s,chunk,padded", [(16, 16, False), (24, 8, True), (20, 8, False)])
+@pytest.mark.parametrize("s,chunk,padded", [(16, 16, False), (24, 8, True), (20, 8, False),
+                                            (256, 128, True)])
 def test_mlstm_chunkwise_plain_matches_ref(s, chunk, padded):
     """h and the final (C, n, m) against ``ref.mlstm_chunkwise`` from zero
-    state, one or several chunks (chunk 8 on S=20 clamps to 5), with
-    gate-neutral padded steps (input -1e30, forget 0) in one lane."""
+    state, one or several chunks (chunk 8 on S=20 clamps to 5; two chunks
+    of 128, xlstm-1.3b's reference chunk), with gate-neutral padded steps
+    (input -1e30, forget 0) in one lane."""
     rng = np.random.default_rng(24)
     m, b, h, hd = 2, 2, 2, 8
     q, k, v = (rng.standard_normal((m, b, h, s, hd)).astype(np.float32) for _ in range(3))
