@@ -14,20 +14,23 @@ ROOT is the root of the checkout whose ``src/repro_torch`` is imported
 once per version, alternating (parent, change, change, parent).  Every
 wrapper timed here has the same Python contract in both versions.
 
-- The merged matmul at four shapes, bf16 and f32, with bias: 10 warm-up
+- The merged matmul at six shapes (two of them olmoe-1b-7b's expert
+  products and one instance of a skinny shape), bf16 and f32, with bias: 10 warm-up
   calls, then 200 back to back timed with CUDA events, 8 weight sets
   rotating so that w comes from HBM.
 - The chunk attention at tinyllama-1.1b's serve shape (4 lanes, C=32,
-  S=1024, 32/4 heads, hd 64, offsets 0/96/256/480) and at hymba-1.5b's
-  SWA geometry (25/5 heads, S=1152, pin 128, window 1024, sink 128),
+  S=1024, 32/4 heads, hd 64, offsets 0/96/256/480; and one lane alone)
+  and at hymba-1.5b's SWA geometry (25/5 heads, S=1152, pin 128, window
+  1024, sink 128),
   bf16 and f32: 16 input sets rotating, 200 calls.
 - The sLSTM cell at xlstm-1.3b's width (4 heads of 512, r in f32): a
   prefill chunk (4 lanes, S=32) and a decode step (M=4 x B=4, S=1), pre
   and h in bf16 and in f32; 2 input sets rotating, so r comes from HBM
   at every call as in a serve.
-- The dense decode layer at tinyllama-1.1b's width (M=4, B=4, ring of
-  1024, positions inside the prompts' range): the whole layer, bf16 and
-  f32, and a TP=2 rank's attention and FFN phases (16/2 heads, F 2816),
+- The dense decode layer at tinyllama-1.1b's width (B=4, ring of 1024,
+  positions inside the prompts' range): the whole layer at M=4, at a 2x1
+  data rank's M=2 and at M=1, bf16 and f32, and a TP=2 rank's attention
+  and FFN phases at M=4 (16/2 heads, F 2816),
   bf16 and f32; 4 weight sets rotating.
 - The decode attention at hymba-1.5b's serve shape (M=4 x B=4 lanes, S
   1536, 25 / 5 heads of 64, kv_len in [144, 673), the TP=2 rank's shape
@@ -54,7 +57,7 @@ wrapper timed here has the same Python contract in both versions.
 Prints one line ``AB {"tag": ..., "ms": {...}, "device_ms": {...},
 "library_ms": {...}, "library_device_ms": {...}, "rate_tb_s": {...}}``,
 keys ``matmul/MxTxDxF/dtype``, ``chunk/NAME/dtype``,
-``slstm/prefill|decode/dtype``, ``decode_layer/layer|attn_tp2|ffn_tp2/dtype``,
+``slstm/prefill|decode/dtype``, ``decode_layer/layer|layer_m2|layer_m1|attn_tp2|ffn_tp2/dtype``,
 ``decode_attn/hymba|kv_tp5|expand_tp25/dtype``, ``floor/decode_attn``,
 ``mlstm/profiler|multichunk/dtype`` and ``l2``/``hbm``.
 """
@@ -66,15 +69,21 @@ import math
 import os
 import sys
 
-SHAPES = ((4, 4, 2048, 5632), (32, 128, 768, 3072), (2, 4, 2048, 2816), (16, 128, 768, 1536))
+# (1, 4, 2048, 1024): one instance of a skinny shape; (256, 4, 2048, 1024):
+# olmoe-1b-7b's expert products at a decode step (M=4 x 64 experts)
+SHAPES = ((4, 4, 2048, 5632), (32, 128, 768, 3072), (2, 4, 2048, 2816), (16, 128, 768, 1536),
+          (1, 4, 2048, 1024), (256, 4, 2048, 1024))
 # name: (lanes, C, H, KVH, hd, s_cache, pin, window, sink, offsets)
 # the sLSTM cell: name: (rows, lanes, steps)
 SLSTM = {"prefill": (4, 1, 32), "decode": (4, 4, 1)}
-# the decode layer: name: (q heads, kv heads, d_ff) of the whole layer and
-# of a TP=2 rank's phases
-LAYERS = {"layer": (32, 4, 5632), "attn_tp2": (16, 2, 2816), "ffn_tp2": (16, 2, 2816)}
+# the decode layer: name: (instances, q heads, kv heads, d_ff) of the whole
+# layer (at M=4, a 2x1 data rank's M=2 and one instance) and of a TP=2
+# rank's phases
+LAYERS = {"layer": (4, 32, 4, 5632), "layer_m2": (2, 32, 4, 5632), "layer_m1": (1, 32, 4, 5632),
+          "attn_tp2": (4, 16, 2, 2816), "ffn_tp2": (4, 16, 2, 2816)}
 CHUNKS = {"tinyllama": (4, 32, 32, 4, 64, 1024, 0, 0, 0, (0, 96, 256, 480)),
-          "hymba_swa": (4, 32, 25, 5, 64, 1152, 128, 1024, 128, (128, 400, 900, 1500))}
+          "hymba_swa": (4, 32, 25, 5, 64, 1152, 128, 1024, 128, (128, 400, 900, 1500)),
+          "tinyllama_lanes1": (1, 32, 32, 4, 64, 1024, 0, 0, 0, (480,))}
 # the decode attention: name: (q heads, kv heads) of a call at M=4 x B=4,
 # S 1536, hd 64 (hymba-1.5b whole, as one device and a TP=2 rank run it;
 # a TP=5 rank's "kv" block; a TP=25 rank's "expand" block)
@@ -192,12 +201,12 @@ def main() -> int:
             del sets
 
     # the dense decode layer: tinyllama-1.1b's width, M = 4 x B = 4
-    for name, (h, kvh, ff) in LAYERS.items():
+    for name, (m, h, kvh, ff) in LAYERS.items():
         for dt in (torch.bfloat16, torch.float32):
             key = f"decode_layer/{name}/{str(dt).removeprefix('torch.')}"
             if not want(key):
                 continue
-            m, b, d, hd, s = 4, 4, 2048, 64, 1024
+            b, d, hd, s = 4, 2048, 64, 1024
             sets = []
             for _ in range(4):
                 r = lambda *shp, sc_=1.0: torch.randn(shp, generator=g, device=dev) * sc_
@@ -214,7 +223,7 @@ def main() -> int:
             pos = torch.randint(16, 545, (m, b), generator=g, device=dev).to(torch.int32)
             kw = dict(num_heads=h, head_dim=hd, rope_theta=10000.0)
             it = iter(range(10 ** 9))
-            if name == "layer":
+            if name.startswith("layer"):
                 fn = lambda st: dl.decode_layer_cuda(st[0], st[1], st[2], st[3], pos, **kw)
             elif name == "attn_tp2":
                 fn = lambda st: dl.decode_layer_attn_cuda(st[0], st[1], st[2], st[3], pos, **kw)

@@ -65,21 +65,45 @@ non-zero before the result line is printed):
               split boundary and NaN in every slot past kv_len (bit for
               bit), bf16 and f32; the chunkwise mLSTM at hd 1024 in one
               chunk of 32 (64 lanes), one and two chunks of 128 and four of
-              64, bf16 and f32;
-4. serve   -- three main paths, each with every launch counter set to 0
+              64, bf16 and f32; a lane's independence of its call, bit for
+              bit in bf16 (one lane alone against its row of M=4 x B=4,
+              M=2 and M=4 x B=12 calls): the decode layer at the
+              tinyllama-1.1b width, its attention phase at the
+              olmoe-1b-7b width (16 / 16 heads of 128), the chunk
+              attention at both widths (one lane against 4 and 2), the
+              merged matmul skinny (the tinyllama FFN, olmoe's 64 experts)
+              and wide (32 and 64 rows; 64 instances, whose wide tiles are
+              256 columns, against one, whose are 128);
+4. serve   -- four main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
               the full tinyllama-1.1b config (dense: decode layer, chunk
               attention, logits), on the full xlstm-1.3b config (ssm:
               sLSTM cell, logits) and on the full hymba-1.5b config
               (hybrid: chunk attention, decode attention of the 3 global
-              layers, logits; max_context 1536), M=4 seeded random
-              instances, 16 requests each; every kernel of a path must
-              have launched;
+              layers, logits; max_context 1536) and on the full
+              olmoe-1b-7b config (moe: 16 layers, 64 experts top-8, 57 GB
+              of weights at M=4; chunk attention, the decode layer's
+              attention phase, the merged matmul carrying the experts,
+              logits), M=4 seeded random instances, 16 requests each;
+              every kernel of a path must have launched, with the counts
+              each step and chunk call implies; each path's mix served
+              again with PROFILE_STEPS engine steps after its first
+              decode block under torch.profiler (the device idle share
+              of that window);
 5. check   -- greedy K=1 vs K=8 streams identical on the card for the
-              three families (full widths, cut depth), and the kernel
-              path against the plain path on the CPU on small f32
-              configs (hymba-smoke at 4 layers over 176 prefilled
-              positions: the meta prefix and a wrapped SWA ring);
+              four families (full widths, cut depth; olmoe-1b-7b and
+              qwen3-moe-30b-a3b at 4 layers), and the kernel path against
+              the plain path on the CPU on small f32 configs (hymba-smoke
+              at 4 layers over 176 prefilled positions: the meta prefix
+              and a wrapped SWA ring; olmoe-smoke with its exact-length
+              capacity);
+5b. graph  -- the paper's Algorithm 1 (``repro_torch.core.graph``): the
+              FFNN graph (FC -> LayerNorm -> GELU -> FC) at bert-base's FFN
+              widths (768 -> 3072 -> 768, 128 tokens an instance) and the
+              residual CNN graph at a resnet50 stage (56 x 56 x 256, 3x3
+              convolutions, batch norm, max pool, 1000 classes) merged at
+              M in {1, 8, 32}: the merged run against the M per-instance
+              runs in f32, TF32 off, within PAPER_EXACT_TOL, both timed;
 6. tp      -- tensor-parallel serving over 2 ranks, one process each, sharing
               the card (gloo): the full tinyllama-1.1b (M=4, 16 requests of
               16-512 tokens, 32 new, K=8) with every launch counter set to 0
@@ -108,15 +132,14 @@ non-zero before the result line is printed):
               2x2 the attention and FFN phases 22 times each, the chunk
               kernel and the logits in both; the ranks' streams identical;
               the f32 smoke config's streams equal to the single-device
-              plain path on the CPU; the 2x1 streams equal to one device
-              serving each data rank's instance rows at M_L=2 (bf16:
-              rounding depends on the instance count a call holds, not on
-              the mesh); at 2x2 K=1 == K=8 at 4 layers and
+              plain path on the CPU; the 2x1 streams equal to the serve
+              phase's one-device streams at M=4, 16 of 16 (a lane's bf16
+              sums do not depend on the instance count of its call); at
+              2x2 K=1 == K=8 at 4 layers and
               ``fused_matmul_sharded`` on each rank's block of a seeded
               (4, 4, 2048, 5632) problem with bias, reassembled against the
               plain version, each rank's wrapper launched once per call;
-              reported: the data gather's and the model sums' ms, how many
-              2x1 streams equal the single-device ones at M=4;
+              reported: the data gather's and the model sums' ms;
 9. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
               at full width: bert-base and xlnet-base at S=128, resnet50
               and resnext50 at 224x224, bs=1, M in {1, 8, 32} under
@@ -177,6 +200,9 @@ sys.path.insert(0, os.path.join(HERE, "benchmarks"))
 
 # the full-width shapes of tinyllama-1.1b at M=4 instances, 4 slots each
 M, B, S, C = 4, 4, 1024, 32
+# engine steps of a serve cell's profiled window (each up to 4 chunk calls
+# and one decode block; a cell's 16 requests take 14 to 16 decode blocks)
+PROFILE_STEPS = 4
 D, H, KVH, HD, F, V = 2048, 32, 4, 64, 5632, 32000
 # the sLSTM cell of xlstm-1.3b: D=2048 over 4 heads
 XH, XHD = 4, 512
@@ -513,10 +539,100 @@ def phase_kernels(torch, dev):
     errs.update(sharded_attn_cases(torch, dev))
     errs.update(sharded_matmul_cases(torch, dev))
     errs.update(attn_mlstm_cases(torch, dev))
+    errs.update(lane_cases(torch, dev))
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
         tolerance_f32=TOL["float32"], status="ok")
+
+
+def lane_cases(torch, dev):
+    """A lane's result depends on its own inputs and the shapes only: one
+    lane alone (M=1, B=1) equals, bit for bit in bf16, its row of an M=4
+    x B=4 call, of an M=2 call and of an M=4 x B=12 call (wgmma N 16), for
+    the decode layer (tinyllama-1.1b width, wrapped ring), its attention
+    phase at the olmoe-1b-7b width (16 / 16 heads of 128), the chunk
+    attention (both widths, one lane against 4 and 2) and the merged
+    matmul (the tinyllama FFN and olmoe's experts, skinny; T = 32 / 64
+    rows on the wide path against one instance, and 64 instances, whose
+    wide tiles are 256 columns, against one, whose are 128).  Returns the
+    cases (0 = equal)."""
+    from repro_torch.kernels import chunk_prefill_attn as cpa
+    from repro_torch.kernels import decode_layer as dl
+    from repro_torch.kernels import fused_matmul as fm
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(61)
+    rn = lambda *shp, sc=1.0: (torch.randn(shp, generator=g, device=dev) * sc).to(bf16)
+    cases = {}
+
+    def same(key, got, want):
+        assert torch.equal(got, want), f"{key}: a lane's bits depend on its call"
+        cases[key] = 0.0
+
+    m0, b0 = 1, 2                                 # the lane held against its rows
+    for name, (d, h, kvh, hd, ff) in (("tinyllama", (D, H, KVH, HD, F)),
+                                      ("olmoe", (2048, 16, 16, 128, 0))):
+        lp = {"attn_norm": (1 + 0.1 * torch.randn(M, d, generator=g, device=dev)),
+              "wq": rn(M, d, h * hd, sc=d ** -0.5), "wk": rn(M, d, kvh * hd, sc=d ** -0.5),
+              "wv": rn(M, d, kvh * hd, sc=d ** -0.5), "wo": rn(M, h * hd, d, sc=(h * hd) ** -0.5)}
+        if ff:
+            lp.update(mlp_norm=1 + 0.1 * torch.randn(M, d, generator=g, device=dev),
+                      w_gate=rn(M, d, ff, sc=d ** -0.5), w_up=rn(M, d, ff, sc=d ** -0.5),
+                      w_down=rn(M, ff, d, sc=ff ** -0.5))
+        x, ck, cv = rn(M, 12, d), rn(M, 12, S, kvh, hd), rn(M, 12, S, kvh, hd)
+        pos = (S + torch.randint(0, S, (M, 12), generator=g, device=dev)).to(torch.int32)
+        kw = dict(num_heads=h, head_dim=hd, rope_theta=10000.0)
+        call = dl.decode_layer_cuda if ff else dl.decode_layer_attn_cuda
+
+        def run(ms, bs):
+            sub = {k: v[ms].contiguous() for k, v in lp.items()}
+            k_, v_ = ck[ms, bs].contiguous(), cv[ms, bs].contiguous()
+            out = call(sub, x[ms, bs].contiguous(), k_, v_, pos[ms, bs].contiguous(), **kw)
+            return out[0], k_, v_
+
+        one = run(slice(m0, m0 + 1), slice(b0, b0 + 1))
+        for tag, ms, bs in (("M4xB4", slice(0, M), slice(0, B)), ("M2xB4", slice(0, 2), slice(0, B)),
+                            ("M4xB12", slice(0, M), slice(0, 12))):
+            got = run(ms, bs)
+            for i, part in enumerate(("out", "k", "v")):
+                same(f"lane/decode_layer{'' if ff else '_attn'}/{name}/{tag}/{part}",
+                     one[i][0, 0], got[i][m0, b0])
+        del lp, x, ck, cv
+
+        # the chunk attention at this width: one lane against 4 and 2
+        q, k, v = rn(M, 1, C, h, hd), rn(M, 1, S + C, kvh, hd), rn(M, 1, S + C, kvh, hd)
+        off = torch.tensor([[40], [300], [1500], [2100]], dtype=torch.int32, device=dev)
+        alone = cpa.chunk_prefill_attention_cuda(q[m0:m0 + 1], k[m0:m0 + 1], v[m0:m0 + 1],
+                                                 off[m0:m0 + 1], s_cache=S)
+        for tag, ms in (("lanes4", slice(0, M)), ("lanes2", slice(0, 2))):
+            got = cpa.chunk_prefill_attention_cuda(q[ms], k[ms], v[ms], off[ms], s_cache=S)
+            same(f"lane/chunk/{name}/{tag}", alone[0], got[m0])
+        del q, k, v
+
+    # the merged matmul: skinny (T <= 16: the tinyllama FFN, olmoe's 64
+    # experts of an instance) against one row of one instance; wide (a
+    # prefill chunk's 32 rows, 64 when two lanes share an instance)
+    # against one instance's 32 rows
+    for name, (mm, d, f, t_all, r0, t_one, calls) in (
+            ("ffn", (M, D, F, 12, 2, 1, (("T4", M, 4), ("M2", 2, 4), ("T12", M, 12)))),
+            ("experts", (64, 2048, 1024, 12, 2, 1, (("T4", 64, 4), ("M2", 2, 4), ("T12", 64, 12)))),
+            ("wide", (M, 2048, 1024, 64, 20, 32, (("T32", M, 32), ("M2T32", 2, 32), ("T64", M, 64)))),
+            ("wide_cols", (64, 2048, 1024, 32, 20, 32, (("M64T32", 64, 32), ("M2T32", 2, 32))))):
+        if name == "wide_cols":
+            # the wide tile's columns read m: 256 at 64 instances, 128 alone
+            assert [fm.launch_plan(n, 32, d, f).cols for n in (1, 2, 64)] == [128, 128, 256]
+        x, w = rn(mm, t_all, d), rn(mm, d, f, sc=d ** -0.5)
+        lo = r0 if t_one == 1 else 0
+        alone = fm.fused_matmul_cuda(x[m0:m0 + 1, lo:lo + t_one].contiguous(),
+                                     w[m0:m0 + 1].contiguous())[0, r0 - lo]
+        for tag, n_inst, t in calls:
+            got = fm.fused_matmul_cuda(x[:n_inst, :t].contiguous(), w[:n_inst].contiguous())
+            same(f"lane/fused_matmul/{name}/{tag}", alone, got[m0, r0])
+        del x, w
+    torch.cuda.synchronize()
+    log("kernels", lane_checks=len(cases), bit_for_bit="equal")
+    return cases
 
 
 def hopper_design_cases(torch, dev):
@@ -675,8 +791,7 @@ def phase_kernel_cases(torch, dev):
     1, so they are held relative to their own largest magnitude
     (``part_err``).  Then the whole layer and the greedy logits at M_L
     (the 2x1 mesh; the logits also on a rank's vocab slice at 2x2): the
-    decode matvec splits its sum by the instance count, so M_L is a
-    configuration of its own."""
+    shapes a data rank's calls take."""
     from repro_torch.kernels import decode_layer as dl
 
     errs = {}
@@ -1154,17 +1269,14 @@ print(json.dumps(res))
 
 
 def make_server(torch, dev, cfg, seed, **kw):
-    from repro_torch import api
-    from repro_torch.models.common import merge_instances
+    """A server on M seeded random instances (``serve.random_merged``:
+    each instance copied into the merged leaves as soon as it is drawn, so
+    the card never holds the instances and their merge at once)."""
+    from repro_torch.launch import serve
     from repro_torch.serving import MultiModelServer
 
-    with torch.inference_mode():
-        ones = [api.init(cfg.with_(num_instances=1),
-                         torch.Generator(device=dev).manual_seed(seed * 1000 + i), dev)
-                for i in range(cfg.num_instances)]
-        merged = merge_instances(ones)
-    del ones
-    return MultiModelServer(cfg, merged, device=dev, **kw)
+    params = serve.random_merged(cfg, seed, dev)[0]
+    return MultiModelServer(cfg, params, device=dev, **kw)
 
 
 def requests(n, m, lo, hi, max_new, vocab, seed):
@@ -1187,8 +1299,11 @@ def serve_path(torch, dev, arch, kernels, max_context=S):
     cfg = registry.get_config(arch).with_(num_instances=M)
     maps0 = build.tensor_maps.encodes
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     srv = make_server(torch, dev, cfg, 0, slots_per_instance=B, max_context=max_context,
                       prefill_chunk=C, prefill_lanes=4, decode_steps=8)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
     setup_peak = torch.cuda.max_memory_allocated()
     reqs = requests(16, M, 16, 512, 32, cfg.vocab_size, 0)
     torch.cuda.synchronize()
@@ -1218,7 +1333,7 @@ def serve_path(torch, dev, arch, kernels, max_context=S):
         prefill_tokens=snap["prefill_tokens"],
         launches=json.dumps(launches).replace(" ", ""),
         max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
-        setup_peak_gib=round(setup_peak / 2 ** 30, 2),
+        setup_peak_gib=round(setup_peak / 2 ** 30, 2), setup_s=round(setup_s, 1),
         tensor_maps_encoded=build.tensor_maps.encodes - maps0)
     profile_serve(torch, srv, requests(16, M, 16, 512, 32, cfg.vocab_size, 5), arch)
     # the server holds a reference cycle (its step is a bound method): free
@@ -1263,7 +1378,27 @@ def phase_serve(torch, dev):
         decode_attention_launches=hymba["decode_attention"],
         decode_attention_check=f"{n_global}x{steps}=={hymba['decode_attention']}",
         chunk_launches_check=f"{cfg.num_layers}x{chunks}=={hymba['chunk_prefill_attention']}")
-    return {"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm, "hymba-1.5b": hymba}, dense_streams
+
+    # the moe family: 64 experts top-8 at full width and depth, M=4 (57 GB
+    # of weights); the attention phase and the merged matmul carry decode,
+    # the chunk attention and the merged matmul prefill
+    cfg, snap, olmoe, _ = serve_path(torch, dev, "olmoe-1b-7b",
+                                     ("chunk_prefill_attention", "decode_layer_attn",
+                                      "logits_sample", "fused_matmul"))
+    steps, chunks, n = snap["decode_steps"], snap["prefill_batches"], cfg.num_layers
+    assert olmoe["decode_layer_attn"] == n * steps, (olmoe, steps)
+    assert olmoe["chunk_prefill_attention"] == n * chunks, (olmoe, chunks)
+    assert olmoe["logits_sample"] == steps, (olmoe, steps)
+    assert olmoe["fused_matmul"] == 3 * n * (steps + chunks), (olmoe, steps, chunks)
+    assert olmoe["decode_layer"] == olmoe["decode_layer_ffn"] == 0, olmoe
+    log("serve", arch=cfg.name, experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+        decode_steps=steps, chunk_calls=chunks,
+        attn_phase_check=f"{n}x{steps}=={olmoe['decode_layer_attn']}",
+        chunk_launches_check=f"{n}x{chunks}=={olmoe['chunk_prefill_attention']}",
+        fused_matmul_check=f"3x{n}x({steps}+{chunks})=={olmoe['fused_matmul']}",
+        logits_check=f"{steps}=={olmoe['logits_sample']}")
+    return ({"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm, "hymba-1.5b": hymba,
+             "olmoe-1b-7b": olmoe}, dense_streams)
 
 
 def device_us(e):
@@ -1287,30 +1422,54 @@ def device_busy_s(prof):
 
 
 def profile_serve(torch, srv, reqs, arch):
-    """Where the serve time goes: the same workload again under
-    torch.profiler -- device busy share of the wall and the top kernels.
-    The profiler's own overhead stretches this run's wall clock."""
+    """Where the serve time goes: the cell's mix (``reqs``, 16 requests)
+    served again, engine step by engine step, with the
+    ``PROFILE_STEPS`` steps that follow the first decode block traced by
+    torch.profiler -- the device busy share of that window's wall, the
+    chunk calls and decode blocks in it, and the top kernels.  The window
+    bounds the trace (its stop and read took 343 s of an H100 serve phase
+    over four cells when it held whole 16-request runs); the profiler's
+    own overhead stretches the window's wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = srv.metrics.snapshot()["decode_steps"]
+    n0 = srv.metrics.snapshot()
+    for r in reqs:
+        srv.submit(r)
+    results = []
+    while srv.busy() and srv.metrics.snapshot()["decode_device_calls"] == n0["decode_device_calls"]:
+        results += srv.step()
+    before = srv.metrics.snapshot()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for r in reqs:
-            srv.submit(r)
-        srv.run_until_drained()
+        steps = 0
+        while srv.busy() and steps < PROFILE_STEPS:
+            results += srv.step()
+            steps += 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    after = srv.metrics.snapshot()
+    read_s = time.perf_counter() - t0
+    results += srv.run_until_drained()
+    assert len(results) == len(reqs) and all(r.status == "ok" for r in results)
     ev = [e for e in prof.key_averages() if device_us(e) > 0]
     busy = device_busy_s(prof)
-    log("profile", run=f"serve/{arch}", wall_s=round(wall, 3), device_busy_s=round(busy, 3),
-        device_idle_share=f"{1 - busy / wall:.1%}")
+    delta = {k: after[k] - before[k] for k in ("prefill_batches", "decode_device_calls",
+                                               "decode_steps")}
+    log("profile", run=f"serve/{arch}", requests=len(reqs), window_engine_steps=steps,
+        window_chunk_calls=delta["prefill_batches"],
+        window_decode_blocks=delta["decode_device_calls"],
+        window_decode_steps=delta["decode_steps"], wall_s=round(wall, 3),
+        device_busy_s=round(busy, 3), device_idle_share=f"{1 - busy / wall:.1%}",
+        profiler_stop_and_read_s=round(read_s, 1))
     if arch == "tinyllama-1.1b":
         # the whole decode layer's kernels against its launches in this run:
         # the wgmma path is six a layer (QKV, ring attention, its combine,
         # out-projection, gate/up, down)
         layer = {e.key: e.count for e in ev
                  if re.search(r"tc_matvec|ring_attn_kernel|ring_combine_kernel", e.key)}
-        layers = (srv.metrics.snapshot()["decode_steps"] - steps0) * srv.cfg.num_layers
+        layers = delta["decode_steps"] * srv.cfg.num_layers
         per_layer = sum(layer.values()) / layers
         log("profile", run=f"serve/{arch}", decode_layer_kernels_per_layer=per_layer)
         assert per_layer <= 6, (per_layer, layer)
@@ -1581,29 +1740,6 @@ def check_dense_rank(cfg, out, n_req, new, split_layers):
     return steps, chunks
 
 
-def rows_on_one_device(torch, dev, cfg, reqs, m_l, server_kw):
-    """``reqs`` served on one device by servers of ``m_l`` instances, one
-    for each data rank's instance rows (the same weights as the rank's:
-    ``serve.random_merged``'s seeds): the single-device run at a data
-    rank's instance count.  Streams keyed by the request's index in
-    ``reqs``, as the mesh's request ids are."""
-    from repro_torch.launch import serve
-    from repro_torch.serving import MultiModelServer, Request
-
-    out = {}
-    for lo in range(0, cfg.num_instances, m_l):
-        params = serve.random_merged(cfg, 0, dev, rows=range(lo, lo + m_l))[0]
-        srv = MultiModelServer(cfg.with_(num_instances=m_l), params, device=dev, **server_kw)
-        del params
-        index = {srv.submit(Request(r.instance - lo, list(r.prompt), r.max_new_tokens)): j
-                 for j, r in enumerate(reqs) if lo <= r.instance < lo + m_l}
-        out.update({index[r.request_id]: r.tokens for r in srv.run_until_drained()})
-        del srv
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
-
-
 def phase_data(torch, dev, single_streams):
     """Serving on (data=D, model=T) meshes, the D*T ranks sharing the card
     over gloo (``mesh.spawn(..., data=D)``): the data axis splits the
@@ -1619,12 +1755,11 @@ def phase_data(torch, dev, single_streams):
     every rank (``check_dense_rank``: whole layers at 2x1, the phase
     kernels at 2x2), the ranks' streams identical, K=1 == K=8, the smoke
     config's streams equal to the single-device plain path on the CPU, the
-    2x1 streams equal to one device serving each data rank's instance rows
-    (``rows_on_one_device``), the reassembled matmul blocks against the
+    reassembled matmul blocks against the
     plain version on the whole problem, each rank's wrapper launched once
-    per call.  Reported, not gated: how many of the 2x1 streams equal the
-    serve phase's single-device streams at M (``single_streams``): bf16
-    rounds by the instance count a call holds.  Returns each mesh's rank 0
+    per call, and the 2x1 streams equal to the serve phase's single-device
+    streams at M (``single_streams``): a lane's bf16 sums do not depend on
+    how many instances its call holds.  Returns each mesh's rank 0
     launches and the matmul wrapper's launches summed over the ranks."""
     from types import SimpleNamespace
 
@@ -1701,15 +1836,9 @@ def phase_data(torch, dev, single_streams):
             streams="equal")
         if t == 1:
             same = sum(full[0]["streams"][i] == single_streams[i] for i in single_streams)
-            rows_one = rows_on_one_device(
-                torch, dev, cfg, requests(TP_REQUESTS, M, 16, 512, 32, cfg.vocab_size, 0),
-                m_l, serve_kw)
-            same_rows = sum(full[0]["streams"][i] == rows_one[i] for i in rows_one)
-            assert same_rows == TP_REQUESTS, f"2x1 streams differ from one device at M={m_l}"
+            assert same == TP_REQUESTS, f"2x1 streams differ from one device at M={M}: {same}"
             log("data", mesh=f"{d}x{t}",
-                streams_equal_to_single_device_at_M_l=f"{same_rows}/{TP_REQUESTS}",
-                streams_equal_to_single_device_at_M=f"{same}/{TP_REQUESTS}",
-                note="at M: a report, not a gate (bf16 rounds by instance count)")
+                streams_equal_to_single_device_at_M=f"{same}/{TP_REQUESTS}")
         else:
             k1, k8 = [r[4]["streams"] for r in ranks], [r[5]["streams"] for r in ranks]
             assert all(s_ == k1[0] for s_ in k1 + k8), "greedy streams differ between K=1 and K=8"
@@ -1741,13 +1870,16 @@ def phase_check(torch, dev):
 
     from repro_torch import api
     from repro_torch.configs import registry
+    from repro_torch.models import moe
     from repro_torch.models.common import _leaves, tree_map
 
     # greedy K=1 vs K=8 on the card at full widths, depth cut: tinyllama to
     # 4 layers, xlstm to 8 (7 mLSTM layers and the sLSTM layer at 3),
-    # hymba to 4 (global layers 0, 2, 3 and the SWA layer 1)
+    # hymba to 4 (global layers 0, 2, 3 and the SWA layer 1), olmoe and
+    # qwen3-moe (GQA 32/4, 128 experts) to 4
     for arch, layers, ctx in (("tinyllama-1.1b", 4, S), ("xlstm-1.3b", 8, S),
-                              ("hymba-1.5b", 4, YS)):
+                              ("hymba-1.5b", 4, YS), ("olmoe-1b-7b", 4, S),
+                              ("qwen3-moe-30b-a3b", 4, S)):
         cfg = registry.get_config(arch).with_(num_instances=M, num_layers=layers)
         streams = []
         for k in (1, 8):
@@ -1768,7 +1900,8 @@ def phase_check(torch, dev):
     # context 256), a decode step and a greedy decode step
     for arch, layers, n_pos, width, ctx in (("tinyllama-1.1b", None, 24, 8, 64),
                                             ("xlstm-1.3b", None, 24, 8, 64),
-                                            ("hymba-1.5b", 4, 176, 16, 256)):
+                                            ("hymba-1.5b", 4, 176, 16, 256),
+                                            ("olmoe-1b-7b", None, 24, 8, 64)):
         small = registry.get_smoke_config(arch).with_(num_instances=2)
         if layers:
             small = small.with_(num_layers=layers)
@@ -1781,8 +1914,11 @@ def phase_check(torch, dev):
             carry = api.init_chunk_carry(small, 2, 2, ctx, device=d)
             for start in range(0, n_pos, width):
                 off = torch.full((2, 2), start, dtype=torch.int32, device=d)
-                api.prefill_chunk(small, p, {"tokens": tok[:, :, start:start + width].to(d)},
-                                  carry, off)
+                batch = {"tokens": tok[:, :, start:start + width].to(d)}
+                if small.family == "moe":
+                    batch["moe_limit"] = torch.full((2, 2), moe.capacity(small, n_pos),
+                                                    dtype=torch.int32, device=d)
+                api.prefill_chunk(small, p, batch, carry, off)
             cache = carry["cache"]
             pos = torch.full((2, 2), n_pos, dtype=torch.int32, device=d)
             nxt, _ = api.decode_step_sample(small, p, tree_map(lambda t: t.clone(), cache),
@@ -1800,6 +1936,100 @@ def phase_check(torch, dev):
         log("check", reference="cpu-plain", config=small.name, layers=small.num_layers,
             prefilled_positions=n_pos, state_leaves=len(c0),
             cache_rel_err=f"{e_cache:.2e}", logits_rel_err=f"{e_logits:.2e}", tokens="equal")
+
+
+def graph_cases():
+    """The graphs of the graph phase (the tests' FFNN and residual CNN at
+    bert-base's FFN and a resnet50 stage's widths): (name, graph builder,
+    weights of one instance from a numpy generator, its input)."""
+    import numpy as np
+
+    f32 = np.float32
+    r = lambda rng, *shp, sc=0.1: (rng.standard_normal(shp) * sc).astype(f32)
+
+    def ffnn(g):
+        g.add("x", "input")
+        g.add("fc1", "matmul", ["x"])
+        g.add("ln", "layernorm", ["fc1"])
+        g.add("act", "gelu", ["ln"])
+        g.add("fc2", "matmul", ["act"])
+        g.outputs = ["fc2"]
+        return g
+
+    def ffnn_w(rng, d=768, hid=3072):
+        return {"fc1": {"w": r(rng, d, hid, sc=d ** -0.5), "b": r(rng, hid)},
+                "ln": {"scale": 1 + r(rng, hid), "bias": r(rng, hid)},
+                "fc2": {"w": r(rng, hid, d, sc=hid ** -0.5), "b": r(rng, d)}}
+
+    def cnn(g):
+        g.add("img", "input")
+        g.add("conv1", "conv2d", ["img"], stride=1, padding="SAME")
+        g.add("bn1", "batchnorm", ["conv1"])
+        g.add("relu1", "relu", ["bn1"])
+        g.add("conv2", "conv2d", ["relu1"], stride=1, padding="SAME")
+        g.add("res", "add", ["conv2", "relu1"])
+        g.add("pool", "maxpool2d", ["res"], kernel=2)
+        g.add("gap", "global_avgpool", ["pool"])
+        g.add("fc", "matmul", ["gap"])
+        g.outputs = ["fc"]
+        return g
+
+    def cnn_w(rng, c=256, n_class=1000):
+        sc = (9 * c) ** -0.5
+        return {"conv1": {"w": r(rng, 3, 3, c, c, sc=sc), "b": r(rng, c)},
+                "bn1": {"mean": r(rng, c), "var": np.abs(r(rng, c)) + 0.5,
+                        "scale": 1 + r(rng, c), "bias": r(rng, c)},
+                "conv2": {"w": r(rng, 3, 3, c, c, sc=sc)},
+                "fc": {"w": r(rng, c, n_class, sc=c ** -0.5)}}
+
+    return (("ffnn/bert-base-ffn", ffnn, ffnn_w, lambda rng: {"x": r(rng, 128, 768, sc=1.0)}),
+            ("cnn/resnet50-stage", cnn, cnn_w,
+             lambda rng: {"img": r(rng, 1, 56, 56, 256, sc=1.0)}))
+
+
+def phase_graph(torch, dev):
+    """``repro_torch.core.graph`` on the card: each graph of
+    ``graph_cases`` merged (``merge_graph``) at M in {1, 8, 32} and run
+    once (``execute_merged``) against its M per-instance runs
+    (``execute``), f32 with TF32 off, held to PAPER_EXACT_TOL relative to
+    the largest output magnitude; the merged round and the M
+    per-instance runs timed (CUDA events, the mean of 5 after a warm-up)."""
+    import numpy as np
+
+    from repro_torch.core import graph as G
+
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    for name, build, make_w, make_x in graph_cases():
+        g = build(G.Graph())
+        for m in (1, 8, 32):
+            rng = np.random.default_rng(71 + m)
+            weights = [make_w(rng) for _ in range(m)]
+            inputs = [make_x(rng) for _ in range(m)]
+            t0 = time.perf_counter()
+            merged, mw, dims = G.merge_graph(g, weights, device=dev)
+            torch.cuda.synchronize()
+            merge_s = time.perf_counter() - t0
+            # the per-instance weights and inputs on the card once, as tensors
+            w_dev = [{op: {k: torch.from_numpy(v).to(dev) for k, v in w.items()}
+                      for op, w in wi.items()} for wi in weights]
+            x_dev = [{k: torch.from_numpy(v).to(dev) for k, v in xi.items()} for xi in inputs]
+            fused = G.execute_merged(merged, mw, dims, x_dev, device=dev)
+            per = [G.execute(g, x_dev[i], w_dev[i], device=dev) for i in range(m)]
+            err = max(part_err(fused[i][o], per[i][o]) for i in range(m) for o in g.outputs)
+            shapes = {tuple(fused[i][o].shape) for i in range(m) for o in g.outputs}
+            assert all(torch.isfinite(fused[i][o]).all() for i in range(m) for o in g.outputs)
+            assert err <= PAPER_EXACT_TOL, f"graph {name} M={m}: merged vs per-instance {err}"
+            merged_ms = time_ms(torch, lambda: G.execute_merged(merged, mw, dims, x_dev,
+                                                                device=dev), reps=5, warmup=1)
+            per_ms = time_ms(torch, lambda: [G.execute(g, x_dev[i], w_dev[i], device=dev)
+                                             for i in range(m)], reps=5, warmup=1)
+            log("graph", graph=name, instances=m, output_shape=sorted(shapes),
+                merged_ops=len(merged.ops), reshapes=sum(op.op_type == "merge_reshape"
+                                                        for op in merged.ops.values()),
+                rel_err=f"{err:.3e}", tol=PAPER_EXACT_TOL, merge_s=round(merge_s, 3),
+                merged_ms=f"{merged_ms:.4f}", per_instance_ms=f"{per_ms:.4f}",
+                speedup=f"{per_ms / merged_ms:.2f}x")
+            del weights, w_dev, x_dev, fused, per, merged, mw
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -2041,7 +2271,7 @@ def phase_times(torch, dev, by_path, profile_launches):
                      floor_device_ms=floor, library="SDPA, the prefix mask, GQA"))
     del sets, lib_in
 
-    rows += new_time_rows(torch, dev, profile_launches)
+    rows += new_time_rows(torch, dev, profile_launches, by_path["olmoe-1b-7b"])
     rows += phase_time_rows(torch, dev, launches, per_path)
     rows.append(sharded_attn_time_row(torch, dev, launches, per_path))
     rows.append(sharded_matmul_time_row(torch, dev, launches, per_path))
@@ -2105,10 +2335,11 @@ def sharded_matmul_time_row(torch, dev, launches, per_path):
                 bert_bound_by=b_by, bert_max_abs_err=b_err)
 
 
-def new_time_rows(torch, dev, launches):
+def new_time_rows(torch, dev, launches, moe_launches):
     """Times rows of the merged matmul, the group RMS norm and the chunkwise
     mLSTM at the profiler's shapes; ``launches`` are the counts of the
-    profile phase (their main path)."""
+    profile phase (their main path), ``moe_launches`` those of the olmoe
+    serve (the merged matmul carries its experts)."""
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import group_norm as gn
     from repro_torch.kernels import mlstm_chunk as ml
@@ -2123,9 +2354,25 @@ def new_time_rows(torch, dev, launches):
     err, ms, dev_ms, plain, lib, lib_dev, (bms, by) = matmul_time(torch, dev, g, M, B, D, F, 8)
     b_err, b_ms, b_dev, b_plain, b_lib, b_lib_dev, (b_bms, b_by) = matmul_time(
         torch, dev, g, 32, 128, 768, 3072, 4)
+    # beside them, olmoe-1b-7b's expert products at M=4 (256 (instance,
+    # expert) pairs): gate / up at a decode step (4 rows a pair) and a
+    # prefill chunk call (32 rows a pair)
+    moe = {}
+    for tag, t in (("moe_decode", B), ("moe_prefill", C)):
+        e_, e_ms, e_dev, _, e_lib, e_lib_dev, (e_bms, e_by) = matmul_time(
+            torch, dev, g, 4 * 64, t, 2048, 1024, 2)
+        moe.update({f"{tag}_device_ms": e_dev, f"{tag}_ms": e_ms,
+                    f"{tag}_library_device_ms": e_lib_dev, f"{tag}_bound_ms": e_bms,
+                    f"{tag}_bound_by": e_by, f"{tag}_max_abs_err": e_})
+        log("times", name="fused_matmul", shape=f"(256,{t},2048)@(256,2048,1024) bf16",
+            ms=f"{e_ms:.4f}", device_ms=f"{e_dev:.4f}", library_ms=f"{e_lib:.4f}",
+            library_device_ms=f"{e_lib_dev:.4f}", bound_ms=f"{e_bms:.4f}",
+            of_bound=f"{e_bms / e_dev:.1%}")
+    by_path = {"profile": launches["fused_matmul"], "olmoe-1b-7b": moe_launches["fused_matmul"]}
     rows.append(dict(name="fused_matmul", route="cuda", source="src/repro_torch/csrc/fused_matmul.cu",
                      replaces="src/repro/kernels/fused_matmul.py:24",
-                     launches=launches["fused_matmul"], max_abs_err=err, ms=ms, plain_ms=plain,
+                     launches=sum(by_path.values()), launches_by_path=by_path, **moe,
+                     max_abs_err=err, ms=ms, plain_ms=plain,
                      bound_ms=bms, bound_by=by, library_ms=lib, device_ms=dev_ms,
                      library_device_ms=lib_dev,
                      shape=f"({M},{B},{D})@({M},{D},{F}) bf16", bert_ms=b_ms,
@@ -2342,6 +2589,7 @@ def main() -> int:
     timed("kernels", phase_kernels, torch, dev)
     launches, single_streams = timed("serve", phase_serve, torch, dev)
     timed("check", phase_check, torch, dev)
+    timed("graph", phase_graph, torch, dev)
     launches[f"tinyllama-1.1b/tp{TP}-rank0"] = timed("tp", phase_tp, torch, dev)
     launches[f"hymba-1.5b/tp{TP}-rank0"] = timed("tp_hybrid", phase_tp_hybrid, torch, dev)
     by_mesh, matmul_launches = timed("data", phase_data, torch, dev, single_streams)

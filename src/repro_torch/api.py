@@ -1,5 +1,5 @@
-"""Uniform model API (port of ``repro.api``): the dense, ssm and hybrid
-entries.
+"""Uniform model API (port of ``repro.api``): the dense, moe, ssm and
+hybrid entries.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); with no device given and no card present they raise
@@ -14,10 +14,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
-from repro_torch.models import dense, hybrid, ssm
+from repro_torch.models import dense, hybrid, moe, ssm
 from repro_torch.models import shardings as S
 
-_FAMILY = {"dense": dense, "ssm": ssm, "hybrid": hybrid}
+_FAMILY = {"dense": dense, "moe": moe, "ssm": ssm, "hybrid": hybrid}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,13 +61,13 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
 
 def prefill_prefix_len(cfg: ModelConfig) -> int:
     """Learned-prefix positions before the prompt: hybrid's meta tokens,
-    none for dense and ssm."""
+    none for dense, moe and ssm."""
     family_module(cfg)
     return hybrid.NUM_META_TOKENS if cfg.family == "hybrid" else 0
 
 
 def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device=None, tp=None):
-    """The grid's decode cache: a KV cache (dense), the recurrent state
+    """The grid's decode cache: a KV cache (dense, moe), the recurrent state
     (ssm, positionless: ``context_len`` is unused) or per-group KV caches
     and mamba states (hybrid)."""
     dev = resolve_device(device)

@@ -60,6 +60,12 @@ namespace {
 constexpr int NW = 8;    // warps per block; they split the reduction dim
 constexpr int TN = 64;   // output columns per tile (2 per lane of a warp)
 constexpr int LB = 4;    // most lanes one block computes
+// the grid the split counts of the lanes matvec and the ring attention
+// aim at, passed in by kernels/build.py (the serving default: 4 instances
+// of 4 slots on an H100's 132 SMs)
+#if !defined(NOMINAL_INSTANCES) || !defined(NOMINAL_LANES) || !defined(NOMINAL_SMS)
+#error "build with -DNOMINAL_INSTANCES, -DNOMINAL_LANES and -DNOMINAL_SMS (kernels/build.py)"
+#endif
 constexpr int THREADS = NW * 32;
 
 enum { MODE_PLAIN = 0, MODE_RESIDUAL = 1, MODE_SWIGLU = 2 };
@@ -628,15 +634,17 @@ __global__ void logits_reduce_kernel(const float* __restrict__ pval, const int* 
 }
 
 // Column tiles of a matvec call, and how many k-slices it is split into:
-// about four blocks per SM, each warp keeping at least 8 rows of its slice.
+// about four blocks per SM of an H100 at the serving grid's 4 instances and
+// one lane group, each warp keeping at least 8 rows of its slice.  The
+// split reads the weight's shape only, never M or B, so a lane's sums are
+// added in one order whoever shares its call.
 int matvec_tiles(int mode, int n0, int n1, int n2) {
   return (n0 + MTN - 1) / MTN + (mode == MODE_PLAIN ? (n1 + MTN - 1) / MTN + (n2 + MTN - 1) / MTN : 0);
 }
 
-int matvec_ksplit(int tiles, int M, int B, int K) {
-  const int groups = (B + LB - 1) / LB;
-  const int blocks = tiles * M * groups;
-  int ksplit = (528 + blocks - 1) / blocks;
+int matvec_ksplit(int tiles, int K) {
+  const int blocks = tiles * NOMINAL_INSTANCES;
+  int ksplit = (4 * NOMINAL_SMS + blocks - 1) / blocks;
   const int kmax = K / (NW * 8) > 1 ? K / (NW * 8) : 1;
   ksplit = ksplit < kmax ? ksplit : kmax;
   return ksplit < 1 ? 1 : ksplit;
@@ -651,7 +659,7 @@ int launch_matvec(const void* x, const void* norm, float eps, const void* w0, co
   const int lpb = B < LB ? B : LB;
   const int groups = (B + lpb - 1) / lpb;
   const int tiles = matvec_tiles(MODE, n0, n1, n2);
-  const int ksplit = matvec_ksplit(tiles, M, B, K);
+  const int ksplit = matvec_ksplit(tiles, K);
   const int kchunk = (K + ksplit - 1) / ksplit;
   const int smem = lpb * kchunk * 4 + red_bytes;
   const int nch = MODE == MODE_SWIGLU ? 2 : 1;
@@ -674,11 +682,13 @@ int launch_matvec(const void* x, const void* norm, float eps, const void* w0, co
   return (int)cudaGetLastError();
 }
 
-// Slot splits of the decode attention: enough blocks to fill the card
-// (about two per SM), at least two key tiles per split.
-int attn_splits(int M, int B, int S, int KVH) {
-  const int blocks = M * B * KVH;
-  int splits = (264 + blocks - 1) / blocks;
+// Slot splits of the decode attention: enough blocks to fill an H100
+// (about two per SM) at the serving grid's 16 lanes, at least two key
+// tiles per split.  From S and KVH alone: a lane's softmax partials merge
+// in one order whoever shares its call.
+int attn_splits(int S, int KVH) {
+  const int blocks = NOMINAL_LANES * KVH;
+  int splits = (2 * NOMINAL_SMS + blocks - 1) / blocks;
   const int most = (S + 2 * AT - 1) / (2 * AT);
   splits = splits < most ? splits : most;
   return splits < 1 ? 1 : splits;
@@ -691,7 +701,7 @@ int launch_attn(const void* qkv, void* ck, void* cv, const int* pos, const uint8
                 cudaStream_t stream) {
   const int G = H / KVH;
   if (G > 16 || hd > 128 || hd % VEC) return (int)cudaErrorInvalidValue;
-  const int splits = attn_splits(M, B, S, KVH);
+  const int splits = attn_splits(S, KVH);
   const int sk = ((S + splits - 1) / splits + AT - 1) / AT * AT;
   const size_t smem =
       ((size_t)G * hd + 2 * hd + 2 * G + (size_t)AT * (hd + 1) + (size_t)G * sk) * 4;
@@ -746,7 +756,7 @@ int launch_logits(const void* x, const float* norm, float eps, const void* head,
 // f32 scratch elements one lanes matvec needs for its k-split partial sums.
 long long matvec_scratch_elems(int mode, int n0, int n1, int n2, int M, int B, int K) {
   const int nout = mode == MODE_PLAIN ? n0 + n1 + n2 : n0;
-  const int ksplit = matvec_ksplit(matvec_tiles(mode, n0, n1, n2), M, B, K);
+  const int ksplit = matvec_ksplit(matvec_tiles(mode, n0, n1, n2), K);
   return (long long)ksplit * (mode == MODE_SWIGLU ? 2 : 1) * M * B * nout;
 }
 
@@ -776,7 +786,7 @@ int lanes_matvec(int dt, int mode, const void* x, const void* norm, float eps, c
 
 // f32 scratch elements the ring attention needs for its split partials.
 long long attention_scratch_elems(int M, int B, int S, int H, int KVH, int hd) {
-  return (long long)M * B * KVH * attn_splits(M, B, S, KVH) * (H / KVH) * (2 + hd);
+  return (long long)M * B * KVH * attn_splits(S, KVH) * (H / KVH) * (2 + hd);
 }
 
 int ring_attention(int dt, const void* qkv, void* ck, void* cv, const void* pos,

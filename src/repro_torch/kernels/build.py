@@ -23,8 +23,17 @@ SOURCES = ("decode_layer", "chunk_prefill_attn", "slstm_cell", "decode_attn", "f
            "group_norm", "mlstm_chunk")
 # bytes of an encoded TMA tensor map (CUtensorMap)
 TENSOR_MAP_BYTES = 128
+# The nominal grid every split count aims at: the serving default of 4
+# instances x 4 slots (16 decode lanes, 4 prefill lanes) on an H100's 132
+# SMs.  A split reads these and the problem's shapes, never the call's
+# instance or lane count nor the card's SM count, so a lane's sums are
+# added in one order whoever shares its call.  The CUDA sources get them
+# as macros.
+NOMINAL_INSTANCES, NOMINAL_LANES, NOMINAL_PREFILL_LANES, NOMINAL_SMS = 4, 16, 4, 132
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DNOMINAL_INSTANCES={NOMINAL_INSTANCES}", f"-DNOMINAL_LANES={NOMINAL_LANES}",
+              f"-DNOMINAL_SMS={NOMINAL_SMS}")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -19,9 +19,11 @@ from repro_torch.models import layers as L
 
 NEG_INF = -1e30
 # csrc/chunk_prefill_attn.cu's blocks: query rows per block, keys per
-# tile; most splits (a cluster of blocks)
+# tile; most splits (a cluster of blocks); the blocks a lane's split aims
+# at: two waves of the nominal grid's SMs over its prefill lanes
+# (``build.NOMINAL_*``)
 ROWS, KEYS, MAX_SPLITS = 64, 64, 8
-H100_SMS = 132
+LANE_TARGET_BLOCKS = 2 * build.NOMINAL_SMS // build.NOMINAL_PREFILL_LANES
 
 
 @dataclass(frozen=True)
@@ -41,17 +43,19 @@ def split_ranges(n: int, parts: int) -> list[tuple[int, int]]:
 
 
 def launch_plan(lanes: int, c: int, h: int, kvh: int, hd: int, s_cache: int,
-                dtype: str = "bfloat16", sms: int = H100_SMS) -> Plan:
+                dtype: str = "bfloat16") -> Plan:
     """The launch of ``csrc/chunk_prefill_attn.cu``: f32 one block per
     (lane, kv head, row block); bf16 that many times the split count, the
-    smallest that makes two waves of ``sms`` blocks, at most one split per
-    key tile and ``MAX_SPLITS``."""
+    smallest that gives one lane ``LANE_TARGET_BLOCKS`` blocks, at most
+    one split per key tile and ``MAX_SPLITS``.  The split reads the key
+    tiles and the heads only, never the lane count or the card, so a
+    lane's softmax partials merge in one order whoever shares its call."""
     tiles = math.ceil((s_cache + c) / KEYS)
     row_blocks = math.ceil(c * (h // kvh) / ROWS)
-    blocks = row_blocks * kvh * lanes
     splits = 1
     if dtype == "bfloat16":
-        splits = min(tiles, MAX_SPLITS, max(1, math.ceil(2 * sms / blocks)))
+        splits = min(tiles, MAX_SPLITS,
+                     max(1, math.ceil(LANE_TARGET_BLOCKS / (row_blocks * kvh))))
     return Plan(tiles, splits, (row_blocks * splits, kvh, lanes))
 
 
@@ -110,8 +114,7 @@ def chunk_prefill_attention_cuda(q, k, v, offset, *, s_cache: int, pin: int = 0,
         raise ValueError(f"the kernel takes head_dim <= 128 in multiples of 8, not {hd}")
     off = offset.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    plan = launch_plan(m * b, c, h, kvh, hd, s_cache, str(q.dtype).removeprefix("torch."),
-                       build.sm_count(q.device))
+    plan = launch_plan(m * b, c, h, kvh, hd, s_cache, str(q.dtype).removeprefix("torch."))
     fn = build.entry("chunk_prefill_attn", "chunk_prefill_attention",
                      "ipppppiiiiiiiiiifip")
     P = build.ptr

@@ -134,7 +134,9 @@ def logits_argmax_plain(x, scale, head, *, eps: float = 1e-5):
 TC_TILE, TC_HK, TC_MAX_SPLIT, TC_MIN_SPLIT_STEPS = 128, 64, 8, 4
 TC_RING = {False: 6 * 16384 + 16 * 6, True: 4 * 32768 + 16 * 4}
 MAX_SMEM = 232448
-H100_SMS = 132
+# the split targets half of the nominal grid's SMs at its instances
+# (``build.NOMINAL_*``)
+SPLIT_TARGET_BLOCKS = build.NOMINAL_SMS // 2
 
 
 @dataclass(frozen=True)
@@ -157,7 +159,27 @@ def tc_smem(n_rows: int, nk: int, pair: bool = False) -> int:
     return 1024 + -(-TC_RING[pair] // 1024) * 1024 + nk * n_rows * 128 + 64
 
 
-def matvec_plan(m: int, b: int, k: int, n, dtype: str = "bfloat16", sms: int = H100_SMS,
+def tc_split(k: int, n, pair: bool = False) -> int:
+    """The split of a wgmma product's k-steps over a cluster, from the
+    weight's shape alone: the k-steps split (at most 8 ways, each keeping
+    at least 4 steps) until ``build.NOMINAL_INSTANCES`` instances' blocks would
+    fill ``SPLIT_TARGET_BLOCKS``, then further until 16 lanes' x^T for a
+    block's k range fits in shared memory.  So a lane's output is the
+    same bits at any instance count and any lane count up to 16 (the
+    wgmma N of 8 and of 16 take one split)."""
+    segs = (n,) if isinstance(n, int) else tuple(n)
+    tiles = sum(-(-w // TC_TILE) for w in segs)
+    steps = -(-k // TC_HK)
+    split = 1
+    while (split < min(TC_MAX_SPLIT, steps // TC_MIN_SPLIT_STEPS)
+           and tiles * build.NOMINAL_INSTANCES * split < SPLIT_TARGET_BLOCKS):
+        split += 1
+    while tc_smem(16, -(-steps // split), pair) > MAX_SMEM and split < min(TC_MAX_SPLIT, steps):
+        split += 1
+    return split
+
+
+def matvec_plan(m: int, b: int, k: int, n, dtype: str = "bfloat16",
                 pair: bool = False) -> MatvecPlan:
     """The launch of one decode-layer product: x (m, b, k) @ w (m, k, n),
     ``n`` an int or the widths of the segments the grid's tiles walk (QKV:
@@ -165,23 +187,17 @@ def matvec_plan(m: int, b: int, k: int, n, dtype: str = "bfloat16", sms: int = H
 
     bf16 with b <= 16 lanes and 16-byte rows takes the wgmma kernel: the
     lanes are its N (8, or 16 past 8 lanes), each block owns 128 output
-    columns of one instance.  Where those blocks fill under half the SMs,
-    the k-steps split over a cluster of blocks (at most 8, each keeping at
-    least 4 steps) until they fill half; the split also grows until the
-    lanes' x^T for a block's k range fits in shared memory.  Anything else
-    keeps the lanes matvec (``variant == "simt"``)."""
+    columns of one instance, and :func:`tc_split` splits the k-steps over
+    a cluster of blocks.  Anything else keeps the lanes matvec (``variant
+    == "simt"``), which sums in another order: a lane's output there
+    differs from its output in a call of at most 16 lanes."""
     segs = (n,) if isinstance(n, int) else tuple(n)
     tiles = sum(-(-w // TC_TILE) for w in segs)
     if dtype != "bfloat16" or b > 16 or k % 8 or any(w % 8 for w in segs):
         return MatvecPlan("simt", b, 256, 1, (tiles, 1, m), 0)
     rows = 8 if b <= 8 else 16
     steps = -(-k // TC_HK)
-    split = 1
-    while (split < min(TC_MAX_SPLIT, steps // TC_MIN_SPLIT_STEPS)
-           and tiles * m * split < sms / 2):
-        split += 1
-    while tc_smem(rows, -(-steps // split), pair) > MAX_SMEM and split < min(TC_MAX_SPLIT, steps):
-        split += 1
+    split = tc_split(k, segs, pair)
     smem = tc_smem(rows, -(-steps // split), pair)
     if smem > MAX_SMEM:
         return MatvecPlan("simt", b, 256, 1, (tiles, 1, m), 0)
@@ -189,32 +205,32 @@ def matvec_plan(m: int, b: int, k: int, n, dtype: str = "bfloat16", sms: int = H
 
 
 @functools.lru_cache(maxsize=256)
-def attn_plans(m: int, b: int, d: int, h: int, kvh: int, hd: int, dtype: str = "bfloat16",
-               sms: int = H100_SMS) -> dict[str, MatvecPlan] | None:
+def attn_plans(m: int, b: int, d: int, h: int, kvh: int, hd: int,
+               dtype: str = "bfloat16") -> dict[str, MatvecPlan] | None:
     """The plans of the attention phase's products, QKV and out (a rank's
     share of the heads under tensor parallelism), or None where either
     keeps the lanes matvec: then the whole phase does."""
-    plans = {"qkv": matvec_plan(m, b, d, (h * hd, kvh * hd, kvh * hd), dtype, sms),
-             "out": matvec_plan(m, b, h * hd, d, dtype, sms)}
+    plans = {"qkv": matvec_plan(m, b, d, (h * hd, kvh * hd, kvh * hd), dtype),
+             "out": matvec_plan(m, b, h * hd, d, dtype)}
     return plans if all(p.variant == "tc" for p in plans.values()) else None
 
 
 @functools.lru_cache(maxsize=256)
-def ffn_plans(m: int, b: int, d: int, ff: int, dtype: str = "bfloat16",
-              sms: int = H100_SMS) -> dict[str, MatvecPlan] | None:
+def ffn_plans(m: int, b: int, d: int, ff: int,
+              dtype: str = "bfloat16") -> dict[str, MatvecPlan] | None:
     """The plans of the FFN phase's products, gate/up and down, or None
     where either keeps the lanes matvec."""
-    plans = {"gate_up": matvec_plan(m, b, d, ff, dtype, sms, pair=True),
-             "down": matvec_plan(m, b, ff, d, dtype, sms)}
+    plans = {"gate_up": matvec_plan(m, b, d, ff, dtype, pair=True),
+             "down": matvec_plan(m, b, ff, d, dtype)}
     return plans if all(p.variant == "tc" for p in plans.values()) else None
 
 
 @functools.lru_cache(maxsize=256)
 def layer_plans(m: int, b: int, d: int, h: int, kvh: int, hd: int, ff: int,
-                dtype: str = "bfloat16", sms: int = H100_SMS) -> dict[str, MatvecPlan] | None:
+                dtype: str = "bfloat16") -> dict[str, MatvecPlan] | None:
     """The plans of a whole layer's four products, or None where any of
     them keeps the lanes matvec: then the whole layer does."""
-    a, f = attn_plans(m, b, d, h, kvh, hd, dtype, sms), ffn_plans(m, b, d, ff, dtype, sms)
+    a, f = attn_plans(m, b, d, h, kvh, hd, dtype), ffn_plans(m, b, d, ff, dtype)
     return None if a is None or f is None else {**a, **f}
 
 
@@ -431,7 +447,7 @@ def decode_layer_attn_cuda(lp, x, ck, cv, pos, *, num_heads, head_dim, rope_thet
     kw = dict(num_heads=num_heads, head_dim=head_dim, rope_theta=rope_theta, window=window,
               eps=eps, alive=alive)
     m, b, d = x.shape
-    plans = attn_plans(m, b, d, num_heads, ck.shape[3], head_dim, _dt(x), build.sm_count(x.device))
+    plans = attn_plans(m, b, d, num_heads, ck.shape[3], head_dim, _dt(x))
     if plans is not None:
         return _attn_phase_tc(lp, x, ck, cv, pos, None, plans, **kw), ck, cv
     return _attn_phase(lp, x, ck, cv, pos, None, **kw), ck, cv
@@ -442,7 +458,7 @@ def ffn_cuda(x, mlp_norm, w_gate, w_up, w_down, *, eps: float = 1e-5):
     the lanes matvec.  Same contract as :func:`ffn_plain`."""
     m, b, d = x.shape
     ff = w_gate.shape[2]
-    plans = ffn_plans(m, b, d, ff, _dt(x), build.sm_count(x.device))
+    plans = ffn_plans(m, b, d, ff, _dt(x))
     if plans is not None:
         return _ffn_phase_tc(x, mlp_norm, w_gate, w_up, w_down, None, plans, eps=eps)
     return _ffn_phase(x, mlp_norm, w_gate, w_up, w_down, None, eps=eps)
@@ -455,8 +471,7 @@ def decode_layer_cuda(lp, x, ck, cv, pos, *, num_heads, head_dim, rope_theta,
     wgmma path, ten on the lanes matvec).  Same contract as
     :func:`decode_layer_plain`; the cache is appended in place."""
     m, b, d = x.shape
-    plans = layer_plans(m, b, d, num_heads, ck.shape[3], head_dim, lp["w_gate"].shape[2], _dt(x),
-                        build.sm_count(x.device))
+    plans = layer_plans(m, b, d, num_heads, ck.shape[3], head_dim, lp["w_gate"].shape[2], _dt(x))
     if plans is not None:
         return _layer_tc(lp, x, ck, cv, pos, plans, num_heads=num_heads, head_dim=head_dim,
                          rope_theta=rope_theta, window=window, eps=eps, alive=alive), ck, cv

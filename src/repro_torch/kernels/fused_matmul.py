@@ -28,8 +28,10 @@ from repro_torch.kernels import build
 SIMT_TILE, HK, WIDE_ROWS, SKINNY_COLS = 64, 64, 128, 128
 VARIANTS = {"simt": 0, "wide": 1, "skinny": 2}
 # fewest k-steps a split of D keeps (a shorter walk would not fill the
-# ring); most splits (a cluster of blocks)
+# ring); most splits (a cluster of blocks); the skinny split's aim, a
+# quarter of the nominal grid's SMs at its instances (``build.NOMINAL_*``)
 MIN_SPLIT_STEPS, MAX_SPLIT = 4, 8
+SKINNY_TARGET_BLOCKS = build.NOMINAL_SMS // 4
 H100_SMS = 132
 
 
@@ -63,13 +65,13 @@ def launch_plan(m: int, t: int, d: int, f: int, dtype: str = "bfloat16",
     kernel.  Aligned bf16 takes the wgmma path.  Wide (t > 16): tiles of
     128 rows x 256 columns, or x 128 where the 256-column tiles would
     leave over half the SMs idle, walked by at most ``sms`` blocks.
-    Skinny (t <= 16, in a wgmma N of 8 or 16): 128-column tiles; where
-    they are fewer than a quarter of the SMs, D is split over the fewest
-    blocks (a cluster, at most ``MAX_SPLIT``, at least ``MIN_SPLIT_STEPS``
-    k-steps each) that reach a quarter.  (``benchmarks/torch_matmul_sweep.py``
-    on an H100, device ms: a 2x2 rank's block of the serving shape, 44
-    tiles, 0.0116 whole, 0.0125 split 2 ways, 0.0158 4 ways; (1, 4, 2048,
-    1024), 8 tiles, 0.0109 whole, 0.0067 split 5 ways.)"""
+    Skinny (t <= 16, in a wgmma N of 8 or 16): 128-column tiles; D is
+    split over a cluster of blocks (at most ``MAX_SPLIT``, at least
+    ``MIN_SPLIT_STEPS`` k-steps each) by :func:`skinny_split`, from d and
+    f alone.  (``benchmarks/torch_matmul_sweep.py`` on an H100, device ms:
+    a 2x2 rank's block of the serving shape, 44 tiles, 0.0116 whole,
+    0.0125 split 2 ways, 0.0158 4 ways; (1, 4, 2048, 1024), 8 tiles,
+    0.0109 whole, 0.0067 split 5 ways.)"""
     if dtype != "bfloat16" or d % 8 or f % 8:
         return Plan("simt", SIMT_TILE, SIMT_TILE, 1,
                     (math.ceil(f / SIMT_TILE), math.ceil(t / SIMT_TILE), m))
@@ -77,10 +79,20 @@ def launch_plan(m: int, t: int, d: int, f: int, dtype: str = "bfloat16",
         rows = math.ceil(t / WIDE_ROWS)
         cols = 256 if m * rows * math.ceil(f / 256) >= sms / 2 else 128
         return Plan("wide", WIDE_ROWS, cols, 1, (min(m * rows * math.ceil(f / cols), sms), 1, 1))
-    tiles, steps = m * math.ceil(f / SKINNY_COLS), math.ceil(d / HK)
-    split = max(1, min(math.ceil(sms / 4 / tiles), MAX_SPLIT, steps // MIN_SPLIT_STEPS))
+    split = skinny_split(d, f)
     return Plan("skinny", 8 if t <= 8 else 16, SKINNY_COLS, split,
                 (math.ceil(f / SKINNY_COLS), split, m))
+
+
+def skinny_split(d: int, f: int) -> int:
+    """The skinny path's split of D: the fewest blocks per column tile
+    that bring ``build.NOMINAL_INSTANCES`` instances' tiles to
+    ``SKINNY_TARGET_BLOCKS``, capped by the cluster and the k-steps.  It
+    reads d and f only, never the instance or row count nor the card, so
+    a row's sums are added in one order whoever shares its call."""
+    tiles, steps = build.NOMINAL_INSTANCES * math.ceil(f / SKINNY_COLS), math.ceil(d / HK)
+    return max(1, min(math.ceil(SKINNY_TARGET_BLOCKS / tiles), MAX_SPLIT,
+                      steps // MIN_SPLIT_STEPS))
 
 
 def _check(x, w, b):

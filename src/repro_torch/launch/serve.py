@@ -1,6 +1,6 @@
-"""Serving launcher (port of ``repro.launch.serve``, dense, ssm and hybrid
-families; tensor parallelism for dense and hybrid; the data axis for all
-three).
+"""Serving launcher (port of ``repro.launch.serve``, dense, moe, ssm and
+hybrid families; tensor parallelism for dense and hybrid; the data axis
+for dense, ssm and hybrid).
 
 Initialises M "fine-tuned" instances as M random initialisations from a
 seed, merges them (the paper's offline merge step, timed), and serves a
@@ -13,6 +13,8 @@ program.  Runs on the CUDA device unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
       --smoke --device cpu --decode-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --smoke --device cpu --decode-steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --smoke --device cpu --decode-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --smoke --device cpu --mesh-shape 1x2
@@ -42,7 +44,7 @@ from repro_torch.configs import registry
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh
 from repro_torch.models import hybrid as H
-from repro_torch.models.common import merge_instances
+from repro_torch.models.common import merge_drawn
 from repro_torch.models.shardings import data_rows
 from repro_torch.serving import MultiModelServer, Request
 from repro_torch.serving.scheduler import POLICIES
@@ -51,28 +53,41 @@ from repro_torch.serving.scheduler import POLICIES
 def random_merged(cfg, seed: int, device, on_host: bool = False, rows=None):
     """M "fine-tuned" instances as M random initialisations (instance i
     seeded ``seed * 1000 + i`` on ``device``), merged; ``rows`` (a range)
-    draws and merges only those instances, the same weights.  ``on_host``
-    moves each instance to the CPU as soon as it is drawn and merges
-    there, so the card holds one instance at a time (a mesh rank then
-    moves only its shard to the card).  Returns (merged params, merge
-    seconds, the device the merge ran on)."""
+    draws and merges only those instances, the same weights.  Each
+    instance is copied into the merged leaves as soon as it is drawn
+    (``models.common.merge_drawn``), so the card holds the merged model
+    and one instance at most (olmoe-1b-7b at M = 4: 57 GB, not twice
+    that).  ``on_host`` merges on the CPU (a mesh rank then moves only
+    its shard to the card).  Returns (merged params, merge seconds: the
+    copies into the merged leaves, the device the merge ran on)."""
     where = torch.device("cpu") if on_host else device
-    with torch.inference_mode():
-        instances = [
-            api.init(cfg.with_(num_instances=1),
-                     torch.Generator(device=device).manual_seed(seed * 1000 + i),
-                     device).to(where)
-            for i in (range(cfg.num_instances) if rows is None else rows)
-        ]
+    rows = range(cfg.num_instances) if rows is None else rows
+    one = cfg.with_(num_instances=1)
+    draw_s = 0.0
+
+    def sync():
+        if where.type == "cuda":
+            torch.cuda.synchronize(where)
+
+    def draw(j):
+        nonlocal draw_s
+        sync()                          # the copies so far count as merge time
+        t = time.perf_counter()
+        with torch.inference_mode():
+            p = api.init(one, torch.Generator(device=device).manual_seed(seed * 1000 + rows[j]),
+                         device).to(where)
+        sync()
+        draw_s += time.perf_counter() - t
+        return p
+
     # merged outside inference mode: a parameter made in it stays an
     # inference tensor, and once ``.to(device)`` swaps its data no view of
     # it can be taken
     t0 = time.perf_counter()
     with torch.no_grad():
-        merged = merge_instances(instances)
-    if where.type == "cuda":
-        torch.cuda.synchronize(where)
-    return merged, time.perf_counter() - t0, where
+        merged = merge_drawn(draw, len(rows))
+    sync()
+    return merged, time.perf_counter() - t0 - draw_s, where
 
 
 def serve(cfg, params, reqs, *, device, tp=None, **server_kw) -> dict:

@@ -226,11 +226,28 @@ def _map_params(fn, *trees, _inst: int = 0):
 
 def merge_instances(params_list: list) -> MergedParams:
     """NetFuse-merge M single-instance checkpoints into one merged model:
-    every leaf is concatenated along its instances axis (axis 1 for the
-    layer-stacked leaves, axis 0 for the rest)."""
-    trees = [_as_tree(p) for p in params_list]
-    return MergedParams(_map_params(
-        lambda *ls: torch.cat(ls[:-1], dim=ls[-1]), *trees))
+    every leaf is the instances' leaves concatenated along its instances
+    axis (axis 1 for the layer-stacked leaves, axis 0 for the rest)."""
+    return merge_drawn(params_list.__getitem__, len(params_list))
+
+
+def merge_drawn(draw, n: int) -> MergedParams:
+    """:func:`merge_instances` of n instances made one at a time by
+    ``draw(i)`` (a single-instance model): each is copied into its rows of
+    the merged leaves (allocated on the first one's device) and dropped
+    before the next is drawn, so the merge never holds more than the
+    merged model and one instance."""
+    merged = None
+    for i in range(n):
+        tree = _as_tree(draw(i))
+        if merged is None:
+            merged = _map_params(
+                lambda l, ax: l.new_empty(l.shape[:ax] + (n * l.shape[ax],) + l.shape[ax + 1:]),
+                tree)
+        _map_params(lambda dst, src, ax: dst.narrow(ax, i * src.shape[ax],
+                                                    src.shape[ax]).copy_(src), merged, tree)
+        del tree
+    return MergedParams(merged)
 
 
 def instance_views(params, start: int, n: int = 1) -> MergedParams:

@@ -20,6 +20,9 @@ applies; layers held whole run as on one device.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -154,44 +157,87 @@ def _prefill_chunk_embeds(cfg: ModelConfig, params, x, carry, offset, valid=None
     computed once per call.  Under a layer split the chunk attention
     runs on this rank's heads and a sum over the ranks follows ``wo``
     and ``w_down``."""
-    cache = carry["cache"]
-    m, b, c, _ = x.shape
-    positions = offset[..., None] + torch.arange(c, dtype=offset.dtype,
-                                                 device=offset.device)
-    s_cache = cache.k.shape[3]
-    hd, eps = cfg.head_dim, cfg.norm_eps
+    ctx = chunk_context(cfg, params, x, carry["cache"], offset, valid, instances,
+                        S.layer_group(cfg, tp))
+    lay, groups, psum = params["layers"], ctx.groups, ctx.psum
+    for i in range(cfg.num_layers):
+        x, k, v = chunk_attention(cfg, ctx, params, i, x)
+        nn_ = L.rms_norm(x, ctx.per_lane["mlp_norm"][i], cfg.norm_eps)
+        x = x + psum(L.swiglu_mlp(nn_, lay["w_gate"][i], lay["w_up"][i], lay["w_down"][i],
+                                  groups))
+        chunk_append(ctx, i, k, v)
+    return carry
+
+
+@dataclasses.dataclass
+class ChunkContext:
+    """What every layer of one chunk call shares: the cache, the chunk's
+    positions and offsets, RoPE tables, the cache-write index, the lane
+    groups and per-lane norm / bias rows, this rank's heads and its sum."""
+    cache: KVCache
+    offset: torch.Tensor
+    positions: torch.Tensor
+    cos: torch.Tensor
+    sin: torch.Tensor
+    index: tuple
+    groups: L.LaneGroups | None
+    per_lane: dict
+    heads: int
+    kv_heads: int
+    psum: Callable
+
+
+def chunk_context(cfg: ModelConfig, params, x, cache: KVCache, offset, valid=None,
+                  instances=None, ltp=None) -> ChunkContext:
+    """The shared part of a chunk call over x (M, B, C, D) at ``offset``;
+    ``ltp`` the layer group under a layer split, else None."""
+    c = x.shape[2]
+    positions = offset[..., None] + torch.arange(c, dtype=offset.dtype, device=offset.device)
     lay = params["layers"]
-    ltp = S.layer_group(cfg, tp)
     n_split = 1 if ltp is None else ltp.size
-    h, kvh = cfg.num_heads // n_split, cfg.num_kv_heads // n_split
-    psum = (lambda t: t) if ltp is None else ltp.all_reduce_sum
     groups = None
     if instances is not None:
         groups = L.LaneGroups(instances, lay["wq"].shape[1], x.device)
     per_lane = {k: (groups.rows(lay[k], 1) if groups else lay[k])
                 for k in ("attn_norm", "mlp_norm", "bq", "bk", "bv") if k in lay}
-    cos, sin = L.rope_tables(positions, hd, cfg.rope_theta, x.dtype)
-    index = L.chunk_write_index(positions, s_cache, 0, valid)
-    for i in range(cfg.num_layers):
-        lp = {k: lay[k][i] for k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")}
-        pl = {k: v[i] for k, v in per_lane.items()}
-        ck, cv = cache.k[i], cache.v[i]
-        n = L.rms_norm(x, pl["attn_norm"], eps)
-        q = L.linear(n, lp["wq"], pl.get("bq"), groups).reshape(m, b, c, h, hd)
-        k = L.linear(n, lp["wk"], pl.get("bk"), groups).reshape(m, b, c, kvh, hd)
-        v = L.linear(n, lp["wv"], pl.get("bv"), groups).reshape(m, b, c, kvh, hd)
-        q = L.rope_apply(q, cos, sin)
-        k = L.rope_apply(k, cos, sin)
-        k_all = torch.cat([ck, k.to(ck.dtype)], dim=2)
-        v_all = torch.cat([cv, v.to(cv.dtype)], dim=2)
-        o = K.chunk_prefill_attention(q, k_all, v_all, offset, s_cache=s_cache,
-                                      window=cfg.sliding_window)
-        x = x + psum(L.linear(o.reshape(m, b, c, h * hd), lp["wo"], groups=groups))
-        nn_ = L.rms_norm(x, pl["mlp_norm"], eps)
-        x = x + psum(L.swiglu_mlp(nn_, lp["w_gate"], lp["w_up"], lp["w_down"], groups))
-        L.cache_append_chunk(ck, k, positions, index=index)
-        L.cache_append_chunk(cv, v, positions, index=index)
-    return carry
+    cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.dtype)
+    return ChunkContext(
+        cache=cache, offset=offset, positions=positions, cos=cos, sin=sin,
+        index=L.chunk_write_index(positions, cache.k.shape[3], 0, valid), groups=groups,
+        per_lane=per_lane, heads=cfg.num_heads // n_split,
+        kv_heads=cfg.num_kv_heads // n_split,
+        psum=(lambda t: t) if ltp is None else ltp.all_reduce_sum)
+
+
+def chunk_attention(cfg: ModelConfig, ctx: ChunkContext, params, i: int, x):
+    """Layer ``i``'s attention over [cache so far, chunk]: rms -> QKV
+    (+bias) -> RoPE -> the chunk attention kernel -> out-proj (+ the sum
+    over the ranks) + residual.  Returns (x, k, v); the caller appends k
+    and v with :func:`chunk_append` once the layer no longer reads the
+    cache."""
+    lay, groups = params["layers"], ctx.groups
+    m, b, c, _ = x.shape
+    h, kvh, hd = ctx.heads, ctx.kv_heads, cfg.head_dim
+    pl = {k: v[i] for k, v in ctx.per_lane.items()}
+    ck, cv = ctx.cache.k[i], ctx.cache.v[i]
+    n = L.rms_norm(x, pl["attn_norm"], cfg.norm_eps)
+    q = L.linear(n, lay["wq"][i], pl.get("bq"), groups).reshape(m, b, c, h, hd)
+    k = L.linear(n, lay["wk"][i], pl.get("bk"), groups).reshape(m, b, c, kvh, hd)
+    v = L.linear(n, lay["wv"][i], pl.get("bv"), groups).reshape(m, b, c, kvh, hd)
+    q = L.rope_apply(q, ctx.cos, ctx.sin)
+    k = L.rope_apply(k, ctx.cos, ctx.sin)
+    k_all = torch.cat([ck, k.to(ck.dtype)], dim=2)
+    v_all = torch.cat([cv, v.to(cv.dtype)], dim=2)
+    o = K.chunk_prefill_attention(q, k_all, v_all, ctx.offset, s_cache=ck.shape[2],
+                                  window=cfg.sliding_window)
+    x = x + ctx.psum(L.linear(o.reshape(m, b, c, h * hd), lay["wo"][i], groups=groups))
+    return x, k, v
+
+
+def chunk_append(ctx: ChunkContext, i: int, k, v) -> None:
+    """Append the chunk's k and v rows of layer ``i`` at their ring slots."""
+    L.cache_append_chunk(ctx.cache.k[i], k, ctx.positions, index=ctx.index)
+    L.cache_append_chunk(ctx.cache.v[i], v, ctx.positions, index=ctx.index)
 
 
 def _decode_layers(cfg: ModelConfig, params, cache: KVCache, x, pos, alive=None, tp=None):

@@ -1,5 +1,5 @@
 """Multi-model serving engine — the paper's deployment scenario (port of
-``repro.serving.engine``, dense, ssm and hybrid families; tensor
+``repro.serving.engine``, dense, moe, ssm and hybrid families; tensor
 parallelism for dense and hybrid; the data axis for all three).
 
 M fine-tuned instances of one architecture, merged on a leading
@@ -63,7 +63,7 @@ from repro_torch.serving.prefill import ChunkedPrefill
 from repro_torch.serving.sampling import make_grid_sampler
 from repro_torch.serving.scheduler import Request, Result, Scheduler, make_scheduler
 
-SERVABLE_FAMILIES = ("dense", "ssm", "hybrid")
+SERVABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class MultiModelServer:

@@ -1,5 +1,5 @@
 """Chunked prefill for serving admission (port of
-``repro.serving.prefill``, dense, ssm and hybrid families; tensor
+``repro.serving.prefill``, dense, moe, ssm and hybrid families; tensor
 parallelism for dense and hybrid: ``tp`` makes the carry a rank's
 shard; on a mesh with a data axis ``cfg`` is the rank's local config).
 
@@ -27,7 +27,10 @@ until the engine scatters it.  The chunk is clamped to the narrowest
 ring of the cache (dense sliding window, hybrid SWA ring after the meta
 tokens); recurrent state has no ring.  Hybrid prompts start after the
 ``prefill_prefix_len`` meta positions, whose chunk rows the model fills
-from its meta-token embeddings.
+from its meta-token embeddings.  A moe chunk call also carries each
+lane's ``moe_limit``, the capacity an exact-length pass over the lane's
+real tokens would use (0 on a lane with no request), and a fresh lane's
+per-expert counts start at zero with its carry rows.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import torch
 
 from repro_torch import api
 from repro_torch.models import hybrid as H
+from repro_torch.models import moe
 from repro_torch.models.common import tree_reset_lanes
 from repro_torch.serving.scheduler import Request
 
@@ -95,13 +99,13 @@ class ChunkedPrefill:
 
     def _min_ring_width(self) -> int:
         """Narrowest ring of the family's caches (0: none): the sliding
-        window (dense), the SWA ring after the pinned meta tokens
+        window (dense, moe), the SWA ring after the pinned meta tokens
         (hybrid; ``make_cache`` clips it to ``max_context``)."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             s_cache = min(H.NUM_META_TOKENS + H.swa_window(cfg), self.max_context)
             return max(s_cache - H.NUM_META_TOKENS, 1)
-        return cfg.sliding_window if cfg.family == "dense" else 0
+        return cfg.sliding_window if cfg.family in ("dense", "moe") else 0
 
     def max_prompt_len(self) -> int:
         return self.max_context - self.prefix
@@ -223,6 +227,12 @@ class ChunkedPrefill:
         dev = self.device
         batch = {"tokens": torch.from_numpy(toks).to(dev),
                  "valid": torch.from_numpy(pvalid).to(dev)}
+        if self.cfg.family == "moe":
+            limit = np.zeros((k, 1), np.int32)
+            for i, lane in enumerate(self._lanes):
+                if lane.req is not None and lane.total > 0:
+                    limit[i, 0] = moe.capacity(self.cfg, lane.total)
+            batch["moe_limit"] = torch.from_numpy(limit).to(dev)
         api.prefill_chunk(self.cfg, params, batch, self._carry,
                           torch.from_numpy(offset).to(dev), instances=inst, tp=self.tp)
         self.device_calls += 1

@@ -8,7 +8,8 @@ from repro.configs import registry as jreg
 from repro_torch.configs import registry as treg
 
 DENSE = ["tinyllama-1.1b", "qwen1.5-0.5b", "granite-3-2b", "deepseek-67b"]
-SERVED = DENSE + ["xlstm-1.3b", "hymba-1.5b"]
+MOE = ["olmoe-1b-7b", "qwen3-moe-30b-a3b"]
+SERVED = DENSE + ["xlstm-1.3b", "hymba-1.5b"] + MOE
 PAPER = ["resnet50", "resnext50", "bert-base", "xlnet-base"]
 PORTED = SERVED + PAPER
 
@@ -42,6 +43,13 @@ def test_hybrid_config_matches_reference(smoke):
         getattr(jreg, get)("hymba-1.5b"))
 
 
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_moe_config_matches_reference(arch, smoke):
+    get = "get_smoke_config" if smoke else "get_config"
+    assert dataclasses.asdict(getattr(treg, get)(arch)) == _fields(getattr(jreg, get)(arch))
+
+
 @pytest.mark.parametrize("arch", PAPER)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_paper_config_matches_reference(arch, smoke):
@@ -71,6 +79,6 @@ def test_registry_ids_match_and_unported_raise():
     assert treg.ASSIGNED == jreg.ASSIGNED and treg.PAPER_MODELS == jreg.PAPER_MODELS
     assert sorted(treg.PORTED) == sorted(PORTED)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        treg.get_config("olmoe-1b-7b")
+        treg.get_config("internvl2-26b")
     with pytest.raises(KeyError):
         treg.get_config("no-such-arch")

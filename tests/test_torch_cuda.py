@@ -757,3 +757,101 @@ def test_tensor_maps_encoded_once_per_weight(dev):
     fm.fused_matmul_cuda(torch.randn(2, 4, 64, device=dev).to(torch.bfloat16), w)
     torch.cuda.synchronize()
     assert build.tensor_maps.encodes == n + 1
+
+
+# ---------------------------------------------------------------------------
+# a lane's result does not depend on who shares its call
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,h,kvh,hd,ff", [(512, 8, 2, 64, 384), (512, 4, 4, 128, 0),
+                                           (2048, 16, 2, 64, 2816)])
+def test_decode_layer_lane_alone_equals_its_row(dev, d, h, kvh, hd, ff):
+    """bf16: one lane alone (M=1, B=1) equals, bit for bit, its row of an
+    M=4 x B=4, an M=2 x B=4 and an M=4 x B=12 (wgmma N 16) call: the whole
+    layer (ff > 0) or the attention phase alone (ff == 0), output and ring."""
+    m, b, s = 4, 12, 300
+    lp, x, ck, cv = _layer(dev, torch.bfloat16, m, b, d, h, kvh, hd, ff or 64, s, False, seed=3)
+    if not ff:
+        lp = {k: lp[k] for k in ("attn_norm", "wq", "wk", "wv", "wo")}
+    pos = (s + torch.randint(0, s, (m, b), device=dev)).to(torch.int32)
+    kw = dict(num_heads=h, head_dim=hd, rope_theta=10000.0)
+    call = dl.decode_layer_cuda if ff else dl.decode_layer_attn_cuda
+
+    def run(ms, bs):
+        sub = {k: v[ms].contiguous() for k, v in lp.items()}
+        k_, v_ = ck[ms, bs].contiguous(), cv[ms, bs].contiguous()
+        return call(sub, x[ms, bs].contiguous(), k_, v_, pos[ms, bs].contiguous(), **kw)[0], k_, v_
+
+    one = run(slice(1, 2), slice(2, 3))
+    for ms, bs in ((slice(0, 4), slice(0, 4)), (slice(0, 2), slice(0, 4)),
+                   (slice(0, 4), slice(0, 12))):
+        got = run(ms, bs)
+        torch.cuda.synchronize()
+        for a, g in zip(one, got):
+            assert torch.equal(a[0, 0], g[1, 2]), (ms, bs)
+
+
+@pytest.mark.parametrize("h,kvh,hd,sc", [(32, 4, 64, 1024), (16, 16, 128, 1024), (8, 2, 64, 200)])
+def test_chunk_prefill_lane_alone_equals_its_row(dev, h, kvh, hd, sc):
+    """bf16: one lane alone equals, bit for bit, its row of a 4-lane and a
+    2-lane call (the split of its keys reads the shapes only)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    c = 32
+    r = lambda *shp: torch.randn(shp, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = r(4, 1, c, h, hd), r(4, 1, sc + c, kvh, hd), r(4, 1, sc + c, kvh, hd)
+    off = torch.tensor([[10], [150], [sc + 7], [3 * sc]], dtype=torch.int32, device=dev)
+    alone = cpa.chunk_prefill_attention_cuda(q[1:2], k[1:2], v[1:2], off[1:2], s_cache=sc)
+    for n in (4, 2):
+        got = cpa.chunk_prefill_attention_cuda(q[:n], k[:n], v[:n], off[:n], s_cache=sc)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], got[1]), n
+
+
+@pytest.mark.parametrize("m,d,f,t_one,ts", [(4, 2048, 5632, 1, (4, 12)), (64, 2048, 1024, 1, (4, 12)),
+                                            (4, 2048, 1024, 32, (32, 64)),
+                                            (64, 2048, 1024, 32, (32,))])
+def test_fused_matmul_row_alone_equals_its_row(dev, m, d, f, t_one, ts):
+    """bf16: a row of one instance alone (skinny, t_one = 1; wide, one
+    instance's 32 rows) equals, bit for bit, its row in calls of m and of
+    2 instances and of more rows (wgmma N 8 and 16; wide tiles of 32 and
+    64 rows; at m = 64 the wide tiles are 256 columns, alone 128)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(m, max(ts), d, generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(torch.bfloat16)
+    r0 = 2
+    alone = fm.fused_matmul_cuda(x[1:2, :t_one].contiguous() if t_one > 1
+                                 else x[1:2, r0:r0 + 1].contiguous(), w[1:2].contiguous())
+    want = alone[0, r0 if t_one > 1 else 0]
+    for n in (m, 2):
+        for t in ts:
+            got = fm.fused_matmul_cuda(x[:n, :t].contiguous(), w[:n].contiguous())
+            torch.cuda.synchronize()
+            assert torch.equal(want, got[1, r0]), (n, t)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-30b-a3b"])
+def test_moe_mlp_kernel_path(dev, arch):
+    """The MoE FFN on the card (the merged matmul over the (instance,
+    expert) pairs, three launches) against the plain path on the CPU:
+    bf16 within the bf16 tolerance, f32 within 1e-4."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+
+    cfg = registry.get_smoke_config(arch).with_(num_instances=2, d_model=256, d_ff=128,
+                                                num_experts=16, num_experts_per_tok=4)
+    g = torch.Generator().manual_seed(7)
+    lp = {"router": torch.randn(2, 256, 16, generator=g) / 16,
+          "we_gate": torch.randn(2, 16, 256, 128, generator=g) / 16,
+          "we_up": torch.randn(2, 16, 256, 128, generator=g) / 16,
+          "we_down": torch.randn(2, 16, 128, 256, generator=g) / 128 ** 0.5}
+    x = torch.randn(2, 3, 32, 256, generator=g)
+    for dt in (torch.float32, torch.bfloat16):
+        want = moe.moe_mlp(cfg, {k: v.to(dt) if k != "router" else v for k, v in lp.items()},
+                           x.to(dt))
+        ops.reset_launches()
+        got = moe.moe_mlp(cfg, {k: (v.to(dt) if k != "router" else v).to(dev)
+                                for k, v in lp.items()}, x.to(dt).to(dev))
+        torch.cuda.synchronize()
+        assert ops.launches()["fused_matmul"] == 3
+        assert _err(got.cpu(), want) <= _tol(dt), dt

@@ -85,14 +85,16 @@ def test_fused_matmul_plan_variant(m, t, d, f):
     columns unless those tiles would leave over half the SMs idle).  f32
     and rows not 16-byte aligned take the FMA / element-wise kernel.  A
     skinny split, a cluster of at most 8 blocks of at least 4 k-steps,
-    stops once the blocks reach a quarter of the SMs."""
+    stops once 4 instances' blocks reach a quarter of an H100's SMs,
+    whatever the call's instance count."""
     p = fm.launch_plan(m, t, d, f, "bfloat16", SMS)
     if d % 8 or f % 8:
         assert p.variant == "simt"
     elif t <= 16:
         assert p.variant == "skinny" and p.rows == (8 if t <= 8 else 16) and p.cols == 128
-        tiles, steps = m * math.ceil(f / 128), math.ceil(d / fm.HK)
+        tiles, steps = 4 * math.ceil(f / 128), math.ceil(d / fm.HK)
         assert 1 <= p.split <= min(fm.MAX_SPLIT, steps)
+        assert p.split == fm.skinny_split(d, f)
         assert p.split == 1 or tiles * (p.split - 1) < SMS / 4
         assert (tiles * p.split >= SMS / 4 or p.split == fm.MAX_SPLIT
                 or p.split == max(1, steps // fm.MIN_SPLIT_STEPS))
@@ -119,6 +121,16 @@ def test_fused_matmul_plan_serving_shapes():
     assert fm.launch_plan(3, 77, 768, 3072).grid == (72, 1, 1)
 
 
+def test_fused_matmul_plan_wide_cols_read_m():
+    """The wide path's column tile is the one layout that reads the
+    instance count (a tile's width, not the order of a row's sums): at f =
+    1024 and t = 32, one or two instances take 128 columns and 64 take 256,
+    the two sides the card's lane check holds bit for bit
+    (``test_torch_cuda.test_fused_matmul_row_alone_equals_its_row``)."""
+    assert [fm.launch_plan(n, 32, 2048, 1024).cols for n in (1, 2, 64)] == [128, 128, 256]
+    assert {fm.launch_plan(n, 32, 2048, 1024).split for n in (1, 2, 64)} == {1}
+
+
 CHUNK_SHAPES = [
     # (lanes, c, h, kvh, hd, s_cache): tinyllama's serve shape, hymba's two
     # groups, the CUDA tests' shapes
@@ -133,7 +145,7 @@ def test_chunk_plan_splits_cover_keys_once(lanes, c, h, kvh, hd, sc):
     """The splits of each (lane, kv head, row block) walk the key tiles
     of [0, S + C) exactly once, each split at least one tile; the grid's
     first axis holds every row block's splits (a cluster each)."""
-    p = cpa.launch_plan(lanes, c, h, kvh, hd, sc, "bfloat16", SMS)
+    p = cpa.launch_plan(lanes, c, h, kvh, hd, sc, "bfloat16")
     assert p.tiles == math.ceil((sc + c) / cpa.KEYS)
     assert 1 <= p.splits <= min(p.tiles, cpa.MAX_SPLITS)
     keys = [0] * (sc + c)
@@ -148,15 +160,16 @@ def test_chunk_plan_splits_cover_keys_once(lanes, c, h, kvh, hd, sc):
 
 @pytest.mark.parametrize("lanes,c,h,kvh,hd,sc", CHUNK_SHAPES)
 def test_chunk_plan_fills_card(lanes, c, h, kvh, hd, sc):
-    """bf16: the fewest splits that make two waves of blocks, unless every
-    tile has its own split already or the cluster is at its 8; f32 never
-    splits."""
-    p = cpa.launch_plan(lanes, c, h, kvh, hd, sc, "bfloat16", SMS)
-    assert (math.prod(p.grid) >= 2 * SMS or p.splits == p.tiles
+    """bf16: the fewest splits that give one lane the blocks of two waves
+    of an H100 over 4 lanes, unless every tile has its own split already
+    or the cluster is at its 8; f32 never splits."""
+    p = cpa.launch_plan(lanes, c, h, kvh, hd, sc, "bfloat16")
+    per_lane = math.prod(p.grid) // lanes
+    assert (per_lane >= 2 * SMS / 4 or p.splits == p.tiles
             or p.splits == cpa.MAX_SPLITS)
     if p.splits > 1:
-        assert math.prod(p.grid) // p.splits * (p.splits - 1) < 2 * SMS
-    assert cpa.launch_plan(lanes, c, h, kvh, hd, sc, "float32", SMS).splits == 1
+        assert per_lane // p.splits * (p.splits - 1) < 2 * SMS / 4
+    assert cpa.launch_plan(lanes, c, h, kvh, hd, sc, "float32").splits == 1
 
 
 def test_chunk_plan_serving_shapes():
@@ -426,7 +439,7 @@ def test_matvec_plan_covers_outputs_once(m, b, k, n, pair):
     """The blocks' 128-column tiles cover each segment's columns exactly
     once per split, the splits walk k's 64-deep steps exactly once in
     order (the kernel's ranges), and a block fits its shared memory."""
-    p = dl.matvec_plan(m, b, k, n, "bfloat16", SMS, pair)
+    p = dl.matvec_plan(m, b, k, n, "bfloat16", pair)
     assert p.variant == "tc" and p.rows == (8 if b <= 8 else 16)
     segs = (n,) if isinstance(n, int) else n
     tiles = [math.ceil(w / p.tile) for w in segs]
@@ -445,30 +458,32 @@ def test_matvec_plan_covers_outputs_once(m, b, k, n, pair):
 
 @pytest.mark.parametrize("m,b,k,n,pair", MATVEC_SHAPES)
 def test_matvec_plan_split_rule(m, b, k, n, pair):
-    """A split only where the blocks fill under half of the SMs, each
-    split at least 4 steps (unless shared memory forced more), at most a
-    cluster of 8; f32 and more than 16 lanes keep the lanes matvec."""
-    p = dl.matvec_plan(m, b, k, n, "bfloat16", SMS, pair)
+    """A split only where 4 instances' blocks fill under half of an H100's
+    SMs, each split at least 4 steps (unless 16 lanes' shared memory
+    forced more), at most a cluster of 8; f32 and more than 16 lanes keep
+    the lanes matvec."""
+    p = dl.matvec_plan(m, b, k, n, "bfloat16", pair)
     tiles, steps = p.grid[0], math.ceil(k / dl.TC_HK)
     assert 1 <= p.split <= min(dl.TC_MAX_SPLIT, steps)
-    if p.split > 1 and dl.tc_smem(p.rows, math.ceil(steps / (p.split - 1)), pair) <= dl.MAX_SMEM:
-        assert tiles * m * (p.split - 1) < SMS / 2 and steps // p.split >= dl.TC_MIN_SPLIT_STEPS
-    assert dl.matvec_plan(m, b, k, n, "float32", SMS, pair).variant == "simt"
-    assert dl.matvec_plan(m, 17, k, n, "bfloat16", SMS, pair).variant == "simt"
+    if p.split > 1 and dl.tc_smem(16, math.ceil(steps / (p.split - 1)), pair) <= dl.MAX_SMEM:
+        assert tiles * 4 * (p.split - 1) < SMS / 2 and steps // p.split >= dl.TC_MIN_SPLIT_STEPS
+    assert dl.matvec_plan(m, b, k, n, "float32", pair).variant == "simt"
+    assert dl.matvec_plan(m, 17, k, n, "bfloat16", pair).variant == "simt"
 
 
 def test_matvec_plan_serving_shapes():
     """tinyllama-1.1b at M = 4, B = 4: QKV 80 blocks and gate/up 176 run
     whole, out and down (64 tiles) split in 2; a TP=2 rank's QKV (40
-    tiles) splits in 2; a 2x1 data rank (M = 2) splits out and down in 3.
-    Every product takes N = 8."""
+    tiles) splits in 2; a 2x1 data rank (M = 2) splits out and down in 2
+    as well, so its lanes' sums equal one device's at M = 4.  Every
+    product takes N = 8."""
     plans = dl.layer_plans(4, 4, 2048, 32, 4, 64, 5632)
     assert {k: (p.split, p.grid) for k, p in plans.items()} == {
         "qkv": (1, (20, 1, 4)), "out": (2, (16, 2, 4)), "gate_up": (1, (44, 1, 4)),
         "down": (2, (16, 2, 4))}
     assert dl.layer_plans(4, 4, 2048, 16, 2, 64, 2816)["qkv"].split == 2
     rank = dl.layer_plans(2, 4, 2048, 32, 4, 64, 5632)
-    assert rank["out"].split == rank["down"].split == 3
+    assert rank["out"].split == rank["down"].split == 2
     assert all(p.rows == 8 for p in plans.values())
     assert dl.layer_plans(4, 4, 2048, 32, 4, 64, 5632, "float32") is None
 
@@ -536,3 +551,49 @@ def test_tensor_maps_refuse_what_no_map_describes_and_stay_bounded():
     assert maps.encodes == 3 and len(maps._maps) == 1
     maps.get(ws[2], 64)
     assert maps.encodes == 3
+
+
+# ---------------------------------------------------------------------------
+# a lane's sums never depend on who shares its call
+# ---------------------------------------------------------------------------
+
+SPLIT_M, SPLIT_B, SPLIT_SMS = (1, 2, 4, 8, 32), (1, 4, 8, 16), (66, 114, 132)
+
+
+@pytest.mark.parametrize("case", [
+    # (d, h, kvh, hd, ff): tinyllama-1.1b, its TP=2 rank, olmoe-1b-7b's
+    # attention, hymba's, a small layer of the CUDA tests
+    (2048, 32, 4, 64, 5632), (2048, 16, 2, 64, 2816), (2048, 16, 16, 128, 1024),
+    (1600, 25, 5, 64, 5504), (512, 8, 2, 64, 384)])
+def test_plan_splits_read_no_lane_or_sm_count(case):
+    """The split counts of the decode layer's products, the chunk
+    attention and the skinny merged matmul are one number per weight /
+    key shape across instance counts m in {1, 2, 4, 8, 32}, lanes b in
+    {1, 4, 8, 16} (the wgmma N of 8 and of 16) and SM counts {66, 114,
+    132}: the order in which one output's partial sums are added cannot
+    change with them.  (Earlier pins: a 2x1 data rank at M = 2 split
+    tinyllama's out and down in 3 where M = 4 split them in 2.)"""
+    d, h, kvh, hd, ff = case
+    layer = {(m, b): {k: p.split for k, p in dl.layer_plans(m, b, d, h, kvh, hd, ff).items()}
+             for m in SPLIT_M for b in SPLIT_B}
+    assert len({tuple(sorted(v.items())) for v in layer.values()}) == 1, layer
+    for c, s_cache in ((32, 1024), (32, 200), (8, 16)):
+        splits = {cpa.launch_plan(m * b, c, h, kvh, hd, s_cache).splits
+                  for m in SPLIT_M for b in SPLIT_B}
+        assert len(splits) == 1, (c, s_cache, splits)
+    for k, n in ((d, ff), (ff, d), (d, h * hd), (d, 1024), (1024, d)):
+        splits = {fm.launch_plan(m, t, k, n, "bfloat16", sms).split
+                  for m in SPLIT_M for t in SPLIT_B for sms in SPLIT_SMS}
+        assert splits == {fm.skinny_split(k, n)}, (k, n, splits)
+
+
+def test_matvec_plan_lanes_matvec_starts_past_16_lanes():
+    """Past 16 lanes a product keeps the lanes matvec, which sums in
+    another order than the wgmma path (an open fault: a lane's bf16
+    output there differs from its output in a call of at most 16 lanes).
+    This pins where that starts, for every product of tinyllama's layer."""
+    for b in range(1, 17):
+        assert dl.layer_plans(4, b, 2048, 32, 4, 64, 5632) is not None, b
+    for b in (17, 32, 64):
+        assert dl.layer_plans(4, b, 2048, 32, 4, 64, 5632) is None
+        assert dl.matvec_plan(4, b, 2048, 2048).variant == "simt"
