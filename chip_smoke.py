@@ -73,7 +73,16 @@ non-zero before the result line is printed):
               attention at both widths (one lane against 4 and 2), the
               merged matmul skinny (the tinyllama FFN, olmoe's 64 experts)
               and wide (32 and 64 rows; 64 instances, whose wide tiles are
-              256 columns, against one, whose are 128);
+              256 columns, against one, whose are 128); past 16 lanes an
+              instance (the wgmma path's lane groups of 16), one lane alone
+              against its row of M=4 x B=24 and M=1 x B=32 calls, bit for
+              bit, for the whole decode layer and both phases, and the
+              whole layer at M=4 x B=32 against its plain version and timed
+              on the lane groups and on the lanes matvec that ran there
+              before; internvl2-26b's widths (the whole layer at d 6144, a
+              GQA group of 6 over heads of 128, d_ff 16384; the logits at
+              V=92553) against their plain versions, each product's plan
+              printed;
 4. serve   -- four main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
               the full tinyllama-1.1b config (dense: decode layer, chunk
@@ -84,7 +93,10 @@ non-zero before the result line is printed):
               olmoe-1b-7b config (moe: 16 layers, 64 experts top-8, 57 GB
               of weights at M=4; chunk attention, the decode layer's
               attention phase, the merged matmul carrying the experts,
-              logits), M=4 seeded random instances, 16 requests each;
+              logits), M=4 seeded random instances, and on internvl2-26b
+              at M=2 cut to 24 of its 48 layers (vlm: the 256 zero patch
+              positions before each prompt; the whole decode layer, the
+              chunk attention, the logits), 16 requests each;
               every kernel of a path must have launched, with the counts
               each step and chunk call implies; each path's mix served
               again with PROFILE_STEPS engine steps after its first
@@ -92,11 +104,12 @@ non-zero before the result line is printed):
               of that window);
 5. check   -- greedy K=1 vs K=8 streams identical on the card for the
               four families (full widths, cut depth; olmoe-1b-7b and
-              qwen3-moe-30b-a3b at 4 layers), and the kernel path against
-              the plain path on the CPU on small f32 configs (hymba-smoke
-              at 4 layers over 176 prefilled positions: the meta prefix
-              and a wrapped SWA ring; olmoe-smoke with its exact-length
-              capacity);
+              qwen3-moe-30b-a3b and internvl2-26b at 4 layers), and the
+              kernel path against the plain path on the CPU on small f32
+              configs (hymba-smoke at 4 layers over 176 prefilled
+              positions: the meta prefix and a wrapped SWA ring;
+              olmoe-smoke with its exact-length capacity; internvl2-smoke
+              with random patch embeddings over its 8 prefix positions);
 5b. graph  -- the paper's Algorithm 1 (``repro_torch.core.graph``): the
               FFNN graph (FC -> LayerNorm -> GELU -> FC) at bert-base's FFN
               widths (768 -> 3072 -> 768, 128 tokens an instance) and the
@@ -140,6 +153,21 @@ non-zero before the result line is printed):
               (4, 4, 2048, 5632) problem with bias, reassembled against the
               plain version, each rank's wrapper launched once per call;
               reported: the data gather's and the model sums' ms;
+8b. moe_mesh -- merged MoE on (data=D, model=T) meshes, the ranks sharing
+              the card (gloo), each rank drawing only its shard: 1x2 and
+              2x1 the full olmoe-1b-7b (M=4, 16 requests of 16-512 tokens,
+              32 new, K=8; 1x2: a rank holds 8 of 16 heads, 32 of 64
+              experts an instance, half the vocab), 2x2 qwen3-moe-30b-a3b
+              cut to 4 layers (128 experts in windows of 64); every launch
+              counter set to 0 just before and read just after on each rank
+              -- 16 attention phases and 48 merged matmuls a decode step,
+              the whole layer never; the ranks' streams identical; the f32
+              olmoe-smoke config's streams equal to the single-device plain
+              path on the CPU; 2x1 streams equal to the serve phase's
+              one-device streams, 16 of 16; 2x2 K=1 == K=8; no 1x2 rank's
+              setup peak above its shard, caches and one drawn layer of a
+              leaf; reported: ms per sum, each rank's peaks, how many 1x2
+              streams equal one device's;
 9. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
               at full width: bert-base and xlnet-base at S=128, resnet50
               and resnext50 at 224x224, bs=1, M in {1, 8, 32} under
@@ -229,6 +257,15 @@ DATA_MESHES = ((2, 1), (2, 2))
 MATMUL_MESHES = ((1, 2), (2, 1), (2, 2))
 # a data rank's instance rows at D=2: the decode kernels run at M_L, not M
 M_L = M // 2
+# the vlm serve cell: internvl2-26b at 2 instances, cut to 24 of its 48
+# layers (46.6 GB merged in bf16 with the f32 embed and head, computed from
+# shapes; the whole depth would be 90 GB)
+VLM_M, VLM_LAYERS = 2, 24
+# the moe mesh cells: (data, model) meshes, all ranks on the one card over
+# gloo; olmoe-1b-7b at full depth on 1x2 and 2x1, qwen3-moe-30b-a3b cut to
+# QWEN_LAYERS of 48 layers on 2x2
+MOE_MESHES = ((1, 2), (2, 1), (2, 2))
+QWEN_LAYERS = 4
 
 # bf16 tolerance, relative to the largest magnitude of the plain output:
 # one bf16 ulp is 2^-8 = 3.9e-3; the kernels sum in another order than
@@ -540,10 +577,14 @@ def phase_kernels(torch, dev):
     errs.update(sharded_matmul_cases(torch, dev))
     errs.update(attn_mlstm_cases(torch, dev))
     errs.update(lane_cases(torch, dev))
+    groups, b32 = lane_group_cases(torch, dev)
+    errs.update(groups)
+    errs.update(vlm_width_cases(torch, dev))
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
         tolerance_f32=TOL["float32"], status="ok")
+    return b32
 
 
 def lane_cases(torch, dev):
@@ -633,6 +674,139 @@ def lane_cases(torch, dev):
     torch.cuda.synchronize()
     log("kernels", lane_checks=len(cases), bit_for_bit="equal")
     return cases
+
+
+def lane_group_cases(torch, dev):
+    """The decode layer past 16 lanes an instance (bf16, tinyllama-1.1b
+    width, wrapped ring), where the wgmma path walks groups of 16 lanes:
+    one lane alone equals, bit for bit, its row of an M=4 x B=24 and an
+    M=1 x B=32 call, for the whole layer and for the attention and FFN
+    phases; the whole layer at M=4 x B=32 against its plain version, and
+    timed (CUDA events; device time queued behind a spin) on the lane
+    groups and on the lanes matvec that ran there before them
+    (``decode_layer._attn_phase`` / ``_ffn_phase`` with the residual),
+    in turns (lanes matvec, groups, groups, lanes matvec).  Returns (cases,
+    times)."""
+    from repro_torch.kernels import decode_layer as dl
+
+    bf16, nb = torch.bfloat16, 32
+    g = torch.Generator(device=dev).manual_seed(62)
+    rn = lambda *shp, sc=1.0: (torch.randn(shp, generator=g, device=dev) * sc).to(bf16)
+    lp = {"attn_norm": 1 + 0.1 * torch.randn(M, D, generator=g, device=dev),
+          "mlp_norm": 1 + 0.1 * torch.randn(M, D, generator=g, device=dev),
+          "wq": rn(M, D, H * HD, sc=D ** -0.5), "wk": rn(M, D, KVH * HD, sc=D ** -0.5),
+          "wv": rn(M, D, KVH * HD, sc=D ** -0.5), "wo": rn(M, H * HD, D, sc=(H * HD) ** -0.5),
+          "w_gate": rn(M, D, F, sc=D ** -0.5), "w_up": rn(M, D, F, sc=D ** -0.5),
+          "w_down": rn(M, F, D, sc=F ** -0.5)}
+    x, ck, cv = rn(M, nb, D), rn(M, nb, S, KVH, HD), rn(M, nb, S, KVH, HD)
+    pos = (S + torch.randint(0, S, (M, nb), generator=g, device=dev)).to(torch.int32)
+    kw = dict(num_heads=H, head_dim=HD, rope_theta=10000.0)
+    ffn = ("mlp_norm", "w_gate", "w_up", "w_down")
+    plans = dl.layer_plans(M, nb, D, H, KVH, HD, F)
+    assert plans is not None and all(p.groups == 2 and p.rows == 16 for p in plans.values())
+    cases, m0, b0 = {}, 1, 2
+
+    def run(kind, ms, bs):
+        sub = {k: v[ms].contiguous() for k, v in lp.items()}
+        xs = x[ms, bs].contiguous()
+        if kind == "ffn":
+            return (dl.ffn_cuda(xs, *(sub[k] for k in ffn)),)
+        k_, v_ = ck[ms, bs].contiguous(), cv[ms, bs].contiguous()
+        call = dl.decode_layer_cuda if kind == "layer" else dl.decode_layer_attn_cuda
+        return call(sub, xs, k_, v_, pos[ms, bs].contiguous(), **kw)[0], k_, v_
+
+    for kind in ("layer", "attn", "ffn"):
+        one = run(kind, slice(m0, m0 + 1), slice(b0, b0 + 1))
+        for tag, ms, bs in (("M4xB24", slice(0, M), slice(0, 24)),
+                            ("M1xB32", slice(m0, m0 + 1), slice(0, nb))):
+            got = run(kind, ms, bs)
+            for i, part in enumerate(("out", "k", "v")[:len(got)]):
+                key = f"lane_groups/{kind}/{tag}/{part}"
+                assert torch.equal(one[i][0, 0], got[i][m0 - ms.start, b0]), (
+                    f"{key}: a lane's bits depend on its call")
+                cases[key] = 0.0
+
+    def lanes_matvec(ck_, cv_):
+        x2 = dl._attn_phase(lp, x, ck_, cv_, pos, x, window=0, eps=1e-5, alive=None, **kw)
+        return dl._ffn_phase(x2, *(lp[k] for k in ffn), x2, eps=1e-5)
+
+    want = dl.decode_layer_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    got = dl.decode_layer_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    old = lanes_matvec(ck.clone(), cv.clone())
+    torch.cuda.synchronize()
+    e_new = max(rel_err(a, b) for a, b in zip(got, want))
+    e_old = rel_err(old, want[0])
+    assert e_new <= TOL["bfloat16"] and e_old <= TOL["bfloat16"], (e_new, e_old)
+    cases[f"decode_layer/bfloat16/M{M}xB{nb}/lane_groups"] = e_new
+    cases[f"decode_layer/bfloat16/M{M}xB{nb}/lanes_matvec"] = e_old
+    times = {"lanes_matvec": [], "lane_groups": []}
+    for which in ("lanes_matvec", "lane_groups", "lane_groups", "lanes_matvec"):
+        fn = ((lambda: lanes_matvec(ck, cv)) if which == "lanes_matvec" else
+              (lambda: dl.decode_layer_cuda(lp, x, ck, cv, pos, **kw)))
+        times[which].append((time_ms(torch, fn), time_queued_ms(torch, fn)))
+    n_w = D * (H + 2 * KVH) * HD + H * HD * D + 3 * D * F
+    valid = (pos + 1).clamp(max=S).sum().item()
+    nbytes = (M * n_w * 2 + 2 * M * D * 4 + 2 * M * nb * D * 2
+              + valid * KVH * HD * 2 * 2 + M * nb * KVH * HD * 2 * 2 + M * nb * 4)
+    bms, by = bound_ms(nbytes, 2 * M * nb * n_w + 4 * H * HD * valid, "bfloat16")
+    out = {"b32_bound_ms": bms, "b32_bound_by": by}
+    for which, ts in times.items():
+        out[f"b32_{which}_ms"] = [t[0] for t in ts]
+        out[f"b32_{which}_device_ms"] = [t[1] for t in ts]
+        log("kernels", name="decode_layer", shape=f"M={M}, B={nb}, bf16, whole layer",
+            path=which, ms=[f"{t[0]:.4f}" for t in ts],
+            device_ms=[f"{t[1]:.4f}" for t in ts], bound_ms=f"{bms:.4f}", bound_by=by)
+    log("kernels", lane_group_checks=sum(1 for k in cases if k.startswith("lane_groups")),
+        bit_for_bit="equal", splits={k: p.split for k, p in plans.items()}, groups=2)
+    return cases, out
+
+
+def vlm_width_cases(torch, dev):
+    """internvl2-26b's widths, which no kernel ran at before the vlm
+    family: the whole decode layer (d 6144, 48 / 8 heads of 128 -- a GQA
+    group of 6 --, d_ff 16384 -- the down product split 4 ways) at M=2 x
+    B=4 over a wrapped ring, and the greedy logits at V=92553 (not a
+    multiple of 8) with a duplicated winning column, bf16, against their
+    plain versions; each product's plan in the log."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import decode_layer as dl
+
+    cfg = registry.get_config("internvl2-26b")
+    d, h, kvh, hd, ff, v = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                            cfg.d_ff, cfg.vocab_size)
+    m, bf16 = 2, torch.bfloat16
+    plans = dl.layer_plans(m, B, d, h, kvh, hd, ff)
+    assert plans is not None, "internvl2-26b's layer left the wgmma path"
+    log("kernels", arch=cfg.name, **{f"plan_{k}": f"{p.variant}/N{p.rows}/split{p.split}/"
+                                     f"grid{p.grid}/smem{p.smem}".replace(" ", "")
+                                     for k, p in plans.items()})
+    g = torch.Generator(device=dev).manual_seed(63)
+    rn = lambda *shp, sc=1.0: (torch.randn(shp, generator=g, device=dev) * sc).to(bf16)
+    lp = {"attn_norm": 1 + 0.1 * torch.randn(m, d, generator=g, device=dev),
+          "mlp_norm": 1 + 0.1 * torch.randn(m, d, generator=g, device=dev),
+          "wq": rn(m, d, h * hd, sc=d ** -0.5), "wk": rn(m, d, kvh * hd, sc=d ** -0.5),
+          "wv": rn(m, d, kvh * hd, sc=d ** -0.5), "wo": rn(m, h * hd, d, sc=(h * hd) ** -0.5),
+          "w_gate": rn(m, d, ff, sc=d ** -0.5), "w_up": rn(m, d, ff, sc=d ** -0.5),
+          "w_down": rn(m, ff, d, sc=ff ** -0.5)}
+    x, ck, cv = rn(m, B, d), rn(m, B, S, kvh, hd), rn(m, B, S, kvh, hd)
+    pos = (S + torch.randint(0, S, (m, B), generator=g, device=dev)).to(torch.int32)
+    kw = dict(num_heads=h, head_dim=hd, rope_theta=cfg.rope_theta)
+    want = dl.decode_layer_plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    got = dl.decode_layer_cuda(lp, x, ck.clone(), cv.clone(), pos, **kw)
+    torch.cuda.synchronize()
+    errs = {f"decode_layer/bfloat16/{cfg.name}/M{m}": max(rel_err(a, b)
+                                                         for a, b in zip(got, want))}
+    del lp, x, ck, cv, got, want
+    xs, scale, head = logits_inputs(torch, dev, bf16, 64, d=d, v=v, m=m)
+    tok, val = dl.logits_argmax_cuda(xs, scale, head)
+    ptok, pval = dl.logits_argmax_plain(xs, scale, head)
+    torch.cuda.synchronize()
+    assert (tok == 5).all() and torch.equal(tok, ptok), f"logits V={v}: {tok.tolist()}"
+    errs[f"logits/bfloat16/{cfg.name}/V{v}/dup"] = rel_err(val, pval)
+    del head
+    for key, e in errs.items():
+        assert e <= TOL["bfloat16"], f"{key}: {e}"
+    return errs
 
 
 def hopper_design_cases(torch, dev):
@@ -1270,8 +1444,9 @@ print(json.dumps(res))
 
 def make_server(torch, dev, cfg, seed, **kw):
     """A server on M seeded random instances (``serve.random_merged``:
-    each instance copied into the merged leaves as soon as it is drawn, so
-    the card never holds the instances and their merge at once)."""
+    each instance copied into the merged leaves as soon as it is drawn, or
+    for moe and vlm drawn into them in place, so the card never holds the
+    instances and their merge at once)."""
     from repro_torch.launch import serve
     from repro_torch.serving import MultiModelServer
 
@@ -1288,15 +1463,18 @@ def requests(n, m, lo, hi, max_new, vocab, seed):
                     max_new) for i in range(n)]
 
 
-def serve_path(torch, dev, arch, kernels, max_context=S):
-    """One main path: the full config of ``arch`` at M=4 instances, 16
-    requests with prompts of 16-512 tokens and 32 new tokens each, greedy,
-    K=8.  Every launch counter is set to 0 just before the run and read
-    just after; each kernel in ``kernels`` must have launched."""
+def serve_path(torch, dev, arch, kernels, max_context=S, m=M, layers=None):
+    """One main path: the full config of ``arch`` at ``m`` instances
+    (``layers``: its depth cut), 16 requests with prompts of 16-512 tokens
+    and 32 new tokens each, greedy, K=8.  Every launch counter is set to 0
+    just before the run and read just after; each kernel in ``kernels``
+    must have launched."""
     from repro_torch.configs import registry
     from repro_torch.kernels import build, ops
 
-    cfg = registry.get_config(arch).with_(num_instances=M)
+    cfg = registry.get_config(arch).with_(num_instances=m)
+    if layers:
+        cfg = cfg.with_(num_layers=layers)
     maps0 = build.tensor_maps.encodes
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1305,7 +1483,7 @@ def serve_path(torch, dev, arch, kernels, max_context=S):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     setup_peak = torch.cuda.max_memory_allocated()
-    reqs = requests(16, M, 16, 512, 32, cfg.vocab_size, 0)
+    reqs = requests(16, m, 16, 512, 32, cfg.vocab_size, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -1322,7 +1500,8 @@ def serve_path(torch, dev, arch, kernels, max_context=S):
     assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
     for name in kernels:
         assert launches[name] > 0, f"{name} was never launched on the {arch} path"
-    log("serve", arch=cfg.name, instances=M, slots=B, requests=len(results),
+    log("serve", arch=cfg.name, instances=m, layers=cfg.num_layers, slots=B,
+        requests=len(results),
         tokens=snap["generated_tokens"], wall_s=round(wall, 3),
         tok_per_s=round(snap["generated_tokens"] / wall, 1),
         decode_steps=snap["decode_steps"], decode_blocks=snap["decode_device_calls"],
@@ -1335,7 +1514,7 @@ def serve_path(torch, dev, arch, kernels, max_context=S):
         max_memory_allocated_gib=round(torch.cuda.max_memory_allocated() / 2 ** 30, 2),
         setup_peak_gib=round(setup_peak / 2 ** 30, 2), setup_s=round(setup_s, 1),
         tensor_maps_encoded=build.tensor_maps.encodes - maps0)
-    profile_serve(torch, srv, requests(16, M, 16, 512, 32, cfg.vocab_size, 5), arch)
+    profile_serve(torch, srv, requests(16, m, 16, 512, 32, cfg.vocab_size, 5), arch)
     # the server holds a reference cycle (its step is a bound method): free
     # it now, or the next path's memory peak counts this path's weights
     del srv
@@ -1382,9 +1561,9 @@ def phase_serve(torch, dev):
     # the moe family: 64 experts top-8 at full width and depth, M=4 (57 GB
     # of weights); the attention phase and the merged matmul carry decode,
     # the chunk attention and the merged matmul prefill
-    cfg, snap, olmoe, _ = serve_path(torch, dev, "olmoe-1b-7b",
-                                     ("chunk_prefill_attention", "decode_layer_attn",
-                                      "logits_sample", "fused_matmul"))
+    cfg, snap, olmoe, olmoe_streams = serve_path(torch, dev, "olmoe-1b-7b",
+                                                 ("chunk_prefill_attention", "decode_layer_attn",
+                                                  "logits_sample", "fused_matmul"))
     steps, chunks, n = snap["decode_steps"], snap["prefill_batches"], cfg.num_layers
     assert olmoe["decode_layer_attn"] == n * steps, (olmoe, steps)
     assert olmoe["chunk_prefill_attention"] == n * chunks, (olmoe, chunks)
@@ -1397,8 +1576,27 @@ def phase_serve(torch, dev):
         chunk_launches_check=f"{n}x{chunks}=={olmoe['chunk_prefill_attention']}",
         fused_matmul_check=f"3x{n}x({steps}+{chunks})=={olmoe['fused_matmul']}",
         logits_check=f"{steps}=={olmoe['logits_sample']}")
+
+    # the vlm family: internvl2-26b at M=2 cut to VLM_LAYERS of 48 layers
+    # (d 6144, 48 / 8 heads of 128, d_ff 16384, V 92553), the 256 zero
+    # patch positions before every prompt; the whole decode layer, the
+    # chunk attention and the logits
+    cfg, snap, vlm, _ = serve_path(torch, dev, "internvl2-26b",
+                                   ("decode_layer", "chunk_prefill_attention", "logits_sample"),
+                                   m=VLM_M, layers=VLM_LAYERS)
+    steps, chunks, n = snap["decode_steps"], snap["prefill_batches"], cfg.num_layers
+    assert vlm["decode_layer"] == n * steps, (vlm, steps)
+    assert vlm["chunk_prefill_attention"] == n * chunks, (vlm, chunks)
+    assert vlm["logits_sample"] == steps, (vlm, steps)
+    assert vlm["fused_matmul"] == vlm["decode_layer_attn"] == 0, vlm
+    log("serve", arch=cfg.name, instances=VLM_M, layers=n, image_patches=cfg.num_image_patches,
+        decode_steps=steps, chunk_calls=chunks,
+        decode_layer_check=f"{n}x{steps}=={vlm['decode_layer']}",
+        chunk_launches_check=f"{n}x{chunks}=={vlm['chunk_prefill_attention']}",
+        logits_check=f"{steps}=={vlm['logits_sample']}",
+        merged_gb_from_shapes=round(vlm_bytes(cfg) / 1e9, 2))
     return ({"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm, "hymba-1.5b": hymba,
-             "olmoe-1b-7b": olmoe}, dense_streams)
+             "olmoe-1b-7b": olmoe, "internvl2-26b": vlm}, dense_streams, olmoe_streams)
 
 
 def device_us(e):
@@ -1865,6 +2063,193 @@ def phase_data(torch, dev, single_streams):
     return out, matmul_launches
 
 
+def _size(dtype_name):
+    return 4 if dtype_name == "float32" else 2
+
+
+def vlm_bytes(cfg):
+    """Bytes of a vlm model's merged params in the port's storage dtypes,
+    from shapes."""
+    import math
+
+    import torch
+
+    from repro_torch.models import vlm
+
+    total = 0
+    for group, leaf in vlm._shapes(cfg).items():
+        items = leaf.items() if isinstance(leaf, dict) else [(group, leaf)]
+        for name, (shape, _) in items:
+            dt = vlm._dtype(cfg, group, name) if isinstance(leaf, dict) else torch.float32
+            total += math.prod(shape) * (4 if dt == torch.float32 else 2)
+    return total
+
+
+def moe_shard_bytes(cfg, n):
+    """A moe rank's shard over ``n`` model ranks in the port's storage
+    dtypes, from shapes (``shardings.moe_layer_dims``), and the largest
+    one-instance layer of a leaf in f32 (what a rank's draw holds beside
+    its shard, twice: the normal draw and its scaled copy)."""
+    import math
+
+    import torch
+
+    from repro_torch.models import moe, shardings
+
+    dims = shardings.moe_layer_dims(cfg, n)
+    total, leaf = 0, 0
+    for name, (shape, _) in moe._layer_shapes(cfg).items():
+        size = 4 if moe._leaf_dtype(cfg, name) == torch.float32 else 2
+        total += math.prod(shape) * size // (n if name in dims else 1)
+        leaf = max(leaf, math.prod(shape[2:]) * 4)
+    par = _size(cfg.param_dtype)
+    m, d, v = cfg.num_instances, cfg.d_model, cfg.vocab_size
+    head = m * d * v * par // (n if shardings.vocab_split(cfg, n) else 1)
+    return total + (m * v * d + m * d) * par + head, leaf
+
+
+def cache_bytes(cfg, m, slots, lanes, ctx, kvh):
+    """The decode cache, the prefill carry and its one-lane initial rows
+    of a KV-cache family in cfg.dtype (the counts of moe are small)."""
+    per_lane = 2 * cfg.num_layers * ctx * kvh * cfg.head_dim * _size(cfg.dtype)
+    return per_lane * (m * slots + lanes + 1)
+
+
+def moe_mesh_rank_log(cfg, out, d, t, rank, n_req, new, sums):
+    """Check one moe rank's serve on a mesh and log it: every request done
+    with ``new`` tokens; per decode step the attention phase once per
+    layer, the merged matmul three times per layer (gate, up, down), the
+    whole-layer kernel never; per chunk call the chunk kernel once and the
+    merged matmul three times per layer; the logits once per step.
+    Returns (decode steps, chunk calls)."""
+    la, snap = out["launches"], out["snapshot"]
+    steps, chunks, n = snap["decode_steps"], snap["prefill_batches"], cfg.num_layers
+    assert out["statuses"] == ["ok"] * n_req, out["statuses"]
+    assert all(len(x) == new for x in out["streams"].values())
+    assert snap["mesh"] == {"shape": {"data": d, "model": t}, "devices": d * t}, snap
+    assert la["decode_layer"] == la["decode_layer_ffn"] == 0, la
+    assert la["decode_layer_attn"] == n * steps, (la, steps)
+    assert la["fused_matmul"] == 3 * n * (steps + chunks), (la, steps, chunks)
+    assert la["chunk_prefill_attention"] == n * chunks, (la, chunks)
+    assert la["logits_sample"] == steps, (la, steps)
+    log("moe_mesh", mesh=f"{d}x{t}", arch=cfg.name, layers=n, rank=rank,
+        data_index=rank // t, model_index=rank % t, device=out["device"],
+        backend=out["backend"], requests=n_req, tokens=snap["generated_tokens"],
+        wall_s=round(out["wall_s"], 3),
+        tok_per_s=round(snap["generated_tokens"] / out["wall_s"], 1),
+        ms_per_decode_step=round(snap["decode_ms_per_step"], 3), decode_steps=steps,
+        decode_blocks=snap["decode_device_calls"],
+        prefill_ms=round(1e3 * snap["prefill_wall_s"], 1), prefill_chunk_calls=chunks,
+        attn_phase_per_step=round(la["decode_layer_attn"] / steps, 2),
+        fused_matmul_per_step=3 * n, sums_per_decode_step=sums,
+        serve_peak_gib_on_card=round(out["peak_gib"], 2),
+        setup_peak_gib_on_card=round(out["setup_peak_gib"], 2),
+        launches=json.dumps(la).replace(" ", ""))
+    return steps, chunks
+
+
+def phase_moe_mesh(torch, dev, single_streams, meshes=MOE_MESHES):
+    """Merged MoE on (data=D, model=T) meshes, the D*T ranks sharing the
+    card over gloo, each rank drawing only its shard on the card
+    (``serve.random_merged`` with ``shardings.moe_cut``).  1x2: the full
+    olmoe-1b-7b (M=4, TP_REQUESTS requests of 16-512 tokens, 32 new, K=8;
+    a rank holds 8 of 16 heads, 32 of 64 experts an instance and half of
+    the vocab), every launch counter set to 0 just before and read just
+    after on each rank; the cost of one sum.  2x1: the same model, each
+    rank holding 2 instances whole.  2x2: qwen3-moe-30b-a3b cut to
+    QWEN_LAYERS layers (M=4; 128 experts in windows of 64, 32 / 4 heads),
+    at K=8 on the serve mix and at K=1 and K=8 on a shorter mix.  On every
+    mesh: the f32 olmoe-smoke config (vocab 256, so that it splits).
+    Checked here: every rank's launches (``moe_mesh_rank_log``), the
+    ranks' streams identical, the smoke config's streams equal to the
+    single-device plain path on the CPU, the 2x1 streams equal to the
+    serve phase's one-device streams (``single_streams``) in 16 of 16,
+    K=1 == K=8 at 2x2, and no 1x2 rank's setup peak above its shard, its
+    caches and one layer of a leaf drawn in f32 (twice).  Reported: how
+    many of the 1x2 streams equal one device's (bf16 partials summed over
+    the ranks: equality is not expected).  Returns each full serve's rank
+    0 launches by path name."""
+    from repro_torch import api
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh, serve, tp_parity
+    from repro_torch.models import shardings
+    from repro_torch.serving import MultiModelServer
+
+    olmoe = registry.get_config("olmoe-1b-7b").with_(num_instances=M)
+    qwen = registry.get_config("qwen3-moe-30b-a3b").with_(num_instances=M,
+                                                          num_layers=QWEN_LAYERS)
+    small = registry.get_smoke_config("olmoe-1b-7b").with_(num_instances=2, vocab_size=256)
+    small_params = api.init(small, torch.Generator().manual_seed(0), "cpu")
+    small_reqs = requests(8, 2, 1, 48, 8, small.vocab_size, 3)
+    small_kw = dict(slots_per_instance=2, max_context=64, prefill_chunk=8, decode_steps=4)
+    serve_kw = dict(slots_per_instance=B, max_context=S, prefill_chunk=C, prefill_lanes=4,
+                    decode_steps=8)
+    check_kw = dict(slots_per_instance=2, max_context=S, prefill_chunk=C)
+    cpu = MultiModelServer(small, small_params, device="cpu", **small_kw)
+    for q in small_reqs:
+        cpu.submit(q)
+    want_small = {q.request_id: q.tokens for q in cpu.run_until_drained()}
+    out = {}
+    for d, t in meshes:
+        cfg = qwen if (d, t) == (2, 2) else olmoe
+        reqs = requests(TP_REQUESTS, M, 16, 512, 32, cfg.vocab_size, 0)
+        check_reqs = requests(12, M, 16, 200, 16, cfg.vocab_size, 1)
+        calls = [(serve.serve_rank, cfg, 0, reqs, serve_kw),
+                 (serve.serve_rank, small, small_params, small_reqs, small_kw),
+                 (tp_parity.all_reduce_rank, (M // d, B, cfg.d_model), 50)]
+        if (d, t) == (2, 2):
+            calls += [(serve.serve_rank, cfg, 1, check_reqs, dict(check_kw, decode_steps=k))
+                      for k in (1, 8)]
+        log("moe_mesh", mesh=f"{d}x{t}", arch=cfg.name, layers=cfg.num_layers,
+            attn_split=shardings.attn_split(cfg, t), expert_window=cfg.num_experts // t,
+            vocab_split=shardings.vocab_split(cfg, t), rule=repr(mesh.describe(d * t, "cuda")))
+        t0 = time.perf_counter()
+        ranks = mesh.spawn(mesh.in_turn, t, *calls, device="cuda", data=d)
+        log("moe_mesh", mesh=f"{d}x{t}", spawn_and_run_s=round(time.perf_counter() - t0, 1))
+        full = [r[0] for r in ranks]
+        sums = 2 * cfg.num_layers if t > 1 else 0
+        for rank, (o, r) in enumerate(zip(full, ranks)):
+            steps, _ = moe_mesh_rank_log(cfg, o, d, t, rank, TP_REQUESTS, 32, sums)
+            if sums:
+                share = sums * r[2] / o["snapshot"]["decode_ms_per_step"]
+                log("moe_mesh", mesh=f"{d}x{t}", rank=rank, ms_per_sum=round(r[2], 4),
+                    sums_per_decode_step=f"{cfg.num_layers} attention + {cfg.num_layers} "
+                    f"expert + the logits combine (2 small)",
+                    sum_share_of_decode_step=f"{share:.1%}")
+        assert all(o["streams"] == full[0]["streams"] for o in full), f"{d}x{t}: ranks differ"
+        if (d, t) == (1, 2):
+            shard, leaf = moe_shard_bytes(cfg, t)
+            caches = cache_bytes(cfg, M, B, 4, S, cfg.num_kv_heads // t)
+            limit = shard + caches + 2 * leaf + 2 ** 28     # 256 MiB for small tensors
+            for rank, o in enumerate(full):
+                peak = o["setup_peak_gib"] * 2 ** 30
+                log("moe_mesh", mesh=f"{d}x{t}", rank=rank,
+                    shard_gib_from_shapes=round(shard / 2 ** 30, 2),
+                    caches_gib=round(caches / 2 ** 30, 2),
+                    one_layer_leaf_f32_gib=round(leaf / 2 ** 30, 3),
+                    setup_peak_gib_on_card=round(o["setup_peak_gib"], 2),
+                    limit_gib=round(limit / 2 ** 30, 2))
+                assert peak <= limit, f"rank {rank} drew more than its shard: {peak} > {limit}"
+        if cfg is olmoe:
+            same = sum(full[0]["streams"][i] == single_streams[i] for i in single_streams)
+            if d > 1:
+                assert same == TP_REQUESTS, f"{d}x{t} streams differ from one device: {same}"
+            log("moe_mesh", mesh=f"{d}x{t}",
+                streams_equal_to_single_device_at_M=f"{same}/{TP_REQUESTS}")
+        else:
+            k1, k8 = [r[3]["streams"] for r in ranks], [r[4]["streams"] for r in ranks]
+            assert all(x == k1[0] for x in k1 + k8), "greedy streams differ between K=1 and K=8"
+            log("moe_mesh", mesh=f"{d}x{t}", arch=cfg.name, streams="K1==K8, ranks equal",
+                requests=len(k1[0]))
+        for r in ranks:
+            assert r[1]["streams"] == want_small, f"smoke {d}x{t}: streams differ from the CPU"
+        log("moe_mesh", mesh=f"{d}x{t}", reference="cpu-plain single device",
+            config=small.name, requests=len(want_small),
+            tokens=sum(len(v) for v in want_small.values()), streams="equal")
+        out[f"{cfg.name}/mesh{d}x{t}-rank0"] = full[0]["launches"]
+    return out
+
+
 def phase_check(torch, dev):
     import numpy as np
 
@@ -1876,10 +2261,11 @@ def phase_check(torch, dev):
     # greedy K=1 vs K=8 on the card at full widths, depth cut: tinyllama to
     # 4 layers, xlstm to 8 (7 mLSTM layers and the sLSTM layer at 3),
     # hymba to 4 (global layers 0, 2, 3 and the SWA layer 1), olmoe and
-    # qwen3-moe (GQA 32/4, 128 experts) to 4
+    # qwen3-moe (GQA 32/4, 128 experts) to 4, internvl2 (its 256 patch
+    # positions before each prompt) to 4
     for arch, layers, ctx in (("tinyllama-1.1b", 4, S), ("xlstm-1.3b", 8, S),
                               ("hymba-1.5b", 4, YS), ("olmoe-1b-7b", 4, S),
-                              ("qwen3-moe-30b-a3b", 4, S)):
+                              ("qwen3-moe-30b-a3b", 4, S), ("internvl2-26b", 4, S)):
         cfg = registry.get_config(arch).with_(num_instances=M, num_layers=layers)
         streams = []
         for k in (1, 8):
@@ -1901,13 +2287,17 @@ def phase_check(torch, dev):
     for arch, layers, n_pos, width, ctx in (("tinyllama-1.1b", None, 24, 8, 64),
                                             ("xlstm-1.3b", None, 24, 8, 64),
                                             ("hymba-1.5b", 4, 176, 16, 256),
-                                            ("olmoe-1b-7b", None, 24, 8, 64)):
+                                            ("olmoe-1b-7b", None, 24, 8, 64),
+                                            ("internvl2-26b", None, 24, 8, 64)):
         small = registry.get_smoke_config(arch).with_(num_instances=2)
         if layers:
             small = small.with_(num_layers=layers)
         params = api.init(small, torch.Generator().manual_seed(0), "cpu")
         rng = np.random.default_rng(2)
         tok = torch.from_numpy(rng.integers(1, small.vocab_size, (2, 2, n_pos)).astype(np.int32))
+        # vlm: random patch embeddings over its 8 prefix positions
+        img = torch.from_numpy(rng.standard_normal(
+            (2, 2, small.num_image_patches, small.vision_embed_dim)).astype(np.float32))
         outs = {}
         for d in ("cpu", dev):
             p = params.to(d) if d != "cpu" else params
@@ -1918,6 +2308,8 @@ def phase_check(torch, dev):
                 if small.family == "moe":
                     batch["moe_limit"] = torch.full((2, 2), moe.capacity(small, n_pos),
                                                     dtype=torch.int32, device=d)
+                if small.family == "vlm":
+                    batch["image_embeds"] = img.to(d)
                 api.prefill_chunk(small, p, batch, carry, off)
             cache = carry["cache"]
             pos = torch.full((2, 2), n_pos, dtype=torch.int32, device=d)
@@ -2061,7 +2453,7 @@ def time_queued_ms(torch, fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def phase_times(torch, dev, by_path, profile_launches):
+def phase_times(torch, dev, by_path, profile_launches, b32):
     import torch.nn.functional as Fn
 
     from repro_torch.kernels import chunk_prefill_attn as cpa
@@ -2109,7 +2501,7 @@ def phase_times(torch, dev, by_path, profile_launches):
                      launches=launches["decode_layer"],
                      launches_by_path=per_path("decode_layer"), max_abs_err=err, ms=ms,
                      plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
-                     device_ms=device_ms))
+                     device_ms=device_ms, **b32))
     del lp, x, ck, cv
 
     # greedy logits at the serve shapes: bf16 residual, f32 head (param_dtype)
@@ -2271,7 +2663,7 @@ def phase_times(torch, dev, by_path, profile_launches):
                      floor_device_ms=floor, library="SDPA, the prefix mask, GQA"))
     del sets, lib_in
 
-    rows += new_time_rows(torch, dev, profile_launches, by_path["olmoe-1b-7b"])
+    rows += new_time_rows(torch, dev, profile_launches, per_path("fused_matmul"))
     rows += phase_time_rows(torch, dev, launches, per_path)
     rows.append(sharded_attn_time_row(torch, dev, launches, per_path))
     rows.append(sharded_matmul_time_row(torch, dev, launches, per_path))
@@ -2338,8 +2730,8 @@ def sharded_matmul_time_row(torch, dev, launches, per_path):
 def new_time_rows(torch, dev, launches, moe_launches):
     """Times rows of the merged matmul, the group RMS norm and the chunkwise
     mLSTM at the profiler's shapes; ``launches`` are the counts of the
-    profile phase (their main path), ``moe_launches`` those of the olmoe
-    serve (the merged matmul carries its experts)."""
+    profile phase (their main path), ``moe_launches`` the merged matmul's
+    on the moe serve paths, by path (it carries their experts)."""
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import group_norm as gn
     from repro_torch.kernels import mlstm_chunk as ml
@@ -2368,7 +2760,7 @@ def new_time_rows(torch, dev, launches, moe_launches):
             ms=f"{e_ms:.4f}", device_ms=f"{e_dev:.4f}", library_ms=f"{e_lib:.4f}",
             library_device_ms=f"{e_lib_dev:.4f}", bound_ms=f"{e_bms:.4f}",
             of_bound=f"{e_bms / e_dev:.1%}")
-    by_path = {"profile": launches["fused_matmul"], "olmoe-1b-7b": moe_launches["fused_matmul"]}
+    by_path = {"profile": launches["fused_matmul"], **moe_launches}
     rows.append(dict(name="fused_matmul", route="cuda", source="src/repro_torch/csrc/fused_matmul.cu",
                      replaces="src/repro/kernels/fused_matmul.py:24",
                      launches=sum(by_path.values()), launches_by_path=by_path, **moe,
@@ -2586,8 +2978,8 @@ def main() -> int:
 
     timed("device", phase_device, torch)
     timed("build", phase_build)
-    timed("kernels", phase_kernels, torch, dev)
-    launches, single_streams = timed("serve", phase_serve, torch, dev)
+    b32 = timed("kernels", phase_kernels, torch, dev)
+    launches, single_streams, olmoe_streams = timed("serve", phase_serve, torch, dev)
     timed("check", phase_check, torch, dev)
     timed("graph", phase_graph, torch, dev)
     launches[f"tinyllama-1.1b/tp{TP}-rank0"] = timed("tp", phase_tp, torch, dev)
@@ -2597,9 +2989,10 @@ def main() -> int:
         launches[f"tinyllama-1.1b/data{name}-rank0"] = la
     launches["fused_matmul_sharded/data2x2-ranks"] = dict(
         dict.fromkeys(by_mesh["2x2"], 0), fused_matmul_sharded=matmul_launches)
+    launches.update(timed("moe_mesh", phase_moe_mesh, torch, dev, olmoe_streams))
     timed("paper", phase_paper, torch, dev)
     profile_launches = timed("profile", phase_profile, torch, dev)
-    rows = timed("times", phase_times, torch, dev, launches, profile_launches)
+    rows = timed("times", phase_times, torch, dev, launches, profile_launches, b32)
     log("done", seconds=round(time.perf_counter() - t0, 1))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

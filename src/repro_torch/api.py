@@ -1,12 +1,13 @@
-"""Uniform model API (port of ``repro.api``): the dense, moe, ssm and
-hybrid entries.
+"""Uniform model API (port of ``repro.api``): the dense, moe, ssm,
+hybrid and vlm entries.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); with no device given and no card present they raise
 instead of carrying on on the CPU.  Families not ported yet raise.
 
 ``tp`` (a ``models.common.TensorParallel``) runs an entry on this rank's
-shard under tensor parallelism; the dense and hybrid families take it.
+shard under tensor parallelism; the dense, moe and hybrid families take
+it.
 """
 from __future__ import annotations
 
@@ -14,10 +15,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
-from repro_torch.models import dense, hybrid, moe, ssm
+from repro_torch.models import dense, hybrid, moe, ssm, vlm
 from repro_torch.models import shardings as S
 
-_FAMILY = {"dense": dense, "moe": moe, "ssm": ssm, "hybrid": hybrid}
+_FAMILY = {"dense": dense, "moe": moe, "ssm": ssm, "hybrid": hybrid, "vlm": vlm}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -47,7 +48,7 @@ def _tp(cfg: ModelConfig, tp) -> dict:
         return {}
     if cfg.family not in S.FAMILIES:
         raise NotImplementedError(
-            f"tensor parallelism is ported for the dense and hybrid families, "
+            f"tensor parallelism is ported for the dense, moe and hybrid families, "
             f"not {cfg.family!r}")
     return {"tp": tp}
 
@@ -61,13 +62,15 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
 
 def prefill_prefix_len(cfg: ModelConfig) -> int:
     """Learned-prefix positions before the prompt: hybrid's meta tokens,
-    none for dense, moe and ssm."""
+    vlm's image patches, none for dense, moe and ssm."""
     family_module(cfg)
-    return hybrid.NUM_META_TOKENS if cfg.family == "hybrid" else 0
+    if cfg.family == "hybrid":
+        return hybrid.NUM_META_TOKENS
+    return cfg.num_image_patches if cfg.family == "vlm" else 0
 
 
 def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device=None, tp=None):
-    """The grid's decode cache: a KV cache (dense, moe), the recurrent state
+    """The grid's decode cache: a KV cache (dense, moe, vlm), the recurrent state
     (ssm, positionless: ``context_len`` is unused) or per-group KV caches
     and mamba states (hybrid)."""
     dev = resolve_device(device)

@@ -808,12 +808,16 @@ int ring_attention(int dt, const void* qkv, void* ck, void* cv, const void* pos,
 // bf16 on Hopper: the layer's products as skinny wgmma matvecs
 // ---------------------------------------------------------------------------
 //
-// The lanes of an instance are few (B <= 16), so out^T = w^T x^T: the 64
-// rows of a wgmma run along the output columns and the lanes are its N (8
-// or 16), the design of the merged matmul's skinny kernel
-// (fused_matmul.cu).  A block of two consumer warpgroups and a producer
-// warp owns 128 output columns of one instance (warpgroup g the 64 at f0 +
-// 64 g) over k-steps [kb, kb + nk) of the reduction; the producer streams
+// The lanes of an instance are few, so out^T = w^T x^T: the 64 rows of a
+// wgmma run along the output columns and a group of at most 16 of an
+// instance's lanes is its N (8 where the instance has at most 8 lanes,
+// else 16), the design of the merged matmul's skinny kernel
+// (fused_matmul.cu).  Past 16 lanes the grid's z axis walks the lane
+// groups of each instance (group g holds lanes [16 g, 16 g + 16)); N 8 and
+// N 16 take one split of the reduction, so a lane's sums run in one order
+// whatever the lane count.  A block of two consumer warpgroups and a
+// producer warp owns 128 output columns of one lane group (warpgroup g the
+// 64 at f0 + 64 g) over k-steps [kb, kb + nk) of the reduction; the producer streams
 // the weight tiles through a ring of 128-byte-swizzled stages by TMA, with
 // an evict-first L2 hint (a decode step reads each weight once), a full
 // and an empty mbarrier per stage.  Weights depend on nothing before the
@@ -869,7 +873,7 @@ struct TcArgs {
   __nv_bfloat16* out;            // (M, B, nout)
   int n[3];                      // PLAIN: segment widths; else n[0]
   int tiles0, tiles1;            // PLAIN: column tiles of segments 0 and 1
-  int nout, B, K, split;
+  int nout, B, K, split;         // B: lanes of an instance, in groups of 16
 };
 
 template <int N>
@@ -903,11 +907,13 @@ tc_matvec(const __grid_constant__ TcMaps maps, const TcArgs a) {
   // (selects, not an index into the parameter arrays: no local copy)
   const int nseg = seg == 0 ? a.n[0] : seg == 1 ? a.n[1] : a.n[2], f0 = tile * TC_TILE;
   const __nv_bfloat16* bias = seg == 0 ? a.bias[0] : seg == 1 ? a.bias[1] : a.bias[2];
-  const int sp = blockIdx.y, m = blockIdx.z;
+  const int groups = (a.B + 15) / 16;
+  const int sp = blockIdx.y, m = blockIdx.z / groups, grp = blockIdx.z % groups;
+  const int nb = min(16, a.B - 16 * grp);        // lanes of this block's group
   const int nk_all = (a.K + HK - 1) / HK;
   const int kb = sp * nk_all / a.split, nk = (sp + 1) * nk_all / a.split - kb;
   const bool two = f0 + 64 < nseg;               // the second 64 columns exist
-  const size_t row0 = (size_t)m * a.B;           // lane 0 of the instance
+  const size_t row0 = (size_t)m * a.B + 16 * grp;   // the group's first lane
   cg::cluster_group cl = cg::this_cluster();
 
   if (threadIdx.x >= TC_CONSUMERS) {             // the producer warp
@@ -931,7 +937,7 @@ tc_matvec(const __grid_constant__ TcMaps maps, const TcArgs a) {
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid >> 7;
     float* inv = reinterpret_cast<float*>(xs + (size_t)nk * N * 128);
     if (a.norm != nullptr) {
-      for (int b = warp; b < a.B; b += TC_CONSUMERS / 32) {
+      for (int b = warp; b < nb; b += TC_CONSUMERS / 32) {
         const bf16* xr = a.x + (row0 + b) * a.K;
         float ss = 0.f;
         for (int k = 8 * lane; k < a.K; k += 256) {
@@ -951,7 +957,7 @@ tc_matvec(const __grid_constant__ TcMaps maps, const TcArgs a) {
       const int c = e & 7, b = (e >> 3) % N, kl = (e >> 3) / N;
       const int k = (kb + kl) * HK + 8 * c;
       uint4 u = make_uint4(0, 0, 0, 0);
-      if (b < a.B && k < a.K) {
+      if (b < nb && k < a.K) {
         float v[8];
         Load8<bf16>::run(a.x + (row0 + b) * a.K + k, v);
         if (a.norm != nullptr) {
@@ -1012,7 +1018,7 @@ tc_matvec(const __grid_constant__ TcMaps maps, const TcArgs a) {
   if (threadIdx.x < TC_CONSUMERS) {
     const int rank = a.split > 1 ? (int)cl.block_rank() : 0;
     const float* cs = reinterpret_cast<const float*>(smem);
-    for (int p = rank + a.split * threadIdx.x; p < a.B * (TC_TILE / 8);
+    for (int p = rank + a.split * threadIdx.x; p < nb * (TC_TILE / 8);
          p += a.split * TC_CONSUMERS) {
       const int t = p / (TC_TILE / 8), c = p % (TC_TILE / 8) * 8, f = f0 + c;
       if (f >= nseg) continue;
@@ -1064,8 +1070,8 @@ tc_matvec(const __grid_constant__ TcMaps maps, const TcArgs a) {
   if (a.split > 1) cl.sync();        // no block leaves while another reads it
 }
 
-// One tc_matvec launch: grid (column tiles, split, M), clusters of (1,
-// split, 1) where split > 1, the programmatic-dependent attribute.
+// One tc_matvec launch: grid (column tiles, split, M x lane groups),
+// clusters of (1, split, 1) where split > 1.
 template <int N, int MODE>
 cudaError_t launch_tc_n(const TcMaps& maps, const TcArgs& a, int tiles, int M, cudaStream_t s) {
   auto kern = tc_matvec<N, MODE>;
@@ -1082,7 +1088,7 @@ cudaError_t launch_tc_n(const TcMaps& maps, const TcArgs& a, int tiles, int M, c
   const size_t smem = tc_smem(MODE, N, (nk_all + a.split - 1) / a.split);
   if (smem > (size_t)MAX_SMEM) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles, a.split, M);
+  cfg.gridDim = dim3(tiles, a.split, M * ((a.B + 15) / 16));
   cfg.blockDim = dim3(TC_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
@@ -1099,7 +1105,7 @@ cudaError_t launch_tc_n(const TcMaps& maps, const TcArgs& a, int tiles, int M, c
 
 template <int MODE>
 cudaError_t launch_tc(const TcMaps& maps, const TcArgs& a, int tiles, int M, cudaStream_t s) {
-  if (a.B < 1 || a.B > 16 || a.split < 1 || a.split > TC_MAX_SPLIT || a.K % 8 ||
+  if (a.B < 1 || a.split < 1 || a.split > TC_MAX_SPLIT || a.K % 8 ||
       a.split > (a.K + HK - 1) / HK)
     return cudaErrorInvalidValue;
   return a.B <= 8 ? launch_tc_n<8, MODE>(maps, a, tiles, M, s)
@@ -1277,7 +1283,7 @@ int logits_argmax(int dt_x, int dt_w, const void* x, const void* norm, float eps
 }
 
 // ---------------------------------------------------------------------------
-// bf16 with B <= 16 lanes per instance, on the wgmma path: every weight
+// bf16 on the wgmma path (any B, in groups of 16 lanes): every weight
 // comes as its TMA tensor map (tensor_map_encode: boxes of 64 x 64, the
 // 128-byte swizzle; 128 bytes on the host), encoded once
 // per weight by the wrapper; the splits of the reduction (1..8 blocks of a

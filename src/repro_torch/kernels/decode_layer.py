@@ -15,9 +15,9 @@ out).  ``alive`` (M, B) bool, when given, leaves the ring of every lane
 where it is False untouched: the serving K-step block freezes a stopped
 lane's cache that way.
 
-In bf16 with at most 16 lanes per instance the layer's products run on
-the wgmma path (:func:`matvec_plan` says how each is split); f32, and
-more lanes, keep the lanes matvec of CUDA cores.
+In bf16 the layer's products run on the wgmma path, over groups of at
+most 16 lanes of an instance (:func:`matvec_plan` says how each is split
+and grouped); f32 keeps the lanes matvec of CUDA cores.
 """
 from __future__ import annotations
 
@@ -144,13 +144,15 @@ class MatvecPlan:
     """One product x (m, b, k) @ w (m, k, n): the variant ("tc", the
     wgmma kernel, or "simt", the lanes matvec), the lanes' wgmma N (8 or
     16), the output tile, the split of k's steps over a cluster, the grid
-    (column tiles, split, m) and the shared memory of a block."""
+    (column tiles, split, m x lane groups), the shared memory of a block
+    and the lane groups of an instance (of at most 16 lanes each)."""
     variant: str
     rows: int
     tile: int
     split: int
     grid: tuple[int, int, int]
     smem: int
+    groups: int = 1
 
 
 def tc_smem(n_rows: int, nk: int, pair: bool = False) -> int:
@@ -185,23 +187,26 @@ def matvec_plan(m: int, b: int, k: int, n, dtype: str = "bfloat16",
     ``n`` an int or the widths of the segments the grid's tiles walk (QKV:
     q, k, v); ``pair``: two weights per tile (gate and up).
 
-    bf16 with b <= 16 lanes and 16-byte rows takes the wgmma kernel: the
-    lanes are its N (8, or 16 past 8 lanes), each block owns 128 output
-    columns of one instance, and :func:`tc_split` splits the k-steps over
-    a cluster of blocks.  Anything else keeps the lanes matvec (``variant
-    == "simt"``), which sums in another order: a lane's output there
-    differs from its output in a call of at most 16 lanes."""
+    bf16 with 16-byte rows takes the wgmma kernel: an instance's lanes
+    split into groups of 16 (the last one holds the rest), a group's
+    lanes are the wgmma N (8 up to 8 lanes in all, else 16), each block
+    owns 128 output columns of one group, and :func:`tc_split` splits the
+    k-steps over a cluster of blocks.  N 8 and N 16 share one split, so a
+    lane's output is the same bits at any lane count.  Anything else
+    keeps the lanes matvec (``variant == "simt"``), which sums in another
+    order."""
     segs = (n,) if isinstance(n, int) else tuple(n)
     tiles = sum(-(-w // TC_TILE) for w in segs)
-    if dtype != "bfloat16" or b > 16 or k % 8 or any(w % 8 for w in segs):
-        return MatvecPlan("simt", b, 256, 1, (tiles, 1, m), 0)
-    rows = 8 if b <= 8 else 16
+    simt = MatvecPlan("simt", b, 256, 1, (tiles, 1, m), 0)
+    if dtype != "bfloat16" or k % 8 or any(w % 8 for w in segs):
+        return simt
+    rows, groups = (8 if b <= 8 else 16), -(-b // 16)
     steps = -(-k // TC_HK)
     split = tc_split(k, segs, pair)
     smem = tc_smem(rows, -(-steps // split), pair)
     if smem > MAX_SMEM:
-        return MatvecPlan("simt", b, 256, 1, (tiles, 1, m), 0)
-    return MatvecPlan("tc", rows, TC_TILE, split, (tiles, split, m), smem)
+        return simt
+    return MatvecPlan("tc", rows, TC_TILE, split, (tiles, split, m * groups), smem, groups)
 
 
 @functools.lru_cache(maxsize=256)
@@ -441,8 +446,8 @@ def _dt(x) -> str:
 
 def decode_layer_attn_cuda(lp, x, ck, cv, pos, *, num_heads, head_dim, rope_theta,
                            window: int = 0, eps: float = 1e-5, alive=None):
-    """The attention phase on the card: four launches on the wgmma path,
-    six on the lanes matvec (see the note in csrc/decode_layer.cu).  Same
+    """The attention phase on the card: four launches on the wgmma path
+    (bf16), six on the lanes matvec (see the note in csrc/decode_layer.cu).  Same
     contract as :func:`decode_layer_attn_plain`."""
     kw = dict(num_heads=num_heads, head_dim=head_dim, rope_theta=rope_theta, window=window,
               eps=eps, alive=alive)

@@ -1,6 +1,6 @@
-"""Serving launcher (port of ``repro.launch.serve``, dense, moe, ssm and
-hybrid families; tensor parallelism for dense and hybrid; the data axis
-for dense, ssm and hybrid).
+"""Serving launcher (port of ``repro.launch.serve``, dense, moe, ssm,
+hybrid and vlm families; tensor parallelism for dense, moe and hybrid;
+the data axis for all but vlm).
 
 Initialises M "fine-tuned" instances as M random initialisations from a
 seed, merges them (the paper's offline merge step, timed), and serves a
@@ -16,7 +16,11 @@ program.  Runs on the CUDA device unless ``--device cpu`` is given.
       --smoke --device cpu --decode-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --smoke --device cpu --decode-steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
+      --smoke --device cpu --decode-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
+      --smoke --device cpu --mesh-shape 1x2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
       --smoke --device cpu --mesh-shape 1x2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --smoke --device cpu --mesh-shape 1x2
@@ -29,11 +33,13 @@ parallelism over each group of T, the grid's instance rows (or slots)
 split over the D groups.  Every rank serves the same requests, rank 0
 prints, and the CLI checks that every rank's streams are identical.
 Hybrid archs raise ``--max-context`` to the meta tokens plus the SWA
-window plus ``--max-new``, as the reference's CLI does.
+window plus ``--max-new``, as the reference's CLI does; vlm archs raise
+it to the image patches plus the longest prompt plus ``--max-new``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import time
 
 import numpy as np
@@ -45,23 +51,40 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh
 from repro_torch.models import hybrid as H
 from repro_torch.models.common import merge_drawn
-from repro_torch.models.shardings import data_rows
+from repro_torch.models.shardings import data_rows, moe_cut
 from repro_torch.serving import MultiModelServer, Request
 from repro_torch.serving.scheduler import POLICIES
 
 
-def random_merged(cfg, seed: int, device, on_host: bool = False, rows=None):
+# families whose ``init`` takes a generator an instance and draws the
+# merged model in place, a layer at a time (``models.common.draw_leaf``)
+IN_PLACE = ("moe", "vlm")
+
+
+def random_merged(cfg, seed: int, device, on_host: bool = False, rows=None, cut=None):
     """M "fine-tuned" instances as M random initialisations (instance i
     seeded ``seed * 1000 + i`` on ``device``), merged; ``rows`` (a range)
-    draws and merges only those instances, the same weights.  Each
-    instance is copied into the merged leaves as soon as it is drawn
-    (``models.common.merge_drawn``), so the card holds the merged model
-    and one instance at most (olmoe-1b-7b at M = 4: 57 GB, not twice
-    that).  ``on_host`` merges on the CPU (a mesh rank then moves only
-    its shard to the card).  Returns (merged params, merge seconds: the
-    copies into the merged leaves, the device the merge ran on)."""
-    where = torch.device("cpu") if on_host else device
+    draws and merges only those instances, the same weights.
+
+    moe and vlm (``IN_PLACE``) draw every instance straight into the
+    merged leaves on ``device``, a layer at a time, so nothing but the
+    merged model and one layer of one leaf is ever held (olmoe-1b-7b at M
+    = 4: 57 GB); ``cut`` (``shardings.moe_cut``) keeps only a mesh rank's
+    slice of each drawn layer, so a rank holds only its shard.  The other
+    families draw each instance whole and copy it into the merged leaves
+    at once (``models.common.merge_drawn``); ``on_host`` merges them on
+    the CPU (a mesh rank then moves only its shard to the card).  Returns
+    (merged params, merge seconds: the copies into the merged leaves, None
+    for an in-place draw, the device the merge ran on)."""
     rows = range(cfg.num_instances) if rows is None else rows
+    if cfg.family in IN_PLACE:
+        gens = [torch.Generator(device=device).manual_seed(seed * 1000 + r) for r in rows]
+        kw = {} if cut is None else {"cut": cut}
+        with torch.no_grad():
+            merged = api.family_module(cfg).init(cfg.with_(num_instances=len(rows)), gens,
+                                                 device, **kw)
+        return merged, None, device
+    where = torch.device("cpu") if on_host else device
     one = cfg.with_(num_instances=1)
     draw_s = 0.0
 
@@ -95,20 +118,24 @@ def serve(cfg, params, reqs, *, device, tp=None, **server_kw) -> dict:
     and the card's peak memory are reset just before the requests are
     submitted and read after the drain.  ``params`` is a whole merged
     model, or an int seed of :func:`random_merged` (drawn on ``device``;
-    on a mesh merged on the CPU, only the instance rows of the rank's
-    data group, and the server moves only the rank's shard)."""
+    on a mesh only the instance rows of the rank's data group: merged on
+    the CPU, the server moving only the rank's shard, or for moe drawn as
+    the rank's shard on ``device``)."""
     merge_s = merge_dev = None
-    first = 0
+    first, sharded = 0, False
     if isinstance(params, int):
         rows = data_rows(cfg.num_instances, server_kw["slots_per_instance"],
                          None if tp is None else tp.data)
         first = rows.m0
+        local = cfg.with_(num_instances=rows.m)
+        sharded = cfg.family == "moe" and tp is not None and tp.size > 1
+        cut = moe_cut(local, tp.rank, tp.size) if sharded else None
         params, merge_s, merge_dev = random_merged(cfg, params, device, on_host=tp is not None,
-                                                   rows=range(rows.m0, rows.m0 + rows.m))
+                                                   rows=range(rows.m0, rows.m0 + rows.m), cut=cut)
     host_bytes = sum(p.numel() * p.element_size() for p in params.parameters()
                      if p.device.type == "cpu")
     server = MultiModelServer(cfg, params, device=device, tp=tp, first_instance=first,
-                              **server_kw)
+                              sharded=sharded, **server_kw)
     del params
     setup_peak = None
     if device.type == "cuda":
@@ -141,6 +168,14 @@ def serve_rank(tp, cfg, params, reqs, server_kw, verbose: bool = False) -> dict:
     out = serve(cfg, params, reqs, device=tp.device, tp=tp, **server_kw)
     if verbose and tp.rank == 0 and tp.data.rank == 0:
         report(out, cfg, tp)
+    server = out.pop("server")
+    seen = {"prefill_calls": server.prefill.device_calls, "decode_blocks": server.steps}
+    # the server holds a reference cycle (its step is a bound method): free
+    # its weights and caches now, before the rank's next call draws its own
+    del server
+    gc.collect()
+    if tp.device.type == "cuda":
+        torch.cuda.empty_cache()
     return {"streams": {r.request_id: r.tokens for r in out["results"]},
             "statuses": [r.status for r in out["results"]],
             "launches": out["launches"], "snapshot": out["snapshot"],
@@ -149,9 +184,7 @@ def serve_rank(tp, cfg, params, reqs, server_kw, verbose: bool = False) -> dict:
                          else out["serve_peak_bytes"] / 2 ** 30),
             "setup_peak_gib": (None if out["setup_peak_bytes"] is None
                                else out["setup_peak_bytes"] / 2 ** 30),
-            "host_param_gib": out["host_param_bytes"] / 2 ** 30,
-            "prefill_calls": out["server"].prefill.device_calls,
-            "decode_blocks": out["server"].steps}
+            "host_param_gib": out["host_param_bytes"] / 2 ** 30, **seen}
 
 
 def report(out, cfg, tp=None) -> None:
@@ -209,12 +242,14 @@ def main(argv=None):
     device = api.resolve_device(args.device)
     base = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
     max_context = args.max_context
+    need, why = 0, ""
     if base.family == "hybrid":
-        need = H.min_serving_context(base, args.max_new)
-        if max_context < need:
-            print(f"raising --max-context {max_context} -> {need} "
-                  f"(hybrid meta tokens + SWA ring)")
-            max_context = need
+        need, why = H.min_serving_context(base, args.max_new), "hybrid meta tokens + SWA ring"
+    elif base.family == "vlm":
+        need, why = base.num_image_patches + 8 + args.max_new, "image patches + prompt + new"
+    if max_context < need:
+        print(f"raising --max-context {max_context} -> {need} ({why})")
+        max_context = need
     cfg = base.with_(num_instances=args.num_instances)
     rng = np.random.default_rng(args.seed)
     reqs = [

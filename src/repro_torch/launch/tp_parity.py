@@ -1,7 +1,7 @@
 """Rank programs that hold the mesh paths against the single-device
 one: targets of ``mesh.spawn``, run by the tests on the CPU and by
 ``chip_smoke.py`` on the card.  Each takes the whole model or problem
-(``chunk_decode_rank``: a dense model; ``fused_matmul_rank``: a seeded
+(``chunk_decode_rank``: a dense or moe model; ``fused_matmul_rank``: a seeded
 matmul), cuts its rank's share and returns what it computed, on the CPU.
 The hybrid and ssm families and the data axis are held through
 ``launch/serve.serve_rank``'s streams.
@@ -15,14 +15,15 @@ import torch
 from repro_torch import api
 from repro_torch.kernels import fused_matmul as fm
 from repro_torch.kernels import ops
+from repro_torch.models import moe
 from repro_torch.models.common import tree_map
 from repro_torch.models.shardings import shard, shard_params
 
 
 def chunk_decode_rank(tp, cfg, params, tokens, width: int, ctx: int) -> dict:
     """Prefill ``tokens`` (M, B, n) in chunks of ``width`` from a fresh
-    carry of context ``ctx``, then a greedy decode step and a decode step
-    at position n.  Returns this rank's cache shard after the prefill
+    carry of context ``ctx`` (moe: at the exact-length capacity of n
+    tokens), then a greedy decode step and a decode step at position n.  Returns this rank's cache shard after the prefill
     (k, v), the decode step's logits (M, B, V), gathered over the ranks,
     and the greedy tokens (M, B)."""
     dev = tp.device
@@ -30,10 +31,14 @@ def chunk_decode_rank(tp, cfg, params, tokens, width: int, ctx: int) -> dict:
         p = shard_params(cfg, params, tp.rank, tp.size).to(dev)
         m, b, n = tokens.shape
         carry = api.init_chunk_carry(cfg, m, b, ctx, device=dev, tp=tp)
+        extra = {}
+        if cfg.family == "moe":       # the exact-length capacity of the n tokens
+            extra["moe_limit"] = torch.full((m, b), moe.capacity(cfg, n), dtype=torch.int32,
+                                            device=dev)
         for start in range(0, n, width):
             off = torch.full((m, b), start, dtype=torch.int32, device=dev)
-            api.prefill_chunk(cfg, p, {"tokens": tokens[:, :, start:start + width].to(dev)},
-                              carry, off, tp=tp)
+            api.prefill_chunk(cfg, p, {"tokens": tokens[:, :, start:start + width].to(dev),
+                                       **extra}, carry, off, tp=tp)
         cache = carry["cache"]
         out = {"k": cache.k.cpu().clone(), "v": cache.v.cpu().clone()}
         pos = torch.full((m, b), n, dtype=torch.int32, device=dev)

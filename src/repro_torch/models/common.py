@@ -132,6 +132,34 @@ class Factory:
         return (v * s).to(self.dtype)
 
 
+def draw_leaf(name: str, shape, init: str, dtype: torch.dtype, per_layer: bool, generator,
+              device: torch.device, par: torch.dtype, cut=None) -> torch.Tensor:
+    """One merged leaf of ``shape`` ((L, M, ...) where ``per_layer``, else
+    (M, ...)) drawn with the reference's distribution ``init`` a layer at
+    a time, each layer stored in ``dtype`` at once (never the whole leaf
+    in f32).  ``generator`` is one ``torch.Generator`` (a layer drawn for
+    the M instances at once) or a list of M, one an instance: row j is
+    then drawn from ``generator[j]`` as a one-instance draw of the same
+    leaves in the same order would draw it, and written in place.
+    ``cut(name, t, layer)``, when given, keeps a rank's slice of each
+    drawn piece (``shardings.moe_cut``).  ``par``: the dtype the factory
+    draws in (param_dtype)."""
+    gens = list(generator) if isinstance(generator, (list, tuple)) else None
+    one = shape[1:] if per_layer else shape                    # (M, ...)
+    out = None
+    for i in range(shape[0] if per_layer else 1):
+        for j, g in enumerate(gens or [generator]):
+            t = Factory(g, par, device)((1, *one[1:]) if gens else one, init=init).to(dtype)
+            if cut is not None:
+                t = cut(name, t, per_layer)
+            if out is None:
+                rows = (one[0], *t.shape[1:])
+                out = torch.empty(((shape[0],) if per_layer else ()) + rows, dtype=dtype,
+                                  device=device)
+            (out[i] if per_layer else out).narrow(0, j, t.shape[0]).copy_(t)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the merged model: an nn.Module keeping the reference's leaf names
 # ---------------------------------------------------------------------------

@@ -86,6 +86,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (y * s).to(x.dtype)
 
 
+def rms_norm_rowwise(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`rms_norm` with each row's statistic reduced on its own
+    (``F.rms_norm``: on the card one block a row, its threads set by D), so
+    a row's result does not depend on how many rows share the call; the
+    mean in :func:`rms_norm` is a generic reduction whose thread layout
+    on the card follows the row count."""
+    m, d = scale.shape
+    y = F.rms_norm(x.float(), (d,), eps=eps)
+    s = scale.float().reshape((m,) + (1,) * (x.ndim - 2) + (d,))
+    return (y * s).to(x.dtype)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
                eps: float = 1e-5) -> torch.Tensor:
     """Merged layer norm (group norm with G=M, instance-axis form): stats

@@ -1,5 +1,6 @@
 """Token-choice top-k MoE decoder (port of ``repro.models.moe``;
-olmoe-1b-7b, qwen3-moe-30b-a3b), on one device.
+olmoe-1b-7b, qwen3-moe-30b-a3b), on one device and on a (data, model)
+mesh.
 
 NetFuse merges M instances into a block-diagonal MoE: instance m's router
 only routes to instance m's E experts, so the merged model holds M*E
@@ -27,9 +28,21 @@ its rows the kept assignments of that pair, padded to a bound the host
 knows from the shapes (no device-to-host read): a row's result does not
 depend on how many rows or pairs share the call.
 
-Not ported here: the expert-parallel ``shard_map`` paths, MoE under
-tensor parallelism or on the data axis, whole-sequence ``forward`` /
-``prefill`` and the load-balance aux loss (they belong with training).
+On a mesh (``tp``, ``models/shardings.py``'s moe rules) the attention
+runs on the rank's heads as dense's does (a sum after ``wo``), and the
+experts are expert-parallel, the reference's ``_row_dispatch_window`` +
+``_moe_mlp_ep_shmap``: every rank routes every token with the whole
+router, only the kept assignments whose expert lies in the rank's window
+[r E/T, (r+1) E/T) take rows of its merged matmul, the window's weighted
+outputs combine in stream order (zero for the others), and one sum over
+the ranks in token space follows.  The reference's GSPMD placement
+(``experts_compute: "model"``) and its ``"ep"`` placement compute the
+same function; the port has this one.  Its ``_shmap_rows`` needs no
+counterpart: a rank's rows are local already.  The data axis slices the
+instance rows (or slots) like every family's.
+
+Not ported here: whole-sequence ``forward`` / ``prefill`` and the
+load-balance aux loss (they belong with training).
 """
 from __future__ import annotations
 
@@ -42,7 +55,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import dense
 from repro_torch.models import layers as L
-from repro_torch.models.common import Factory, MergedParams
+from repro_torch.models import shardings as S
+from repro_torch.models.common import MergedParams, draw_leaf
 from repro_torch.models.layers import KVCache
 
 # leaves stored in cfg.dtype (the reference casts them to the activation
@@ -95,33 +109,35 @@ def storage_dtypes(cfg: ModelConfig, tree: dict) -> dict:
     return out
 
 
-def init(cfg: ModelConfig, generator: torch.Generator | None,
-         device: torch.device) -> MergedParams:
-    """Random parameters with the reference's distributions, drawn from
-    ``generator`` (on ``device``), in the port's storage dtypes.
+def init(cfg: ModelConfig, generator, device: torch.device, cut=None) -> MergedParams:
+    """Random parameters with the reference's distributions, in the
+    port's storage dtypes, on ``device``.
 
-    Each leaf is drawn one layer at a time and stored in its storage
-    dtype at once, so no leaf is ever whole in f32: olmoe-1b-7b's expert
-    weights at M = 4 are 51 GB in bf16 and would be twice that in f32."""
-    dev = torch.device(device)
-    par = torch_dtype(cfg.param_dtype)
-
-    def leaf(shape, init, dtype, per_layer: bool):
-        f = Factory(generator, par, dev)
-        if not per_layer:
-            return f(shape, init=init).to(dtype)
-        out = torch.empty(shape, dtype=dtype, device=dev)
-        for i in range(shape[0]):
-            out[i] = f(shape[1:], init=init)
-        return out
-
+    ``generator`` is one ``torch.Generator`` (each layer of a leaf drawn
+    for all M instances at once) or a list of M, one an instance: row j of
+    every leaf is then drawn from ``generator[j]`` in the order a
+    one-instance draw takes, so the model equals M one-instance draws
+    merged, bit for bit, and is written in place (no instance is ever
+    held apart).  Each leaf is drawn one layer at a time and stored in
+    its storage dtype at once, so no leaf is ever whole in f32:
+    olmoe-1b-7b's expert weights at M = 4 are 51 GB in bf16 and would be
+    twice that in f32.  ``cut`` (``shardings.moe_cut``) keeps a rank's
+    slice of each drawn layer: the rank's shard, drawn with one layer of
+    one leaf beside it at most."""
+    dev, par = torch.device(device), torch_dtype(cfg.param_dtype)
+    if isinstance(generator, (list, tuple)) and len(generator) != cfg.num_instances:
+        raise ValueError(f"{len(generator)} generators for {cfg.num_instances} instances")
     m, d, v = cfg.num_instances, cfg.d_model, cfg.vocab_size
+
+    def leaf(name, shape, init_, dtype, per_layer):
+        return draw_leaf(name, shape, init_, dtype, per_layer, generator, dev, par, cut)
+
     tree = {
-        "embed": leaf((m, v, d), "normal", par, False),
-        "layers": {k: leaf(shape, init_, _leaf_dtype(cfg, k), True)
+        "embed": leaf("embed", (m, v, d), "normal", par, False),
+        "layers": {k: leaf(k, shape, init_, _leaf_dtype(cfg, k), True)
                    for k, (shape, init_) in _layer_shapes(cfg).items()},
-        "final_norm": leaf((m, d), "ones", par, False),
-        "lm_head": leaf((m, d, v), "fan_in", par, False),
+        "final_norm": leaf("final_norm", (m, d), "ones", par, False),
+        "lm_head": leaf("lm_head", (m, d, v), "fan_in", par, False),
     }
     return MergedParams(tree)
 
@@ -163,7 +179,12 @@ def route(cfg: ModelConfig, router, x, *, cap: int, valid=None, counts=None, lim
       or dropped (None without ``counts``)."""
     m, b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    logits = torch.matmul(x.float().reshape(m, b * s, d), router.float()).reshape(m, b, s, e)
+    # one product a row of the grid: the library picks its algorithm (and
+    # whether to split the reduction) by the whole call's shape, so in one
+    # batched product a row's f32 logits, and with them its routing
+    # weights, would depend on how many rows share the call
+    xf, rf = x.float().reshape(m, b * s, d), router.float()
+    logits = torch.stack([xf[i] @ rf[i] for i in range(m)]).reshape(m, b, s, e)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = top_k(probs, k)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True).clamp(min=1e-9)
@@ -195,25 +216,30 @@ def route(cfg: ModelConfig, router, x, *, cap: int, valid=None, counts=None, lim
 # ---------------------------------------------------------------------------
 
 
-def _expert_rows(cfg: ModelConfig, r: dict, m_w: int, inst, rank, reps: int, t: int):
-    """Where each sorted assignment's row lies in the (M_w * E * t + 1, D)
-    block of expert inputs.  Pair p = (instance, expert) owns rows
-    [p * t, (p + 1) * t); a kept assignment takes its pair's next row (the
-    rows of one instance in (lane rank, batch row) order, then stream
-    order), a dropped one the last row, which no product reads.  ``inst``
-    and ``rank`` (M,) are each row's instance and its rank among the rows
-    of that instance; ``reps`` the most rows an instance has."""
-    e = cfg.num_experts
+def _expert_rows(cfg: ModelConfig, r: dict, m_w: int, inst, rank, reps: int, t: int,
+                 lo: int = 0, e_l: int | None = None):
+    """Where each sorted assignment's row lies in the (M_w * E_l * t + 1,
+    D) block of expert inputs, for the window of E_l experts from ``lo``
+    (all E on one device).  Pair p = (instance, window expert) owns rows
+    [p * t, (p + 1) * t); a kept assignment in the window takes its
+    pair's next row (the rows of one instance in (lane rank, batch row)
+    order, then stream order), any other one the last row, which no
+    product reads.  ``inst`` and ``rank`` (M,) are each row's instance and
+    its rank among the rows of that instance; ``reps`` the most rows an
+    instance has.  Returns (rows, local: kept and in the window)."""
+    e_l = cfg.num_experts if e_l is None else e_l
     keep, eid, pos = r["keep"], r["eid"], r["pos"]
+    local = keep & (eid >= lo) & (eid < lo + e_l)
+    eid = (eid - lo).clamp(0, e_l - 1)
     m, b = keep.shape[:2]
-    n_keep = torch.zeros(m, b, e, dtype=torch.long, device=keep.device)
-    n_keep.scatter_add_(-1, eid, keep.long())
+    n_keep = torch.zeros(m, b, e_l, dtype=torch.long, device=keep.device)
+    n_keep.scatter_add_(-1, eid, local.long())
     # the exclusive running count over the earlier rows of the same instance
-    block = n_keep.new_zeros(m_w, reps * b, e)
-    block.view(m_w, reps, b, e)[inst, rank] = n_keep
-    before = (block.cumsum(1) - block).view(m_w, reps, b, e)[inst, rank]
-    row = (inst.reshape(m, 1, 1) * e + eid) * t + before.gather(-1, eid) + pos
-    return torch.where(keep, row, torch.full_like(row, m_w * e * t))
+    block = n_keep.new_zeros(m_w, reps * b, e_l)
+    block.view(m_w, reps, b, e_l)[inst, rank] = n_keep
+    before = (block.cumsum(1) - block).view(m_w, reps, b, e_l)[inst, rank]
+    row = (inst.reshape(m, 1, 1) * e_l + eid) * t + before.gather(-1, eid) + pos
+    return torch.where(local, row, torch.full_like(row, m_w * e_l * t)), local
 
 
 def _combine(y, r: dict, s: int, k: int):
@@ -232,7 +258,7 @@ def _combine(y, r: dict, s: int, k: int):
 
 
 def moe_mlp(cfg: ModelConfig, lp, x, *, valid=None, counts=None, limit=None,
-            groups: L.LaneGroups | None = None):
+            groups: L.LaneGroups | None = None, ltp=None):
     """x (M, B, S, D) -> (M, B, S, D) in x's dtype; with ``counts`` the
     chainable chunked form, returning (out, counts advanced).
 
@@ -241,16 +267,22 @@ def moe_mlp(cfg: ModelConfig, lp, x, *, valid=None, counts=None, limit=None,
     row i of x reads instance ``groups.t[i]``.  ``valid`` (M, B, S) masks
     junk tokens out of routing; ``counts`` (M, B, E) int32 and ``limit``
     (M, B) int32 are the earlier chunks' assignments and the exact-length
-    capacity of each row's request."""
+    capacity of each row's request.
+
+    ``ltp``, the expert group under an expert split, makes this the
+    expert window of rank ``ltp.rank``: ``lp``'s ``we_*`` hold its E/T
+    experts (M_w, E/T, ...), the routing is whole, and the ranks' partials
+    are summed with ``ltp.all_reduce_sum``."""
     m, b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    k = cfg.num_experts_per_tok
     chunked = counts is not None
     cap = s * k if chunked else capacity(cfg, s)
     router = lp["router"] if groups is None else groups.rows(lp["router"])
     r = route(cfg, router, x, cap=cap, valid=valid, counts=counts, limit=limit)
 
     wg, wu, wd = lp["we_gate"], lp["we_up"], lp["we_down"]
-    m_w, ff = wg.shape[0], wg.shape[-1]
+    m_w, e_l, ff = wg.shape[0], wg.shape[1], wg.shape[-1]
+    lo = 0 if ltp is None else ltp.rank * e_l
     if groups is None:
         inst, rank, reps = torch.arange(m, device=x.device), x.new_zeros(m, dtype=torch.long), 1
     else:
@@ -258,19 +290,20 @@ def moe_mlp(cfg: ModelConfig, lp, x, *, valid=None, counts=None, limit=None,
     # a row holds at most min(S, cap) assignments of one expert (a token
     # picks an expert once): the rows of a pair, bounded from the shapes
     t = reps * b * min(s, cap)
-    rows = _expert_rows(cfg, r, m_w, inst, rank, reps, t)
+    rows, local = _expert_rows(cfg, r, m_w, inst, rank, reps, t, lo, e_l)
     tok = r["order"] // k                                    # token of each assignment
     src = (torch.arange(m * b, device=x.device).reshape(m, b, 1) * s + tok).reshape(-1)
-    xb = x.new_zeros(m_w * e * t + 1, d)
+    n_rows = m_w * e_l * t
+    xb = x.new_zeros(n_rows + 1, d)
     xb[rows.reshape(-1)] = x.reshape(m * b * s, d)[src]
-    xe = xb[:-1].view(m_w * e, t, d)
-    h = (F.silu(K.fused_matmul(xe, wg.reshape(m_w * e, d, ff)))
-         * K.fused_matmul(xe, wu.reshape(m_w * e, d, ff)))
-    ye = K.fused_matmul(h, wd.reshape(m_w * e, ff, d)).reshape(m_w * e * t, d)
-    y = ye[rows.clamp(max=m_w * e * t - 1)]                  # (M, B, S*K, D)
-    y = y * r["keep"][..., None].to(y.dtype)
+    xe = xb[:-1].view(m_w * e_l, t, d)
+    h = (F.silu(K.fused_matmul(xe, wg.reshape(m_w * e_l, d, ff)))
+         * K.fused_matmul(xe, wu.reshape(m_w * e_l, d, ff)))
+    ye = K.fused_matmul(h, wd.reshape(m_w * e_l, ff, d)).reshape(n_rows, d)
+    y = ye[rows.clamp(max=n_rows - 1)]                       # (M, B, S*K, D)
+    y = y * local[..., None].to(y.dtype)
     y = y * r["w_sorted"][..., None].to(y.dtype)
-    out = _combine(y, r, s, k)
+    out = S.sum_over(ltp, _combine(y, r, s, k))
     return (out, r["counts"]) if chunked else out
 
 
@@ -283,19 +316,23 @@ def _experts_of(lay, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device) -> KVCache:
-    """The grid's KV cache, (L, M, B, S, KVH, hd)."""
-    return dense.make_cache(cfg, m, b, context_len, device)
+def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device,
+               tp=None) -> KVCache:
+    """The grid's KV cache, (L, M, B, S, KVH, hd); a rank's shard holds
+    its kv heads where the attention splits."""
+    return dense.make_cache(cfg, m, b, context_len, device, tp)
 
 
 def cache_axes(cfg: ModelConfig) -> KVCache:
     return dense.cache_axes(cfg)
 
 
-def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device) -> dict:
+def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device,
+                     tp=None) -> dict:
     """The cache and, per layer (routers are independent per layer), the
-    per-expert assignment counts of the earlier chunks."""
-    return {"cache": make_cache(cfg, m, b, cache_len, device),
+    per-expert assignment counts of the earlier chunks: (L, M, B, E) on
+    every rank, since every rank routes in full."""
+    return {"cache": make_cache(cfg, m, b, cache_len, device, tp),
             "counts": torch.zeros(cfg.num_layers, m, b, cfg.num_experts, dtype=torch.int32,
                                   device=device)}
 
@@ -305,57 +342,73 @@ def chunk_carry_axes(cfg: ModelConfig) -> dict:
 
 
 def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
-                  instances: list[int] | None = None) -> dict:
+                  instances: list[int] | None = None, tp=None) -> dict:
     """One chunk of a state-carrying prefill with exact-length-equivalent
     routing.  batch["tokens"] (M, B, C) at positions offset .. offset + C
     - 1; batch["moe_limit"] (M, B) int32 the capacity an exact-length
     prefill of each request's real token count would use; batch["valid"]
     (M, B, C), when present, the real rows.  The cache and the counts
     are updated in place; ``instances`` maps row i to instance
-    ``instances[i]``."""
+    ``instances[i]``.  Under ``tp`` the chunk attention runs on the rank's
+    heads and the experts on its window, each followed by a sum."""
     x = dense._embed_in(cfg, params, batch["tokens"], instances)
     valid, limit = batch.get("valid"), batch["moe_limit"]
-    ctx = dense.chunk_context(cfg, params, x, carry["cache"], offset, valid, instances)
+    ctx = dense.chunk_context(cfg, params, x, carry["cache"], offset, valid, instances,
+                              S.attn_group(cfg, tp))
+    etp = S.expert_group(cfg, tp)
     lay, counts = params["layers"], carry["counts"]
     for i in range(cfg.num_layers):
         x, k, v = dense.chunk_attention(cfg, ctx, params, i, x)
         n = L.rms_norm(x, ctx.per_lane["mlp_norm"][i], cfg.norm_eps)
         y, new_counts = moe_mlp(cfg, _experts_of(lay, i), n, valid=valid, counts=counts[i],
-                                limit=limit, groups=ctx.groups)
+                                limit=limit, groups=ctx.groups, ltp=etp)
         counts[i].copy_(new_counts)
         x = x + y
         dense.chunk_append(ctx, i, k, v)
     return carry
 
 
-def _decode_layers(cfg: ModelConfig, params, cache: KVCache, x, pos, alive=None):
-    """The stack over x (M, B, D): the decode layer's attention phase
-    (ring append in place), its residual, then the MoE FFN."""
+def _decode_layers(cfg: ModelConfig, params, cache: KVCache, x, pos, alive=None, tp=None):
+    """The stack over x (M, B, D): the decode layer's attention phase on
+    the rank's heads (ring append in place), the sum of the ranks'
+    partials, its residual, then the MoE FFN on the rank's expert window
+    (its own sum)."""
     lay = params["layers"]
+    atp, etp = S.attn_group(cfg, tp), S.expert_group(cfg, tp)
+    heads = cfg.num_heads // (1 if atp is None else atp.size)
     for i in range(cfg.num_layers):
         lp = {n: lay[n][i] for n in ATTN_LEAVES if n in lay}
-        part, _, _ = K.decode_layer_attn(lp, x, cache.k[i], cache.v[i], pos,
-                                         num_heads=cfg.num_heads, head_dim=cfg.head_dim,
-                                         rope_theta=cfg.rope_theta, window=cfg.sliding_window,
-                                         eps=cfg.norm_eps, alive=alive)
-        x = x + part
-        n = L.rms_norm(x, lay["mlp_norm"][i], cfg.norm_eps)
-        x = x + moe_mlp(cfg, _experts_of(lay, i), n[:, :, None])[:, :, 0]
+        part, _, _ = K.decode_layer_attn(lp, x, cache.k[i], cache.v[i], pos, num_heads=heads,
+                                         head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+                                         window=cfg.sliding_window, eps=cfg.norm_eps,
+                                         alive=alive)
+        x = x + S.sum_over(atp, part)
+        # a row's norm is its own reduction: the grid's rows per call vary
+        # with the data split
+        n = L.rms_norm_rowwise(x, lay["mlp_norm"][i], cfg.norm_eps)
+        x = x + moe_mlp(cfg, _experts_of(lay, i), n[:, :, None], ltp=etp)[:, :, 0]
     return x
 
 
-def decode_step(cfg: ModelConfig, params, cache: KVCache, tokens, pos, *, alive=None):
+def decode_step(cfg: ModelConfig, params, cache: KVCache, tokens, pos, *, alive=None,
+                tp=None):
     """One decode step.  tokens (M, B, 1); pos (M, B) int32.  Returns
-    (logits (M, B, V) f32, cache updated in place)."""
+    (logits (M, B, V) f32, cache updated in place); under a vocab split
+    every rank gets the whole vocab's logits."""
     x = dense._embed_in(cfg, params, tokens)[:, :, 0]
-    x = _decode_layers(cfg, params, cache, x, pos, alive)
+    x = _decode_layers(cfg, params, cache, x, pos, alive, tp)
     n = L.rms_norm(x[:, :, None], params["final_norm"], cfg.norm_eps)
-    return L.unembed(n, params["lm_head"])[:, :, 0], cache
+    logits = L.unembed(n, params["lm_head"])[:, :, 0]
+    vtp = S.vocab_group(cfg, tp)
+    return (logits if vtp is None else vtp.all_gather(logits, dim=-1)), cache
 
 
-def decode_step_sample(cfg: ModelConfig, params, cache: KVCache, tokens, pos, *, alive=None):
+def decode_step_sample(cfg: ModelConfig, params, cache: KVCache, tokens, pos, *, alive=None,
+                       tp=None):
     """Greedy decode step: (next token (M, B) int32, cache updated in
-    place); final norm, logits and argmax in one fused kernel."""
+    place); final norm, logits and argmax in one fused kernel (per vocab
+    slice under a vocab split, then the cross-rank combine)."""
     x = dense._embed_in(cfg, params, tokens)[:, :, 0]
-    x = _decode_layers(cfg, params, cache, x, pos, alive)
-    return K.logits_sample(x, params["final_norm"], params["lm_head"], eps=cfg.norm_eps), cache
+    x = _decode_layers(cfg, params, cache, x, pos, alive, tp)
+    return K.logits_sample_sharded(x, params["final_norm"], params["lm_head"],
+                                   tp=S.vocab_group(cfg, tp), eps=cfg.norm_eps), cache

@@ -11,7 +11,7 @@ slots [d B/D, (d+1) B/D); where neither divides, every data rank holds
 the whole grid.  The data slice is taken first (:func:`data_params`),
 then the model slice below.
 
-The model axis, for the dense and hybrid families:
+The model axis, for the dense, moe and hybrid families:
 
 Dense, Megatron style over the port's ``(L, M, ...)`` layer leaves:
 
@@ -52,6 +52,22 @@ data-local rule):
 * the embedding, the meta tokens, the norms and ``lm_head`` whole: V of
   hymba is odd, and the logits stay whole on every rank.
 
+MoE (olmoe, qwen3-moe; the reference's ``serve_rules`` with
+``"experts": "model"``): four parts, each decided apart, and a part that
+does not divide stays whole on every rank:
+
+* the attention as dense's (``LAYER_SPLIT_DIM``'s ``wq``/``wk``/``wv``/
+  ``wo``/``b*``) where ``tp_head_plan(H, KVH, T)`` is "kv", else whole;
+* the experts ``we_gate``/``we_up``/``we_down`` (L, M, E, ...) on E, in
+  contiguous windows of E/T experts, where E % T == 0;
+* the router whole: every rank routes every token, as the reference's
+  expert-parallel ranks do;
+* ``lm_head`` by vocab where V divides; the embedding and the norms
+  whole.
+
+:func:`moe_cut` applies the same rules to one drawn layer of a leaf, so
+a rank can draw its shard layer by layer without holding the whole.
+
 Every slice is a contiguous copy, so ``LaneGroups`` and the kernels take
 a shard as they take a whole model.  The rules are decided here and
 nowhere else: :func:`layer_group`, :func:`vocab_group` and
@@ -76,7 +92,10 @@ LAYER_SPLIT_DIM = {
     "w_gate": 3, "w_up": 3, "w_down": 2,           # d_ff
 }
 LM_HEAD_SPLIT_DIM = 2                              # (M, D, V): vocab
-FAMILIES = ("dense", "hybrid")
+# moe expert leaf (L, M, E, ...) -> its experts dim
+EXPERT_SPLIT_DIM = {"we_gate": 2, "we_up": 2, "we_down": 2}
+ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+FAMILIES = ("dense", "moe", "hybrid")
 
 
 def data_split(m: int, b: int, d: int) -> str | None:
@@ -145,6 +164,53 @@ def vocab_split(cfg, n: int) -> bool:
     return n > 1 and cfg.vocab_size % n == 0
 
 
+def attn_split(cfg, n: int) -> bool:
+    """Whether a moe model's attention heads split over ``n`` ranks."""
+    return head_plan(cfg, n) == "kv"
+
+
+def expert_split(cfg, n: int) -> bool:
+    """Whether a moe model's experts split into windows over ``n`` ranks."""
+    return n > 1 and cfg.num_experts % n == 0
+
+
+def attn_group(cfg, tp):
+    """``tp`` where a moe model's attention splits, else ``None``."""
+    return tp if tp is not None and attn_split(cfg, tp.size) else None
+
+
+def expert_group(cfg, tp):
+    """``tp`` where a moe model's experts split, else ``None``."""
+    return tp if tp is not None and expert_split(cfg, tp.size) else None
+
+
+def moe_layer_dims(cfg, n: int) -> dict:
+    """moe layer leaf -> the dim of its (L, M, ...) tensor split over
+    ``n`` ranks (the leaves that stay whole are absent)."""
+    dims = {}
+    if attn_split(cfg, n):
+        dims.update({k: LAYER_SPLIT_DIM[k] for k in ATTN_LEAVES})
+    if expert_split(cfg, n):
+        dims.update(EXPERT_SPLIT_DIM)
+    return dims
+
+
+def moe_cut(cfg, rank: int, n: int):
+    """Rank ``rank``'s slice of a moe leaf as it is drawn: ``cut(name,
+    t, layer)``, ``t`` a top-level leaf (``layer`` False) or one layer of
+    a layer leaf, its L axis dropped (``layer`` True).  The shard of
+    :func:`shard_params`, a layer at a time."""
+    dims = moe_layer_dims(cfg, n)
+
+    def cut(name: str, t: torch.Tensor, layer: bool) -> torch.Tensor:
+        if layer:
+            return shard(t, dims[name] - 1, rank, n) if name in dims else t
+        if name == "lm_head" and vocab_split(cfg, n):
+            return shard(t, LM_HEAD_SPLIT_DIM, rank, n)
+        return t
+    return cut
+
+
 def layer_group(cfg, tp):
     """``tp`` where the dense layers split over its ranks, else ``None``
     (one device, or the layers held whole on every rank)."""
@@ -207,7 +273,8 @@ def local_kv_heads(cfg, n: int, rank: int = 0) -> int:
             return cfg.num_kv_heads
         lo, hi, _ = rank_kv_heads(cfg.num_heads, cfg.num_kv_heads, n, rank)
         return hi - lo
-    return cfg.num_kv_heads // n if layers_split(cfg, n) else cfg.num_kv_heads
+    split = attn_split(cfg, n) if cfg.family == "moe" else layers_split(cfg, n)
+    return cfg.num_kv_heads // n if split else cfg.num_kv_heads
 
 
 def shard(leaf: torch.Tensor, dim: int, rank: int, n: int) -> torch.Tensor:
@@ -237,16 +304,22 @@ def _hybrid_layers(cfg, lay: dict, rank: int, n: int) -> dict:
 
 
 def shard_params(cfg, params, rank: int, n: int) -> MergedParams:
-    """Rank ``rank``'s shard of a dense or hybrid model's merged params
-    over ``n`` ranks, on the device ``params`` lie on: split leaves
+    """Rank ``rank``'s shard of a dense, moe or hybrid model's merged
+    params over ``n`` ranks, on the device ``params`` lie on: split leaves
     sliced, the others shared with ``params``."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"tensor parallelism is ported for the dense and hybrid families, "
+            f"tensor parallelism is ported for the dense, moe and hybrid families, "
             f"not {cfg.family!r}")
     tree = params.tree()
     if cfg.family == "hybrid":
         tree["layers"] = _hybrid_layers(cfg, tree["layers"], rank, n)
+        return MergedParams(tree)
+    if cfg.family == "moe":
+        dims = moe_layer_dims(cfg, n)
+        tree["layers"] = {k: shard(v, dims[k], rank, n) if k in dims else v
+                          for k, v in tree["layers"].items()}
+        tree["lm_head"] = moe_cut(cfg, rank, n)("lm_head", tree["lm_head"], False)
         return MergedParams(tree)
     if layers_split(cfg, n):
         tree["layers"] = {k: shard(v, LAYER_SPLIT_DIM[k], rank, n) if k in LAYER_SPLIT_DIM

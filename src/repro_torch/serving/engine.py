@@ -1,6 +1,7 @@
 """Multi-model serving engine — the paper's deployment scenario (port of
-``repro.serving.engine``, dense, moe, ssm and hybrid families; tensor
-parallelism for dense and hybrid; the data axis for all three).
+``repro.serving.engine``, dense, moe, ssm, hybrid and vlm families;
+tensor parallelism for dense, moe and hybrid; the data axis for all but
+vlm).
 
 M fine-tuned instances of one architecture, merged on a leading
 instances axis, are served from one program over a fixed (M, B) slot
@@ -63,7 +64,7 @@ from repro_torch.serving.prefill import ChunkedPrefill
 from repro_torch.serving.sampling import make_grid_sampler
 from repro_torch.serving.scheduler import Request, Result, Scheduler, make_scheduler
 
-SERVABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SERVABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 class MultiModelServer:
@@ -88,6 +89,7 @@ class MultiModelServer:
         device=None,
         tp=None,                   # a TensorParallel handle: this rank's place on the mesh
         first_instance: int = 0,   # the grid index of params' first instance
+        sharded: bool = False,     # params are already this rank's model shard
     ):
         if cfg.family not in SERVABLE_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
@@ -120,7 +122,7 @@ class MultiModelServer:
         self.chunk_budget = max(1, chunk_budget)
         # slice where the params lie, move the rank's block only
         params = data_params(params, self.rows, first_instance)
-        if self.tp is not None:
+        if self.tp is not None and not sharded:
             params = shard_params(self.local_cfg, params, self.tp.rank, self.tp.size)
         self.params = params.to(self.device)
         self.cache = api.make_cache(self.local_cfg, self.rows.m, self.rows.b, max_context,

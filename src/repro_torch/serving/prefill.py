@@ -27,7 +27,10 @@ until the engine scatters it.  The chunk is clamped to the narrowest
 ring of the cache (dense sliding window, hybrid SWA ring after the meta
 tokens); recurrent state has no ring.  Hybrid prompts start after the
 ``prefill_prefix_len`` meta positions, whose chunk rows the model fills
-from its meta-token embeddings.  A moe chunk call also carries each
+from its meta-token embeddings; vlm prompts start after the P image-patch
+positions, and every vlm chunk call carries zero patch embeddings
+(lanes, 1, P, vision_dim), as the reference serves them (the vision
+encoder is a stub).  A moe chunk call also carries each
 lane's ``moe_limit``, the capacity an exact-length pass over the lane's
 real tokens would use (0 on a lane with no request), and a fresh lane's
 per-expert counts start at zero with its carry rows.
@@ -99,13 +102,13 @@ class ChunkedPrefill:
 
     def _min_ring_width(self) -> int:
         """Narrowest ring of the family's caches (0: none): the sliding
-        window (dense, moe), the SWA ring after the pinned meta tokens
+        window (dense, moe, vlm), the SWA ring after the pinned meta tokens
         (hybrid; ``make_cache`` clips it to ``max_context``)."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             s_cache = min(H.NUM_META_TOKENS + H.swa_window(cfg), self.max_context)
             return max(s_cache - H.NUM_META_TOKENS, 1)
-        return cfg.sliding_window if cfg.family in ("dense", "moe") else 0
+        return cfg.sliding_window if cfg.family in ("dense", "moe", "vlm") else 0
 
     def max_prompt_len(self) -> int:
         return self.max_context - self.prefix
@@ -233,6 +236,10 @@ class ChunkedPrefill:
                 if lane.req is not None and lane.total > 0:
                     limit[i, 0] = moe.capacity(self.cfg, lane.total)
             batch["moe_limit"] = torch.from_numpy(limit).to(dev)
+        if self.cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros(
+                (k, 1, self.cfg.num_image_patches, self.cfg.vision_embed_dim),
+                dtype=getattr(torch, self.cfg.dtype), device=dev)
         api.prefill_chunk(self.cfg, params, batch, self._carry,
                           torch.from_numpy(offset).to(dev), instances=inst, tp=self.tp)
         self.device_calls += 1

@@ -9,7 +9,7 @@ from repro_torch.configs import registry as treg
 
 DENSE = ["tinyllama-1.1b", "qwen1.5-0.5b", "granite-3-2b", "deepseek-67b"]
 MOE = ["olmoe-1b-7b", "qwen3-moe-30b-a3b"]
-SERVED = DENSE + ["xlstm-1.3b", "hymba-1.5b"] + MOE
+SERVED = DENSE + ["xlstm-1.3b", "hymba-1.5b"] + MOE + ["internvl2-26b"]
 PAPER = ["resnet50", "resnext50", "bert-base", "xlnet-base"]
 PORTED = SERVED + PAPER
 
@@ -50,6 +50,13 @@ def test_moe_config_matches_reference(arch, smoke):
     assert dataclasses.asdict(getattr(treg, get)(arch)) == _fields(getattr(jreg, get)(arch))
 
 
+@pytest.mark.parametrize("smoke", [False, True])
+def test_vlm_config_matches_reference(smoke):
+    get = "get_smoke_config" if smoke else "get_config"
+    assert dataclasses.asdict(getattr(treg, get)("internvl2-26b")) == _fields(
+        getattr(jreg, get)("internvl2-26b"))
+
+
 @pytest.mark.parametrize("arch", PAPER)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_paper_config_matches_reference(arch, smoke):
@@ -79,6 +86,6 @@ def test_registry_ids_match_and_unported_raise():
     assert treg.ASSIGNED == jreg.ASSIGNED and treg.PAPER_MODELS == jreg.PAPER_MODELS
     assert sorted(treg.PORTED) == sorted(PORTED)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        treg.get_config("internvl2-26b")
+        treg.get_config("whisper-small")
     with pytest.raises(KeyError):
         treg.get_config("no-such-arch")

@@ -460,15 +460,16 @@ def test_matvec_plan_covers_outputs_once(m, b, k, n, pair):
 def test_matvec_plan_split_rule(m, b, k, n, pair):
     """A split only where 4 instances' blocks fill under half of an H100's
     SMs, each split at least 4 steps (unless 16 lanes' shared memory
-    forced more), at most a cluster of 8; f32 and more than 16 lanes keep
-    the lanes matvec."""
+    forced more), at most a cluster of 8; f32 keeps the lanes matvec, and
+    17 lanes take two lane groups with the same split."""
     p = dl.matvec_plan(m, b, k, n, "bfloat16", pair)
     tiles, steps = p.grid[0], math.ceil(k / dl.TC_HK)
     assert 1 <= p.split <= min(dl.TC_MAX_SPLIT, steps)
     if p.split > 1 and dl.tc_smem(16, math.ceil(steps / (p.split - 1)), pair) <= dl.MAX_SMEM:
         assert tiles * 4 * (p.split - 1) < SMS / 2 and steps // p.split >= dl.TC_MIN_SPLIT_STEPS
     assert dl.matvec_plan(m, b, k, n, "float32", pair).variant == "simt"
-    assert dl.matvec_plan(m, 17, k, n, "bfloat16", pair).variant == "simt"
+    p17 = dl.matvec_plan(m, 17, k, n, "bfloat16", pair)
+    assert (p17.variant, p17.groups, p17.split) == ("tc", 2, p.split)
 
 
 def test_matvec_plan_serving_shapes():
@@ -588,12 +589,22 @@ def test_plan_splits_read_no_lane_or_sm_count(case):
 
 
 def test_matvec_plan_lanes_matvec_starts_past_16_lanes():
-    """Past 16 lanes a product keeps the lanes matvec, which sums in
-    another order than the wgmma path (an open fault: a lane's bf16
-    output there differs from its output in a call of at most 16 lanes).
-    This pins where that starts, for every product of tinyllama's layer."""
-    for b in range(1, 17):
-        assert dl.layer_plans(4, b, 2048, 32, 4, 64, 5632) is not None, b
-    for b in (17, 32, 64):
-        assert dl.layer_plans(4, b, 2048, 32, 4, 64, 5632) is None
-        assert dl.matvec_plan(4, b, 2048, 2048).variant == "simt"
+    """Past 16 lanes a bf16 product stays on the wgmma path, in
+    ceil(b / 16) groups of at most 16 lanes (wgmma N 16) with the split
+    that N 8 and N 16 share, so a lane's sums run in one order at any lane
+    count; f32 keeps the lanes matvec.  For every product of tinyllama's
+    layer and at b in {17, 24, 32, 64}.  (Until the lane groups, b > 16
+    fell back to the lanes matvec, which sums in another order.)"""
+    shape = (2048, 32, 4, 64, 5632)
+    base = {k: p.split for k, p in dl.layer_plans(4, 16, *shape).items()}
+    for b in (17, 24, 32, 64):
+        plans = dl.layer_plans(4, b, *shape)
+        assert plans is not None, b
+        for name, p in plans.items():
+            assert (p.variant, p.rows, p.groups) == ("tc", 16, math.ceil(b / 16)), (name, b)
+            assert p.grid[1:] == (base[name], 4 * p.groups) and p.split == base[name]
+        assert dl.attn_plans(4, b, 2048, 32, 4, 64) is not None
+        assert dl.ffn_plans(4, b, 2048, 5632) is not None
+        assert dl.matvec_plan(4, b, 2048, 2048).variant == "tc"
+        assert dl.matvec_plan(4, b, 2048, 2048, "float32").variant == "simt"
+        assert dl.layer_plans(4, b, *shape, dtype="float32") is None

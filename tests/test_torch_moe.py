@@ -10,6 +10,8 @@ relative (1e-5 absolute floor): the port multiplies the kept rows only,
 the reference zero-padded capacity buffers, so only summation order
 differs.  Greedy serving streams must be equal to the JAX engine's.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -239,7 +241,8 @@ def test_engine_streams_match_jax_engine(k):
 def test_init_storage_dtypes_and_refusals():
     """``init`` draws the reference's tree in the storage dtypes (expert
     and attention weights in the activation dtype, router, norms, embed
-    and lm_head in param_dtype); MoE refuses tensor parallelism."""
+    and lm_head in param_dtype); on a mesh the cache holds the rank's kv
+    heads."""
     cfg = treg.get_config("olmoe-1b-7b").with_(num_layers=1, num_instances=1, d_model=64,
                                                d_ff=32, num_heads=2, num_kv_heads=2,
                                                vocab_size=128, num_experts=8)
@@ -254,5 +257,10 @@ def test_init_storage_dtypes_and_refusals():
         assert got.dtype == (torch.bfloat16 if name in tmoe.MATMUL_LEAVES else torch.float32)
     assert tree["lm_head"].shape == want["lm_head"].shape
     assert tree["layers"]["we_gate"].float().std().item() == pytest.approx(64 ** -0.5, rel=0.1)
-    with pytest.raises(NotImplementedError, match="dense and hybrid"):
-        tapi.make_cache(cfg, 1, 1, 8, device="cpu", tp=object())
+    # on a mesh a rank's cache holds its kv heads ("kv" over 2 ranks); the
+    # ssm family still refuses tensor parallelism
+    two = SimpleNamespace(rank=1, size=2)
+    assert tapi.make_cache(cfg, 1, 1, 8, device="cpu", tp=two).k.shape[4] == 1
+    with pytest.raises(NotImplementedError, match="dense, moe and hybrid"):
+        tapi.make_cache(treg.get_smoke_config("xlstm-1.3b"), 1, 1, 8, device="cpu",
+                        tp=object())
