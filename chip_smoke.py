@@ -82,7 +82,11 @@ non-zero before the result line is printed):
               before; internvl2-26b's widths (the whole layer at d 6144, a
               GQA group of 6 over heads of 128, d_ff 16384; the logits at
               V=92553) against their plain versions, each product's plan
-              printed;
+              printed; whisper-small's widths (12 / 12 heads of 64): the
+              encoder's chunk attention (one chunk of 1500 rows, no
+              cache, ``causal=False``) at 4 lanes and one lane alone bit
+              for bit, the decoder's over a 1024-slot cache, the decode
+              attention over the 1500 cross frames and over the self ring;
 4. serve   -- four main paths, each with every launch counter set to 0
               just before it and read just after: ``MultiModelServer`` on
               the full tinyllama-1.1b config (dense: decode layer, chunk
@@ -96,7 +100,10 @@ non-zero before the result line is printed):
               logits), M=4 seeded random instances, and on internvl2-26b
               at M=2 cut to 24 of its 48 layers (vlm: the 256 zero patch
               positions before each prompt; the whole decode layer, the
-              chunk attention, the logits), 16 requests each;
+              chunk attention, the logits), and on whisper-small at full
+              width and depth (audio: the encoder reruns each chunk call;
+              24 chunk-attention launches a chunk call, 24 decode-attention
+              launches a decode step, no logits kernel), 16 requests each;
               every kernel of a path must have launched, with the counts
               each step and chunk call implies; each path's mix served
               again with PROFILE_STEPS engine steps after its first
@@ -104,12 +111,13 @@ non-zero before the result line is printed):
               of that window);
 5. check   -- greedy K=1 vs K=8 streams identical on the card for the
               four families (full widths, cut depth; olmoe-1b-7b and
-              qwen3-moe-30b-a3b and internvl2-26b at 4 layers), and the
-              kernel path against the plain path on the CPU on small f32
-              configs (hymba-smoke at 4 layers over 176 prefilled
-              positions: the meta prefix and a wrapped SWA ring;
+              qwen3-moe-30b-a3b and internvl2-26b at 4 layers, whisper-small
+              at 12), and the kernel path against the plain path on the CPU
+              on small f32 configs (hymba-smoke at 4 layers over 176
+              prefilled positions: the meta prefix and a wrapped SWA ring;
               olmoe-smoke with its exact-length capacity; internvl2-smoke
-              with random patch embeddings over its 8 prefix positions);
+              with random patch embeddings over its 8 prefix positions;
+              whisper-smoke with random frames);
 5b. graph  -- the paper's Algorithm 1 (``repro_torch.core.graph``): the
               FFNN graph (FC -> LayerNorm -> GELU -> FC) at bert-base's FFN
               widths (768 -> 3072 -> 768, 128 tokens an instance) and the
@@ -131,7 +139,7 @@ non-zero before the result line is printed):
               tokens, 32 new, K=8, max_context 1536; the attention whole on
               each rank, FFN and mamba branch split) with every launch
               counter set to 0 just before and read just after on each
-              rank -- decode_attention_sharded 3 times per decode step,
+              rank -- decode_attention_sharded once per layer and step,
               the chunk kernel 32 times per chunk call, the logits once
               per step; the ranks' streams identical; K=1 == K=8 at 4
               layers; the "kv" plan end to end over 5 ranks (4 layers,
@@ -146,8 +154,10 @@ non-zero before the result line is printed):
               kernel and the logits in both; the ranks' streams identical;
               the f32 smoke config's streams equal to the single-device
               plain path on the CPU; the 2x1 streams equal to the serve
-              phase's one-device streams at M=4, 16 of 16 (a lane's bf16
-              sums do not depend on the instance count of its call); at
+              phase's one-device streams at M=4, 16 of 16, for tinyllama
+              and for the full xlstm-1.3b and hymba-1.5b served at 2x1 too
+              (a lane's bf16 result does not depend on the instance count
+              of its call); at
               2x2 K=1 == K=8 at 4 layers and
               ``fused_matmul_sharded`` on each rank's block of a seeded
               (4, 4, 2048, 5632) problem with bias, reassembled against the
@@ -168,6 +178,17 @@ non-zero before the result line is printed):
               setup peak above its shard, caches and one drawn layer of a
               leaf; reported: ms per sum, each rank's peaks, how many 1x2
               streams equal one device's;
+8c. vlm_mesh -- internvl2-26b (M=2, 24 of 48 layers) on a 1x2 mesh, the
+              ranks sharing the card (gloo), each drawing only its shard
+              (heads, kv heads and d_ff halved; the projector, embedding
+              and odd-vocab head whole), the serve mix, launch counters set
+              to 0 just before and read just after on each rank: the
+              attention and FFN phases 24 times each a decode step, the
+              whole layer never; the ranks' streams identical; no rank's
+              setup peak above its shard, caches and one drawn leaf; the
+              f32 internvl2-smoke streams on 1x2 and 1x4 equal to the
+              single-device plain path on the CPU; reported: tok/s, ms per
+              decode step, sums per step and ms per sum, each rank's peaks;
 9. paper   -- the paper's evaluation through ``benchmarks/torch_run.py``
               at full width: bert-base and xlnet-base at S=128, resnet50
               and resnext50 at 224x224, bs=1, M in {1, 8, 32} under
@@ -273,6 +294,9 @@ QWEN_LAYERS = 4
 # bf16 (q, k, v, the attention output, the SwiGLU hidden) and later stages
 # carry that on.  f32: summation order only.
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+# calls of the decode layer's ring attention on one input beside a busy
+# side stream, all bit for bit equal (``ring_repeat_cases``)
+RING_REPEATS = 400
 # merged vs per-instance outputs of the paper's models in f32, TF32 off,
 # relative to the largest output magnitude: the merged and the single
 # calls may take other cuBLAS / cuDNN algorithms, so only summation order
@@ -573,6 +597,7 @@ def phase_kernels(torch, dev):
     errs.update(hopper_design_cases(torch, dev))
     errs.update(redesign_cases(torch, dev))
     errs.update(phase_kernel_cases(torch, dev))
+    errs.update(ring_repeat_cases(torch, dev))
     errs.update(sharded_attn_cases(torch, dev))
     errs.update(sharded_matmul_cases(torch, dev))
     errs.update(attn_mlstm_cases(torch, dev))
@@ -580,11 +605,71 @@ def phase_kernels(torch, dev):
     groups, b32 = lane_group_cases(torch, dev)
     errs.update(groups)
     errs.update(vlm_width_cases(torch, dev))
+    errs.update(whisper_width_cases(torch, dev))
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
         tolerance_f32=TOL["float32"], status="ok")
     return b32
+
+
+def ring_repeat_cases(torch, dev, calls=RING_REPEATS):
+    """The decode layer's ring attention with every lane's ring ending
+    mid-ring before it wraps (a split's tiles past pos are dead; the last
+    one's -inf scores are written after the score loop), ``calls`` times
+    on the same inputs at the tinyllama width while a thread keeps bf16
+    matmuls running on a side stream: the attention phase and the whole
+    layer, bf16 and f32.  Every call's outputs equal the first's bit for
+    bit (without the barrier before the softmax a warp could read a stale
+    score of a dead tile: on an idle card 64 calls never showed it; beside
+    the side stream's matmuls the kernel without the barrier differed at
+    its 13th and its 131st call in two runs), and the first is held
+    against the plain version."""
+    import threading
+
+    side, busy = torch.cuda.Stream(dev), threading.Event()
+    a = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+
+    def hammer():
+        with torch.cuda.stream(side):
+            while not busy.is_set():
+                for _ in range(4):
+                    a @ a
+                side.synchronize()
+
+    th = threading.Thread(target=hammer)
+    th.start()
+    try:
+        return _ring_repeat(torch, dev, calls)
+    finally:
+        busy.set()
+        th.join()
+
+
+def _ring_repeat(torch, dev, calls):
+    from repro_torch.kernels import decode_layer as dl
+
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(29)
+    for dtn in ("bfloat16", "float32"):
+        lp, x, ck, cv = layer_inputs(torch, dev, getattr(torch, dtn), 30)
+        pos = torch.randint(1, S - 1, (M, B), generator=g, device=dev).to(torch.int32)
+        kw = dict(num_heads=H, head_dim=HD, rope_theta=10000.0)
+        for name, call, plain in (("attn", dl.decode_layer_attn_cuda, dl.decode_layer_attn_plain),
+                                  ("layer", dl.decode_layer_cuda, dl.decode_layer_plain)):
+            first = call(lp, x, ck.clone(), cv.clone(), pos, **kw)
+            for i in range(1, calls):
+                again = call(lp, x, ck.clone(), cv.clone(), pos, **kw)
+                assert all(torch.equal(a, b) for a, b in zip(first, again)), \
+                    f"ring attention {name} {dtn}: call {i} differs from call 0"
+            want = plain(lp, x, ck.clone(), cv.clone(), pos, **kw)
+            torch.cuda.synchronize()
+            e = max(part_err(first[0], want[0]) if name == "attn" else rel_err(first[0], want[0]),
+                    *(rel_err(a, b) for a, b in zip(first[1:], want[1:])))
+            assert e <= TOL[dtn], f"ring attention {name} {dtn} mid-ring: {e}"
+            errs[f"ring_repeat/{name}/{dtn}/mid_ring/x{calls}"] = e
+        del lp, x, ck, cv
+    return errs
 
 
 def lane_cases(torch, dev):
@@ -806,6 +891,63 @@ def vlm_width_cases(torch, dev):
     del head
     for key, e in errs.items():
         assert e <= TOL["bfloat16"], f"{key}: {e}"
+    return errs
+
+
+def whisper_width_cases(torch, dev):
+    """whisper-small's widths, which no kernel ran at before the audio
+    family (12 / 12 heads of 64, a GQA group of 1): the encoder's chunk
+    attention (one chunk of F=1500 rows, no cache, ``causal=False``, the
+    kernel's key positions ``off + j`` at S=0) at 4 lanes, one lane alone
+    against its row bit for bit in bf16; the decoder's chunk attention over
+    a 1024-slot cache at mixed offsets; the decode attention over the F
+    cross frames (kv_len = F) and over the self ring at mixed kv_len; bf16
+    and f32 against their plain versions."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import chunk_prefill_attn as cpa
+    from repro_torch.kernels import decode_attn as da
+
+    cfg = registry.get_config("whisper-small")
+    fr, h, hd = cfg.num_audio_frames, cfg.num_heads, cfg.head_dim
+    errs = {}
+    for dtn in ("bfloat16", "float32"):
+        dt = getattr(torch, dtn)
+        g = torch.Generator(device=dev).manual_seed(71)
+        q, k, v = (torch.randn((4, 1, fr, h, hd), generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        off = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+        kw = dict(s_cache=0, causal=False)
+        want = cpa.chunk_prefill_attention_plain(q, k, v, off, **kw)
+        got = cpa.chunk_prefill_attention_cuda(q, k, v, off, **kw)
+        one = cpa.chunk_prefill_attention_cuda(q[1:2].contiguous(), k[1:2].contiguous(),
+                                               v[1:2].contiguous(), off[1:2], **kw)
+        torch.cuda.synchronize()
+        if dtn == "bfloat16":
+            assert torch.equal(one, got[1:2]), "encoder chunk attention: a lane alone differs"
+        errs[f"chunk/{cfg.name}/encoder/{dtn}/C{fr}/S0/noncausal"] = rel_err(got, want)
+        plan = cpa.launch_plan(4, fr, h, h, hd, 0, dtn)
+        log("kernels", arch=cfg.name, kernel="chunk_prefill_attention", call="encoder",
+            dtype=dtn, plan=f"tiles{plan.tiles}/splits{plan.splits}/grid{plan.grid}".replace(
+                " ", ""), lane_alone_bit_equal=dtn == "bfloat16" or "not held (f32)")
+        del q, k, v, got, want, one
+        q, k, v, off = chunk_inputs(torch, dev, dt, 72, 4, 1, [0, 96, 480, 991], h=h, kvh=h)
+        want = cpa.chunk_prefill_attention_plain(q, k, v, off, s_cache=S)
+        got = cpa.chunk_prefill_attention_cuda(q, k, v, off, s_cache=S)
+        torch.cuda.synchronize()
+        errs[f"chunk/{cfg.name}/decoder/{dtn}/S{S}"] = rel_err(got, want)
+        del q, k, v
+        for name, s, lens in (("cross", fr, (fr, fr + 1)), ("self", S, (1, S + 1))):
+            q = torch.randn(M, B, h, hd, generator=g, device=dev).to(dt)
+            k, v = (torch.randn(M, B, s, h, hd, generator=g, device=dev).to(dt)
+                    for _ in range(2))
+            kv_len = torch.randint(*lens, (M, B), generator=g, device=dev, dtype=torch.int32)
+            want = da.decode_attention_plain(q, k, v, kv_len)
+            got = da.decode_attention_cuda(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            errs[f"decode_attention/{cfg.name}/{name}/{dtn}/S{s}"] = rel_err(got, want)
+            del k, v
+    for key, e in errs.items():
+        assert e <= TOL[key.split("/")[3]], f"{key}: {e}"
     return errs
 
 
@@ -1534,28 +1676,35 @@ def phase_serve(torch, dev):
         logits_launches_per_step=round(dense["logits_sample"] / steps, 2),
         cuda_kernels_per_decode_step=10 * cfg.num_layers + 2)
 
-    cfg, snap, xlstm, _ = serve_path(torch, dev, "xlstm-1.3b", ("slstm_cell", "logits_sample"))
+    cfg, snap, xlstm, xlstm_streams = serve_path(torch, dev, "xlstm-1.3b",
+                                                 ("slstm_cell", "logits_sample",
+                                                  "fused_matmul"))
     n_slstm = len(ssm.mlstm_runs(cfg)) - 1
-    calls = snap["prefill_batches"] + snap["decode_steps"]
+    n_mlstm, steps = cfg.num_layers - n_slstm, snap["decode_steps"]
+    calls = snap["prefill_batches"] + steps
     assert xlstm["slstm_cell"] == n_slstm * calls, (xlstm, n_slstm, calls)
+    # the mLSTM decode step's state product (q C) is the merged matmul in f32
+    assert xlstm["fused_matmul"] == n_mlstm * steps, (xlstm, n_mlstm, steps)
     assert xlstm["decode_layer"] == xlstm["chunk_prefill_attention"] == 0, xlstm
     log("serve", arch=cfg.name, slstm_layers=n_slstm, chunk_calls_plus_decode_steps=calls,
         slstm_launches=xlstm["slstm_cell"],
-        slstm_launches_check=f"{n_slstm}x{calls}=={xlstm['slstm_cell']}")
+        slstm_launches_check=f"{n_slstm}x{calls}=={xlstm['slstm_cell']}",
+        fused_matmul_check=f"{n_mlstm}x{steps}=={xlstm['fused_matmul']}")
 
     from repro_torch.models import hybrid
-    cfg, snap, hymba, _ = serve_path(torch, dev, "hymba-1.5b",
-                                  ("chunk_prefill_attention", "decode_attention",
-                                   "logits_sample"), max_context=YS)
-    steps, chunks = snap["decode_steps"], snap["prefill_batches"]
-    n_global = len(hybrid.global_layers(cfg))
-    assert hymba["decode_attention"] == n_global * steps, (hymba, n_global, steps)
-    assert hymba["chunk_prefill_attention"] == cfg.num_layers * chunks, (hymba, chunks)
+    cfg, snap, hymba, hymba_streams = serve_path(torch, dev, "hymba-1.5b",
+                                                 ("chunk_prefill_attention",
+                                                  "decode_attention", "logits_sample"),
+                                                 max_context=YS)
+    steps, chunks, n = snap["decode_steps"], snap["prefill_batches"], cfg.num_layers
+    # every layer's decode attention, global and SWA, is the kernel
+    assert hymba["decode_attention"] == n * steps, (hymba, n, steps)
+    assert hymba["chunk_prefill_attention"] == n * chunks, (hymba, chunks)
     assert hymba["logits_sample"] == steps, (hymba, steps)
-    assert hymba["decode_layer"] == hymba["slstm_cell"] == 0, hymba
-    log("serve", arch=cfg.name, global_layers=n_global, decode_steps=steps,
-        decode_attention_launches=hymba["decode_attention"],
-        decode_attention_check=f"{n_global}x{steps}=={hymba['decode_attention']}",
+    assert hymba["decode_layer"] == hymba["slstm_cell"] == hymba["fused_matmul"] == 0, hymba
+    log("serve", arch=cfg.name, global_layers=len(hybrid.global_layers(cfg)),
+        decode_steps=steps, decode_attention_launches=hymba["decode_attention"],
+        decode_attention_check=f"{n}x{steps}=={hymba['decode_attention']}",
         chunk_launches_check=f"{cfg.num_layers}x{chunks}=={hymba['chunk_prefill_attention']}")
 
     # the moe family: 64 experts top-8 at full width and depth, M=4 (57 GB
@@ -1594,9 +1743,38 @@ def phase_serve(torch, dev):
         decode_layer_check=f"{n}x{steps}=={vlm['decode_layer']}",
         chunk_launches_check=f"{n}x{chunks}=={vlm['chunk_prefill_attention']}",
         logits_check=f"{steps}=={vlm['logits_sample']}",
-        merged_gb_from_shapes=round(vlm_bytes(cfg) / 1e9, 2))
+        merged_gb_from_shapes=round(vlm_shard_bytes(cfg, 1)[0] / 1e9, 2))
+
+    # the audio family: whisper-small at full width and depth, M=4; every
+    # chunk call reruns the 12-layer encoder over the 1500 zero frames of
+    # each lane (12 chunk-attention launches) before the 12 decoder layers
+    # (12 more); a decode step runs 12 self- and 12 cross-attention
+    # launches of the decode-attention kernel; no logits kernel (layer norm,
+    # f32 tied head, argmax)
+    cfg, snap, audio, _ = serve_path(torch, dev, "whisper-small",
+                                     ("chunk_prefill_attention", "decode_attention",
+                                      "fused_matmul"))
+    steps, chunks, n = snap["decode_steps"], snap["prefill_batches"], cfg.num_layers
+    n_enc = cfg.encoder_layers
+    assert audio["chunk_prefill_attention"] == (n_enc + n) * chunks, (audio, chunks)
+    assert audio["decode_attention"] == 2 * n * steps, (audio, steps)
+    # the prefill's cross-attention: two merged matmuls per decoder layer
+    assert audio["fused_matmul"] == 2 * n * chunks, (audio, chunks)
+    assert not any(v for k, v in audio.items()
+                   if k not in ("chunk_prefill_attention", "decode_attention",
+                                "fused_matmul")), audio
+    log("serve", arch=cfg.name, encoder_layers=n_enc, decoder_layers=n,
+        audio_frames=cfg.num_audio_frames, decode_steps=steps, chunk_calls=chunks,
+        chunk_launches_check=f"({n_enc}+{n})x{chunks}=={audio['chunk_prefill_attention']}",
+        decode_attention_check=f"2x{n}x{steps}=={audio['decode_attention']}",
+        fused_matmul_check=f"2x{n}x{chunks}=={audio['fused_matmul']}",
+        params_gb_from_shapes=round(audio_bytes(cfg) / 1e9, 2),
+        cross_cache_gb_from_shapes=round(2 * n * M * B * cfg.num_audio_frames * cfg.d_model
+                                         * 2 / 1e9, 3))
     return ({"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm, "hymba-1.5b": hymba,
-             "olmoe-1b-7b": olmoe, "internvl2-26b": vlm}, dense_streams, olmoe_streams)
+             "olmoe-1b-7b": olmoe, "internvl2-26b": vlm, "whisper-small": audio},
+            {"tinyllama-1.1b": dense_streams, "xlstm-1.3b": xlstm_streams,
+             "hymba-1.5b": hymba_streams}, olmoe_streams)
 
 
 def device_us(e):
@@ -1786,18 +1964,18 @@ def phase_tp(torch, dev):
 
 def check_hybrid_rank(cfg, out, n_req, new):
     """One hybrid TP rank's serve: every request done with ``new`` tokens;
-    decode_attention_sharded 3 times per decode step (the global layers),
-    the plain-device decode_attention and the dense and ssm kernels never,
+    decode_attention_sharded once per layer and decode step, the
+    plain-device decode_attention and the dense and ssm kernels never,
     the chunk kernel once per layer and chunk call, the logits once per
     step.  Returns (decode steps, chunk calls)."""
     from repro_torch.models import hybrid
 
     la, snap = out["launches"], out["snapshot"]
     steps, chunks = snap["decode_steps"], snap["prefill_batches"]
-    n_global = len(hybrid.global_layers(cfg))
+    n = cfg.num_layers
     assert out["statuses"] == ["ok"] * n_req, out["statuses"]
     assert all(len(t) == new for t in out["streams"].values())
-    assert la["decode_attention_sharded"] == n_global * steps, (la, n_global, steps)
+    assert la["decode_attention_sharded"] == n * steps, (la, n, steps)
     assert la["chunk_prefill_attention"] == cfg.num_layers * chunks, (la, chunks)
     assert la["logits_sample"] == steps, (la, steps)
     assert la["decode_attention"] == la["decode_layer"] == la["decode_layer_attn"] == 0, la
@@ -1949,16 +2127,19 @@ def phase_data(torch, dev, single_streams):
     gather of one K-step block and of one model-group sum.  At 2x2 also:
     the same model cut to 4 layers at K=1 and K=8, and
     ``fused_matmul_sharded`` on each rank's block of a seeded (4, 4, 2048,
-    5632) problem with bias, bf16 and f32.  Checked here: the launches of
+    5632) problem with bias, bf16 and f32.  At 2x1 also: the full
+    xlstm-1.3b and hymba-1.5b (M=4, the serve phase's mix of TP_REQUESTS
+    requests, K=8; hymba at context 1536).  Checked here: the launches of
     every rank (``check_dense_rank``: whole layers at 2x1, the phase
     kernels at 2x2), the ranks' streams identical, K=1 == K=8, the smoke
     config's streams equal to the single-device plain path on the CPU, the
     reassembled matmul blocks against the
     plain version on the whole problem, each rank's wrapper launched once
-    per call, and the 2x1 streams equal to the serve phase's single-device
-    streams at M (``single_streams``): a lane's bf16 sums do not depend on
-    how many instances its call holds.  Returns each mesh's rank 0
-    launches and the matmul wrapper's launches summed over the ranks."""
+    per call, and the 2x1 streams of all three models equal to the serve
+    phase's single-device streams at M (``single_streams``, by arch): a
+    lane's bf16 result does not depend on how many instances its call
+    holds.  Returns each mesh's rank 0 launches (and at 2x1 xlstm's and
+    hymba's) and the matmul wrapper's launches summed over the ranks."""
     from types import SimpleNamespace
 
     from repro_torch import api
@@ -1970,6 +2151,8 @@ def phase_data(torch, dev, single_streams):
 
     cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=M)
     cut = cfg.with_(num_layers=4)
+    recurrent = [registry.get_config(a).with_(num_instances=M) for a in ("xlstm-1.3b",
+                                                                        "hymba-1.5b")]
     small = registry.get_smoke_config("tinyllama-1.1b").with_(num_instances=M, vocab_size=256)
     small_params = api.init(small, torch.Generator().manual_seed(0), "cpu")
     small_reqs = requests(8, M, 1, 48, 8, small.vocab_size, 3)
@@ -2001,6 +2184,11 @@ def phase_data(torch, dev, single_streams):
             calls += [(serve.serve_rank, cut, 1, check_reqs, dict(check_kw, decode_steps=1)),
                       (serve.serve_rank, cut, 1, check_reqs, dict(check_kw, decode_steps=8))]
             calls += [(tp_parity.fused_matmul_rank, p) for p in problems]
+        else:
+            calls += [(serve.serve_rank, fcfg, 0,
+                       requests(TP_REQUESTS, M, 16, 512, 32, fcfg.vocab_size, 0),
+                       dict(serve_kw, max_context=YS if fcfg.family == "hybrid" else S))
+                      for fcfg in recurrent]
         t0 = time.perf_counter()
         ranks = mesh.spawn(mesh.in_turn, t, *calls, device="cuda", data=d)
         log("data", mesh=f"{d}x{t}", spawn_and_run_s=round(time.perf_counter() - t0, 1))
@@ -2033,10 +2221,29 @@ def phase_data(torch, dev, single_streams):
             requests=len(want_small), tokens=sum(len(v) for v in want_small.values()),
             streams="equal")
         if t == 1:
-            same = sum(full[0]["streams"][i] == single_streams[i] for i in single_streams)
-            assert same == TP_REQUESTS, f"2x1 streams differ from one device at M={M}: {same}"
-            log("data", mesh=f"{d}x{t}",
-                streams_equal_to_single_device_at_M=f"{same}/{TP_REQUESTS}")
+            for j, arch in enumerate(["tinyllama-1.1b"] + [c.name for c in recurrent]):
+                runs = [r[0] if j == 0 else r[3 + j] for r in ranks]
+                one = single_streams[arch]
+                assert all(o["statuses"] == ["ok"] * TP_REQUESTS for o in runs), arch
+                assert all(o["streams"] == runs[0]["streams"] for o in runs), f"{arch}: ranks"
+                same = sum(runs[0]["streams"][i] == one[i] for i in one)
+                if j:
+                    o = runs[0]
+                    snap = o["snapshot"]
+                    log("data", mesh=f"{d}x{t}", arch=arch, rank=0,
+                        tokens=snap["generated_tokens"], wall_s=round(o["wall_s"], 3),
+                        tok_per_s=round(snap["generated_tokens"] / o["wall_s"], 1),
+                        ms_per_decode_step=round(snap["decode_ms_per_step"], 3),
+                        decode_steps=snap["decode_steps"],
+                        prefill_ms=round(1e3 * snap["prefill_wall_s"], 1),
+                        prefill_chunk_calls=snap["prefill_batches"],
+                        serve_peak_gib_on_card=round(o["peak_gib"], 2),
+                        launches=json.dumps(o["launches"]).replace(" ", ""))
+                    out[f"{arch}/data{d}x{t}-rank0"] = o["launches"]
+                log("data", mesh=f"{d}x{t}", arch=arch,
+                    streams_equal_to_single_device_at_M=f"{same}/{TP_REQUESTS}")
+                assert same == TP_REQUESTS, (
+                    f"{arch}: 2x1 streams differ from one device at M={M}: {same}")
         else:
             k1, k8 = [r[4]["streams"] for r in ranks], [r[5]["streams"] for r in ranks]
             assert all(s_ == k1[0] for s_ in k1 + k8), "greedy streams differ between K=1 and K=8"
@@ -2067,21 +2274,20 @@ def _size(dtype_name):
     return 4 if dtype_name == "float32" else 2
 
 
-def vlm_bytes(cfg):
-    """Bytes of a vlm model's merged params in the port's storage dtypes,
-    from shapes."""
+def audio_bytes(cfg):
+    """Bytes of an audio model's merged params in the port's storage
+    dtypes, from shapes."""
     import math
 
     import torch
 
-    from repro_torch.models import vlm
+    from repro_torch.models import audio
 
     total = 0
-    for group, leaf in vlm._shapes(cfg).items():
+    for group, leaf in audio._shapes(cfg).items():
         items = leaf.items() if isinstance(leaf, dict) else [(group, leaf)]
         for name, (shape, _) in items:
-            dt = vlm._dtype(cfg, group, name) if isinstance(leaf, dict) else torch.float32
-            total += math.prod(shape) * (4 if dt == torch.float32 else 2)
+            total += math.prod(shape) * (4 if audio._dtype(cfg, name) == torch.float32 else 2)
     return total
 
 
@@ -2250,6 +2456,128 @@ def phase_moe_mesh(torch, dev, single_streams, meshes=MOE_MESHES):
     return out
 
 
+def vlm_shard_bytes(cfg, n):
+    """A vlm rank's shard over ``n`` model ranks in the port's storage
+    dtypes, from shapes (dense's rules: ``shardings.layers_split`` /
+    ``vocab_split``; the projector whole; n = 1: the merged model), and
+    the largest one-instance leaf in f32 (what a rank's draw holds beside
+    its shard, twice: the normal draw and its scaled copy)."""
+    import math
+
+    import torch
+
+    from repro_torch.models import shardings, vlm
+
+    split = n > 1 and shardings.layers_split(cfg, n)
+    total, leaf = 0, 0
+    for group, sub in vlm._shapes(cfg).items():
+        items = sub.items() if isinstance(sub, dict) else [(group, sub)]
+        for name, (shape, _) in items:
+            dt = vlm._dtype(cfg, group, name) if isinstance(sub, dict) else torch.float32
+            cut = (group == "layers" and split and name in shardings.LAYER_SPLIT_DIM) or (
+                name == "lm_head" and shardings.vocab_split(cfg, n))
+            total += math.prod(shape) * (4 if dt == torch.float32 else 2) // (n if cut else 1)
+            one = shape[2:] if group == "layers" else shape[1:]
+            leaf = max(leaf, math.prod(one) * 4)
+    return total, leaf
+
+
+def phase_vlm_mesh(torch, dev):
+    """The vlm family on a model-parallel mesh, the ranks sharing the card
+    over gloo, each rank drawing only its shard on the card
+    (``serve.random_merged`` with ``shardings.vlm_cut``): internvl2-26b at
+    VLM_M instances cut to VLM_LAYERS layers on 1x2 (a rank: 24 / 48 q
+    heads, 4 / 8 kv heads, 8192 of d_ff; the projector, the embedding and
+    the odd-vocab head whole), the serve phase's mix (TP_REQUESTS requests
+    of 16-512 tokens after the 256 patch positions, 32 new, K=8), every
+    launch counter set to 0 just before and read just after on each rank;
+    the cost of one sum.  The f32 internvl2-smoke config on 1x2 (its
+    layers split) and 1x4 (its 4 / 2 heads do not split "kv" over 4
+    ranks: layers whole).  Checked here: every rank's launches
+    (``check_dense_rank``: the attention and FFN phases once a layer and
+    step, the whole layer never), the ranks' streams identical, the smoke
+    streams equal to the single-device plain path on the CPU, and no 1x2
+    rank's setup peak above its shard, its caches and one drawn leaf of an
+    instance in f32 (twice).  Reported: tok/s, ms per decode step, sums
+    per step and ms per sum, each rank's setup and serving peaks.
+    Returns the full serve's rank 0 launches."""
+    from repro_torch import api
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh, serve, tp_parity
+    from repro_torch.models import shardings
+    from repro_torch.serving import MultiModelServer
+
+    t = 2
+    cfg = registry.get_config("internvl2-26b").with_(num_instances=VLM_M, num_layers=VLM_LAYERS)
+    small = registry.get_smoke_config("internvl2-26b").with_(num_instances=2)
+    small_params = api.init(small, torch.Generator().manual_seed(0), "cpu")
+    small_reqs = requests(8, 2, 1, 48, 8, small.vocab_size, 3)
+    small_kw = dict(slots_per_instance=2, max_context=64, prefill_chunk=8, decode_steps=4)
+    serve_kw = dict(slots_per_instance=B, max_context=S, prefill_chunk=C, prefill_lanes=4,
+                    decode_steps=8)
+    cpu = MultiModelServer(small, small_params, device="cpu", **small_kw)
+    for q in small_reqs:
+        cpu.submit(q)
+    want_small = {q.request_id: q.tokens for q in cpu.run_until_drained()}
+    split = shardings.layers_split(cfg, t)
+    assert split and not shardings.vocab_split(cfg, t)
+    log("vlm_mesh", mesh=f"1x{t}", arch=cfg.name, instances=VLM_M, layers=cfg.num_layers,
+        layers_split=split, vocab_split=False, rule=repr(mesh.describe(t, "cuda")))
+    reqs = requests(TP_REQUESTS, VLM_M, 16, 512, 32, cfg.vocab_size, 0)
+    t0 = time.perf_counter()
+    ranks = mesh.spawn(mesh.in_turn, t,
+                       (serve.serve_rank, cfg, 0, reqs, serve_kw),
+                       (serve.serve_rank, small, small_params, small_reqs, small_kw),
+                       (tp_parity.all_reduce_rank, (VLM_M, B, cfg.d_model), 50), device="cuda")
+    log("vlm_mesh", mesh=f"1x{t}", spawn_and_run_s=round(time.perf_counter() - t0, 1))
+    full = [r[0] for r in ranks]
+    sums = 2 * cfg.num_layers
+    shard, leaf = vlm_shard_bytes(cfg, t)
+    caches = cache_bytes(cfg, VLM_M, B, 4, S, cfg.num_kv_heads // t)
+    limit = shard + caches + 2 * leaf + 2 ** 28     # 256 MiB for small tensors
+    for rank, (o, r) in enumerate(zip(full, ranks)):
+        steps, chunks = check_dense_rank(cfg, o, TP_REQUESTS, 32, split)
+        snap, la = o["snapshot"], o["launches"]
+        assert snap["mesh"] == {"shape": {"data": 1, "model": t}, "devices": t}, snap
+        share = sums * r[2] / snap["decode_ms_per_step"]
+        log("vlm_mesh", mesh=f"1x{t}", rank=rank, device=o["device"], backend=o["backend"],
+            requests=TP_REQUESTS, tokens=snap["generated_tokens"],
+            wall_s=round(o["wall_s"], 3),
+            tok_per_s=round(snap["generated_tokens"] / o["wall_s"], 1),
+            ms_per_decode_step=round(snap["decode_ms_per_step"], 3), decode_steps=steps,
+            decode_blocks=snap["decode_device_calls"],
+            prefill_ms=round(1e3 * snap["prefill_wall_s"], 1), prefill_chunk_calls=chunks,
+            attn_phase_per_step=round(la["decode_layer_attn"] / steps, 2),
+            ffn_phase_per_step=round(la["decode_layer_ffn"] / steps, 2),
+            chunk_attention_per_chunk_call=round(la["chunk_prefill_attention"] / chunks, 2),
+            logits_per_step=round(la["logits_sample"] / steps, 2),
+            sums_per_decode_step=sums, ms_per_sum=round(r[2], 4),
+            sum_share_of_decode_step=f"{share:.1%}",
+            shard_gib_from_shapes=round(shard / 2 ** 30, 2),
+            caches_gib=round(caches / 2 ** 30, 2),
+            one_instance_leaf_f32_gib=round(leaf / 2 ** 30, 3),
+            setup_peak_gib_on_card=round(o["setup_peak_gib"], 2),
+            serve_peak_gib_on_card=round(o["peak_gib"], 2), limit_gib=round(limit / 2 ** 30, 2),
+            launches=json.dumps(la).replace(" ", ""))
+        assert o["setup_peak_gib"] * 2 ** 30 <= limit, (
+            f"rank {rank} drew more than its shard: {o['setup_peak_gib']} GiB")
+    assert all(o["streams"] == full[0]["streams"] for o in full), f"1x{t}: ranks differ"
+    log("vlm_mesh", mesh=f"1x{t}", streams="ranks identical", requests=len(full[0]["streams"]))
+    smoke = [r[1] for r in ranks]
+    t0 = time.perf_counter()
+    smoke += mesh.spawn(serve.serve_rank, 4, small, small_params, small_reqs, small_kw,
+                        device="cuda")
+    log("vlm_mesh", mesh="1x4", config=small.name,
+        layers_split=shardings.layers_split(small, 4),
+        spawn_and_run_s=round(time.perf_counter() - t0, 1))
+    for o in smoke:
+        assert o["streams"] == want_small, f"smoke {len(smoke)}: streams differ from the CPU"
+    log("vlm_mesh", meshes="1x2,1x4", reference="cpu-plain single device", config=small.name,
+        requests=len(want_small), tokens=sum(len(v) for v in want_small.values()),
+        streams="equal")
+    return full[0]["launches"]
+
+
 def phase_check(torch, dev):
     import numpy as np
 
@@ -2262,10 +2590,12 @@ def phase_check(torch, dev):
     # 4 layers, xlstm to 8 (7 mLSTM layers and the sLSTM layer at 3),
     # hymba to 4 (global layers 0, 2, 3 and the SWA layer 1), olmoe and
     # qwen3-moe (GQA 32/4, 128 experts) to 4, internvl2 (its 256 patch
-    # positions before each prompt) to 4
+    # positions before each prompt) to 4; whisper-small at its full depth
+    # (12 encoder and 12 decoder layers)
     for arch, layers, ctx in (("tinyllama-1.1b", 4, S), ("xlstm-1.3b", 8, S),
                               ("hymba-1.5b", 4, YS), ("olmoe-1b-7b", 4, S),
-                              ("qwen3-moe-30b-a3b", 4, S), ("internvl2-26b", 4, S)):
+                              ("qwen3-moe-30b-a3b", 4, S), ("internvl2-26b", 4, S),
+                              ("whisper-small", 12, S)):
         cfg = registry.get_config(arch).with_(num_instances=M, num_layers=layers)
         streams = []
         for k in (1, 8):
@@ -2283,12 +2613,14 @@ def phase_check(torch, dev):
     # kernel path (card) against the plain path (CPU), small f32 configs:
     # prefill chunks (three of 8; hymba: eleven of 16 over the 128 meta
     # positions and 48 prompt tokens, wrapping its 32-slot SWA ring at
-    # context 256), a decode step and a greedy decode step
+    # context 256), a decode step and a greedy decode step; whisper-smoke
+    # with random frames (its 16-frame encoder, the cross K/V in the cache)
     for arch, layers, n_pos, width, ctx in (("tinyllama-1.1b", None, 24, 8, 64),
                                             ("xlstm-1.3b", None, 24, 8, 64),
                                             ("hymba-1.5b", 4, 176, 16, 256),
                                             ("olmoe-1b-7b", None, 24, 8, 64),
-                                            ("internvl2-26b", None, 24, 8, 64)):
+                                            ("internvl2-26b", None, 24, 8, 64),
+                                            ("whisper-small", None, 24, 8, 64)):
         small = registry.get_smoke_config(arch).with_(num_instances=2)
         if layers:
             small = small.with_(num_layers=layers)
@@ -2298,6 +2630,8 @@ def phase_check(torch, dev):
         # vlm: random patch embeddings over its 8 prefix positions
         img = torch.from_numpy(rng.standard_normal(
             (2, 2, small.num_image_patches, small.vision_embed_dim)).astype(np.float32))
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, 2, small.num_audio_frames, small.d_model)).astype(np.float32))
         outs = {}
         for d in ("cpu", dev):
             p = params.to(d) if d != "cpu" else params
@@ -2310,6 +2644,8 @@ def phase_check(torch, dev):
                                                     dtype=torch.int32, device=d)
                 if small.family == "vlm":
                     batch["image_embeds"] = img.to(d)
+                if small.family == "audio":
+                    batch["frames"] = frames.to(d)
                 api.prefill_chunk(small, p, batch, carry, off)
             cache = carry["cache"]
             pos = torch.full((2, 2), n_pos, dtype=torch.int32, device=d)
@@ -2675,16 +3011,16 @@ def phase_times(torch, dev, by_path, profile_launches, b32):
     return rows
 
 
-def matmul_time(torch, dev, g, m, t, d, f, copies):
-    """The merged-matmul kernel at (m, t, d, f) in bf16, ``copies`` weight
-    sets rotating so w comes from HBM, not L2: (max abs err against the
-    plain version, event ms, device ms queued, plain ms, ``torch.bmm`` ms,
-    ``torch.bmm`` device ms queued, (bound ms, bound by))."""
+def matmul_time(torch, dev, g, m, t, d, f, copies, dtype="bfloat16"):
+    """The merged-matmul kernel at (m, t, d, f) in ``dtype``, ``copies``
+    weight sets rotating so w comes from HBM, not L2: (max abs err against
+    the plain version, event ms, device ms queued, plain ms, ``torch.bmm``
+    ms, ``torch.bmm`` device ms queued, (bound ms, bound by))."""
     from repro_torch.kernels import fused_matmul as fm
 
-    bf16 = torch.bfloat16
-    sets = [((torch.randn(m, t, d, generator=g, device=dev)).to(bf16),
-             (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(bf16))
+    dt = getattr(torch, dtype)
+    sets = [((torch.randn(m, t, d, generator=g, device=dev)).to(dt),
+             (torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5).to(dt))
             for _ in range(copies)]
     err = abs_err(fm.fused_matmul_cuda(*sets[0]), fm.fused_matmul_plain(*sets[0]))
     it = iter(range(10 ** 9))
@@ -2693,9 +3029,9 @@ def matmul_time(torch, dev, g, m, t, d, f, copies):
     plain = time_ms(torch, lambda: fm.fused_matmul_plain(*sets[next(it) % copies]), reps=5)
     lib = time_ms(torch, lambda: torch.bmm(*sets[next(it) % copies]))
     lib_device = time_queued_ms(torch, lambda: torch.bmm(*sets[next(it) % copies]))
-    nbytes = 2 * (m * t * d + m * d * f + m * t * f)
+    nbytes = _size(dtype) * (m * t * d + m * d * f + m * t * f)
     return (err, ms, device_ms, plain, lib, lib_device,
-            bound_ms(nbytes, 2 * m * t * d * f, "bfloat16"))
+            bound_ms(nbytes, 2 * m * t * d * f, dtype))
 
 
 def sharded_matmul_time_row(torch, dev, launches, per_path):
@@ -2731,7 +3067,8 @@ def new_time_rows(torch, dev, launches, moe_launches):
     """Times rows of the merged matmul, the group RMS norm and the chunkwise
     mLSTM at the profiler's shapes; ``launches`` are the counts of the
     profile phase (their main path), ``moe_launches`` the merged matmul's
-    on the moe serve paths, by path (it carries their experts)."""
+    on the serve and mesh paths, by path (moe's experts, xlstm's mLSTM
+    decode step, whisper's prefill cross-attention)."""
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import group_norm as gn
     from repro_torch.kernels import mlstm_chunk as ml
@@ -2757,6 +3094,23 @@ def new_time_rows(torch, dev, launches, moe_launches):
                     f"{tag}_library_device_ms": e_lib_dev, f"{tag}_bound_ms": e_bms,
                     f"{tag}_bound_by": e_by, f"{tag}_max_abs_err": e_})
         log("times", name="fused_matmul", shape=f"(256,{t},2048)@(256,2048,1024) bf16",
+            ms=f"{e_ms:.4f}", device_ms=f"{e_dev:.4f}", library_ms=f"{e_lib:.4f}",
+            library_device_ms=f"{e_lib_dev:.4f}", bound_ms=f"{e_bms:.4f}",
+            of_bound=f"{e_bms / e_dev:.1%}")
+    # and the f32 products whose sums must not depend on how many instances
+    # share the call: the xlstm-1.3b mLSTM decode step's q C (one (1, 1024)
+    # @ (1024, 1024) a lane and head at M=4 x B=4, 4 heads) and whisper's
+    # prefill cross-attention over 1500 frames (4 lanes x 12 heads, chunk
+    # 32: the scores, then P [V | 1])
+    for tag, shape in (("mlstm_step", (64, 1, 1024, 1024)), ("cross_scores", (48, C, 64, 1500)),
+                       ("cross_pv", (48, C, 1500, 65))):
+        e_, e_ms, e_dev, _, e_lib, e_lib_dev, (e_bms, e_by) = matmul_time(
+            torch, dev, g, *shape, 2, dtype="float32")
+        moe.update({f"{tag}_device_ms": e_dev, f"{tag}_ms": e_ms,
+                    f"{tag}_library_device_ms": e_lib_dev, f"{tag}_bound_ms": e_bms,
+                    f"{tag}_bound_by": e_by, f"{tag}_max_abs_err": e_})
+        m_, t_, d_, f_ = shape
+        log("times", name="fused_matmul", shape=f"({m_},{t_},{d_})@({m_},{d_},{f_}) f32",
             ms=f"{e_ms:.4f}", device_ms=f"{e_dev:.4f}", library_ms=f"{e_lib:.4f}",
             library_device_ms=f"{e_lib_dev:.4f}", bound_ms=f"{e_bms:.4f}",
             of_bound=f"{e_bms / e_dev:.1%}")
@@ -2986,10 +3340,11 @@ def main() -> int:
     launches[f"hymba-1.5b/tp{TP}-rank0"] = timed("tp_hybrid", phase_tp_hybrid, torch, dev)
     by_mesh, matmul_launches = timed("data", phase_data, torch, dev, single_streams)
     for name, la in by_mesh.items():
-        launches[f"tinyllama-1.1b/data{name}-rank0"] = la
+        launches[name if "/" in name else f"tinyllama-1.1b/data{name}-rank0"] = la
     launches["fused_matmul_sharded/data2x2-ranks"] = dict(
         dict.fromkeys(by_mesh["2x2"], 0), fused_matmul_sharded=matmul_launches)
     launches.update(timed("moe_mesh", phase_moe_mesh, torch, dev, olmoe_streams))
+    launches["internvl2-26b/mesh1x2-rank0"] = timed("vlm_mesh", phase_vlm_mesh, torch, dev)
     timed("paper", phase_paper, torch, dev)
     profile_launches = timed("profile", phase_profile, torch, dev)
     rows = timed("times", phase_times, torch, dev, launches, profile_launches, b32)

@@ -1,13 +1,13 @@
 """Uniform model API (port of ``repro.api``): the dense, moe, ssm,
-hybrid and vlm entries.
+hybrid, vlm and audio entries.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); with no device given and no card present they raise
 instead of carrying on on the CPU.  Families not ported yet raise.
 
 ``tp`` (a ``models.common.TensorParallel``) runs an entry on this rank's
-shard under tensor parallelism; the dense, moe and hybrid families take
-it.
+shard under tensor parallelism; the dense, moe, hybrid and vlm families
+take it.
 """
 from __future__ import annotations
 
@@ -15,10 +15,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as C
-from repro_torch.models import dense, hybrid, moe, ssm, vlm
+from repro_torch.models import audio, dense, hybrid, moe, ssm, vlm
 from repro_torch.models import shardings as S
 
-_FAMILY = {"dense": dense, "moe": moe, "ssm": ssm, "hybrid": hybrid, "vlm": vlm}
+_FAMILY = {"dense": dense, "moe": moe, "ssm": ssm, "hybrid": hybrid, "vlm": vlm,
+           "audio": audio}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -48,7 +49,7 @@ def _tp(cfg: ModelConfig, tp) -> dict:
         return {}
     if cfg.family not in S.FAMILIES:
         raise NotImplementedError(
-            f"tensor parallelism is ported for the dense, moe and hybrid families, "
+            f"tensor parallelism is ported for the dense, moe, hybrid and vlm families, "
             f"not {cfg.family!r}")
     return {"tp": tp}
 
@@ -62,7 +63,8 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
 
 def prefill_prefix_len(cfg: ModelConfig) -> int:
     """Learned-prefix positions before the prompt: hybrid's meta tokens,
-    vlm's image patches, none for dense, moe and ssm."""
+    vlm's image patches, none for dense, moe, ssm and audio (whose prefix,
+    the audio frames, reaches the decoder through the cross-attention)."""
     family_module(cfg)
     if cfg.family == "hybrid":
         return hybrid.NUM_META_TOKENS
@@ -71,8 +73,9 @@ def prefill_prefix_len(cfg: ModelConfig) -> int:
 
 def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device=None, tp=None):
     """The grid's decode cache: a KV cache (dense, moe, vlm), the recurrent state
-    (ssm, positionless: ``context_len`` is unused) or per-group KV caches
-    and mamba states (hybrid)."""
+    (ssm, positionless: ``context_len`` is unused), per-group KV caches
+    and mamba states (hybrid) or a KV cache and the cross-attention K/V
+    (audio)."""
     dev = resolve_device(device)
     kw = _tp(cfg, tp)
     if cfg.family == "ssm":

@@ -25,7 +25,7 @@ _PAPER_FAMILY = {"cnn": cnn, "encoder": encoder}
 def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> MergedParams:
     """The port's merged model from a reference parameter tree, in the
     family's storage dtypes and layouts (``storage_dtypes`` of the family
-    module: dense, moe, ssm, hybrid, cnn, encoder)."""
+    module: dense, moe, ssm, hybrid, vlm, audio, cnn, encoder)."""
     fam = _PAPER_FAMILY.get(cfg.family) or api.family_module(cfg)
 
     def conv(x):

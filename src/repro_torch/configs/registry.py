@@ -3,9 +3,10 @@ of ``repro.configs.registry``).
 
 The id list is the reference's, so an unknown id and a known but not yet
 ported one fail with different messages; the port has the config modules
-of the dense family, xlstm-1.3b (ssm), hymba-1.5b (hybrid), the moe
-family (olmoe-1b-7b, qwen3-moe-30b-a3b), internvl2-26b (vlm) and the
-paper's four evaluation models (cnn and encoder) so far.
+of every assigned arch -- the dense family, xlstm-1.3b (ssm), hymba-1.5b
+(hybrid), the moe family (olmoe-1b-7b, qwen3-moe-30b-a3b), internvl2-26b
+(vlm) and whisper-small (audio) -- and of the paper's four evaluation
+models (cnn and encoder).
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ ALL = {**ASSIGNED, **PAPER_MODELS}
 # the archs whose config modules (and model family) the port has
 PORTED = ("tinyllama-1.1b", "deepseek-67b", "granite-3-2b", "qwen1.5-0.5b",
           "xlstm-1.3b", "hymba-1.5b", "olmoe-1b-7b", "qwen3-moe-30b-a3b", "internvl2-26b",
-          *PAPER_MODELS)
+          "whisper-small", *PAPER_MODELS)
 
 LONG_CONTEXT_WINDOW = 8192
 

@@ -463,6 +463,10 @@ ring_attn_kernel(const T* __restrict__ qkv, T* __restrict__ ck, T* __restrict__ 
     }
     __syncthreads();
   }
+  // a dead last tile's -inf scores were written after the loop's last
+  // barrier: without this one a warp could read another warp's slots of it
+  // before they land (a stale score from an earlier block)
+  __syncthreads();
 
   // softmax statistics: warp w reduces heads w, w + NW, ...
   const int warp = tid >> 5, lane = tid & 31;

@@ -1,6 +1,7 @@
 """Serving launcher (port of ``repro.launch.serve``, dense, moe, ssm,
-hybrid and vlm families; tensor parallelism for dense, moe and hybrid;
-the data axis for all but vlm).
+hybrid, vlm and audio families; tensor parallelism for dense, moe, hybrid
+and vlm; the data axis for dense, moe, ssm and hybrid; audio on one
+device, a mesh raises).
 
 Initialises M "fine-tuned" instances as M random initialisations from a
 seed, merges them (the paper's offline merge step, timed), and serves a
@@ -18,6 +19,10 @@ program.  Runs on the CUDA device unless ``--device cpu`` is given.
       --smoke --device cpu --decode-steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
       --smoke --device cpu --decode-steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+      --smoke --device cpu --decode-steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \\
+      --smoke --device cpu --mesh-shape 1x2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --smoke --device cpu --mesh-shape 1x2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
@@ -51,14 +56,16 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh
 from repro_torch.models import hybrid as H
 from repro_torch.models.common import merge_drawn
-from repro_torch.models.shardings import data_rows, moe_cut
+from repro_torch.models.shardings import data_rows, moe_cut, vlm_cut
 from repro_torch.serving import MultiModelServer, Request
 from repro_torch.serving.scheduler import POLICIES
 
 
 # families whose ``init`` takes a generator an instance and draws the
 # merged model in place, a layer at a time (``models.common.draw_leaf``)
-IN_PLACE = ("moe", "vlm")
+IN_PLACE = ("moe", "vlm", "audio")
+# families whose mesh ranks draw only their model shard (``cut``)
+CUTS = {"moe": moe_cut, "vlm": vlm_cut}
 
 
 def random_merged(cfg, seed: int, device, on_host: bool = False, rows=None, cut=None):
@@ -66,11 +73,12 @@ def random_merged(cfg, seed: int, device, on_host: bool = False, rows=None, cut=
     seeded ``seed * 1000 + i`` on ``device``), merged; ``rows`` (a range)
     draws and merges only those instances, the same weights.
 
-    moe and vlm (``IN_PLACE``) draw every instance straight into the
-    merged leaves on ``device``, a layer at a time, so nothing but the
+    moe, vlm and audio (``IN_PLACE``) draw every instance straight into
+    the merged leaves on ``device``, a layer at a time, so nothing but the
     merged model and one layer of one leaf is ever held (olmoe-1b-7b at M
-    = 4: 57 GB); ``cut`` (``shardings.moe_cut``) keeps only a mesh rank's
-    slice of each drawn layer, so a rank holds only its shard.  The other
+    = 4: 57 GB); ``cut`` (``shardings.moe_cut`` or ``vlm_cut``) keeps
+    only a mesh rank's slice of each drawn layer, so a rank holds only its
+    shard.  The other
     families draw each instance whole and copy it into the merged leaves
     at once (``models.common.merge_drawn``); ``on_host`` merges them on
     the CPU (a mesh rank then moves only its shard to the card).  Returns
@@ -119,8 +127,8 @@ def serve(cfg, params, reqs, *, device, tp=None, **server_kw) -> dict:
     submitted and read after the drain.  ``params`` is a whole merged
     model, or an int seed of :func:`random_merged` (drawn on ``device``;
     on a mesh only the instance rows of the rank's data group: merged on
-    the CPU, the server moving only the rank's shard, or for moe drawn as
-    the rank's shard on ``device``)."""
+    the CPU, the server moving only the rank's shard, or for moe and vlm
+    drawn as the rank's shard on ``device``)."""
     merge_s = merge_dev = None
     first, sharded = 0, False
     if isinstance(params, int):
@@ -128,8 +136,8 @@ def serve(cfg, params, reqs, *, device, tp=None, **server_kw) -> dict:
                          None if tp is None else tp.data)
         first = rows.m0
         local = cfg.with_(num_instances=rows.m)
-        sharded = cfg.family == "moe" and tp is not None and tp.size > 1
-        cut = moe_cut(local, tp.rank, tp.size) if sharded else None
+        sharded = cfg.family in CUTS and tp is not None and tp.size > 1
+        cut = CUTS[cfg.family](local, tp.rank, tp.size) if sharded else None
         params, merge_s, merge_dev = random_merged(cfg, params, device, on_host=tp is not None,
                                                    rows=range(rows.m0, rows.m0 + rows.m), cut=cut)
     host_bytes = sum(p.numel() * p.element_size() for p in params.parameters()
@@ -241,6 +249,12 @@ def main(argv=None):
     d, t = mesh.parse_mesh_shape(args.mesh_shape)
     device = api.resolve_device(args.device)
     base = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
+    # the engine refuses a mesh for audio too, but inside the spawned ranks,
+    # after each drew its weights, and ``mesh.spawn`` reports a rank's
+    # failure as a RuntimeError: refuse before the spawn, by name
+    if d * t > 1 and base.family == "audio":
+        raise NotImplementedError(f"{args.arch} (the audio family) serves on one device; "
+                                  f"--mesh-shape {args.mesh_shape} is not ported for it")
     max_context = args.max_context
     need, why = 0, ""
     if base.family == "hybrid":

@@ -157,6 +157,7 @@ def draw_leaf(name: str, shape, init: str, dtype: torch.dtype, per_layer: bool, 
                 out = torch.empty(((shape[0],) if per_layer else ()) + rows, dtype=dtype,
                                   device=device)
             (out[i] if per_layer else out).narrow(0, j, t.shape[0]).copy_(t)
+            del t       # not held while the next piece is drawn
     return out
 
 
@@ -235,7 +236,7 @@ def _as_tree(params) -> dict:
 
 
 # subtrees whose leaves are stacked on a leading layer axis (L, M, ...)
-_LAYER_STACKED = ("layers", "mlstm_runs")
+_LAYER_STACKED = ("layers", "mlstm_runs", "enc_layers", "dec_layers")
 
 
 def _map_params(fn, *trees, _inst: int = 0):
@@ -297,7 +298,7 @@ def gather_instances(params, idx) -> MergedParams:
     is k.  This copies every weight; the serving prefill uses per-lane
     views (``instances=`` of ``dense.prefill_chunk``) instead."""
     tree = _as_tree(params)
-    any_leaf = tree["final_norm"]
+    any_leaf = tree["embed"]
     idx = torch.as_tensor(idx, dtype=torch.long, device=any_leaf.device)
     return MergedParams(_map_params(
         lambda l, ax: l.index_select(ax, idx), tree))

@@ -14,22 +14,24 @@ groups.
 Serving only: ``prefill_chunk`` (chained chunks over the meta prefix and
 the prompt), ``decode_step`` and ``decode_step_sample``.  Attention of a
 prefill chunk is the chunk-attention kernel (``pin``/``window``/``sink``
-per group); decode attention of the global groups is the decode-attention
-kernel, of the SWA groups the plain meta-pinned ring attention
-(``layers.flash_attention_plain``: the reference serves those groups
-through XLA too).  Greedy decode ends in the fused logits kernel.  The
-Mamba branch is plain PyTorch: the SSD chunk scan for a chunk, the
-one-step update for decode.
+per group); decode attention of every group is the decode-attention
+kernel over the ring's first min(pos + 1, S) slots (an SWA ring holds
+only keys inside the window; the reference serves those groups through
+XLA).  Norms reduce each row on its own (``layers.rms_norm_rowwise``),
+so a lane's decode does not depend on how many instances share the
+call.  Greedy
+decode ends in the fused logits kernel.  The Mamba branch is plain
+PyTorch: the SSD chunk scan for a chunk, the one-step update for decode.
 
 Tensor parallelism: with a ``TensorParallel`` handle ``tp`` the params
 and caches are this rank's shard (``models/shardings.py`` decides the
 attention heads, the FFN and the mamba branch apart).  A part that
 splits ends in its row-split projection (``wo``, ``w_ssm_out``,
 ``w_down``), and the sum over the ranks follows it, before the branch's
-norm: at most three sums per block.  Decode attention of the global
-groups goes through ``decode_attention_sharded`` on the rank's heads,
-the SWA groups' plain attention and the prefill chunk kernel run on the
-rank's heads, and the logits stay whole on every rank.
+norm: at most three sums per block.  Decode attention goes through
+``decode_attention_sharded`` on the rank's heads, the prefill chunk
+kernel runs on the rank's heads, and the logits stay whole on every
+rank.
 
 Caches and states are updated in place.  ``valid`` (M, B, C) marks the
 junk suffix of a padded final chunk: its rows never reach a KV cache and
@@ -297,17 +299,17 @@ def hymba_block(cfg: ModelConfig, lp, x, attend, ssm_state: dict, *, split: S.Hy
     ``split`` (``shardings.hybrid_split``) names the parts that split
     over the ranks: each one's partial is summed before its norm."""
     eps = cfg.norm_eps
-    xn = L.rms_norm(x, lp["norm"], eps)
+    xn = L.rms_norm_rowwise(x, lp["norm"], eps)
     attn_out = S.sum_over(split.heads, attend(xn))
     ssm_out, new = mamba_branch(cfg, lp, xn, state=ssm_state, valid=valid, groups=groups,
                                 tp=split.ssm)
     ssm_out = S.sum_over(split.ssm, ssm_out)
     ssm_state["h"].copy_(new["h"])
     ssm_state["conv"].copy_(new["conv"])
-    fused = 0.5 * (L.rms_norm(attn_out, lp["attn_out_norm"], eps)
-                   + L.rms_norm(ssm_out, lp["ssm_out_norm"], eps))
+    fused = 0.5 * (L.rms_norm_rowwise(attn_out, lp["attn_out_norm"], eps)
+                   + L.rms_norm_rowwise(ssm_out, lp["ssm_out_norm"], eps))
     x = x + fused
-    nrm = L.rms_norm(x, lp["mlp_norm"], eps)
+    nrm = L.rms_norm_rowwise(x, lp["mlp_norm"], eps)
     return x + S.sum_over(split.ffn, L.swiglu_mlp(nrm, lp["w_gate"], lp["w_up"],
                                                   lp["w_down"], groups))
 
@@ -366,17 +368,6 @@ def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device,
     ssm = {"h": torch.zeros(nl, m, b, di_l, cfg.ssm_state, device=device),
            "conv": torch.zeros(nl, m, b, cfg.conv_kernel - 1, di, dtype=act, device=device)}
     return {"kv": kv, "ssm": ssm}
-
-
-def _swa_slot_positions(pos, s_cache: int):
-    """Slot -> absolute position of the meta + ring cache after writing
-    ``pos`` (M, B) (>= R): slots [0, R) hold the meta tokens for good,
-    slots [R, s_cache) ring over positions >= R."""
-    r = NUM_META_TOKENS
-    ring = L.cache_slot_positions(pos - r, s_cache - r)
-    ring = torch.where(ring >= 0, ring + r, torch.full_like(ring, -1))
-    meta = torch.arange(r, dtype=pos.dtype, device=pos.device).expand(*pos.shape, r)
-    return torch.cat([meta, ring], dim=-1)
 
 
 def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device,
@@ -476,9 +467,13 @@ def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
 
 def _decode_trunk(cfg: ModelConfig, params, cache, tokens, pos, alive=None, tp=None):
     """Every block over one token per lane; tokens (M, B, 1), pos (M, B)
-    the absolute position including the meta offset.  The global groups'
+    the absolute position including the meta offset.  Every layer's
     attention is ``decode_attention_sharded`` under ``tp`` (the rank's
-    block, every plan), ``decode_attention`` on one device."""
+    block, every plan), ``decode_attention`` on one device: in both
+    layouts the visible keys are exactly slots [0, min(pos + 1, S)), the
+    kernel's contract -- a global group's plain ring has no effective
+    window, and an SWA group's ring of S - R <= window slots after the R
+    pinned meta slots holds only keys inside the window."""
     m, b, _ = tokens.shape
     r = NUM_META_TOKENS
     act = torch_dtype(cfg.dtype)
@@ -486,36 +481,23 @@ def _decode_trunk(cfg: ModelConfig, params, cache, tokens, pos, alive=None, tp=N
     positions = pos[..., None]
     cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, act)
     valid = alive[..., None] if alive is not None else None
-    w = swa_window(cfg)
     split = S.hybrid_split(cfg, tp)
-    per_q = _kv_for_q(split, x.device)
 
     for gi, (i0, i1, is_global) in enumerate(decode_groups(cfg)):
         kv = cache["kv"][gi]
         s_cache = kv.k.shape[3]
-        if is_global:
-            # a plain ring with no effective window: slots [0, min(pos+1, S))
-            # are the valid set, the decode-attention kernel's contract
-            slot = pos % s_cache
-            kv_len = torch.clamp(pos + 1, max=s_cache)
-        else:
-            slot = r + (pos - r) % (s_cache - r)
-            kv_pos = _swa_slot_positions(pos, s_cache)
+        slot = pos % s_cache if is_global else r + (pos - r) % (s_cache - r)
+        kv_len = torch.clamp(pos + 1, max=s_cache)
         for li in range(i0, i1):
             lp = _layer(params, li)
             ck, cv = kv.k[li - i0], kv.v[li - i0]
 
-            def attend(xn, lp=lp, ck=ck, cv=cv, is_global=is_global):
+            def attend(xn, lp=lp, ck=ck, cv=cv):
                 q, k, v = _qkv(cfg, lp, xn, cos, sin)
                 L.cache_update_one(ck, k, slot, alive)
                 L.cache_update_one(cv, v, slot, alive)
-                if is_global:
-                    o = K.decode_attention_sharded(q[:, :, 0], ck, cv, kv_len,
-                                                   plan=split.plan, tp=tp,
-                                                   num_kv_heads=cfg.num_kv_heads)[:, :, None]
-                else:
-                    o = L.flash_attention_plain(q, per_q(ck), per_q(cv), positions, kv_pos,
-                                                window=w, sink=r)
+                o = K.decode_attention_sharded(q[:, :, 0], ck, cv, kv_len, plan=split.plan,
+                                               tp=tp, num_kv_heads=cfg.num_kv_heads)
                 return L.linear(o.reshape(m, b, 1, -1), lp["wo"])
 
             x = hymba_block(cfg, lp, x, attend, _ssm_layer(cache, li), valid=valid,
@@ -529,7 +511,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None, tp=
     with the last prompt token).  Returns (logits (M, B, V) f32, cache
     updated in place); under ``tp`` every rank computes the whole."""
     x = _decode_trunk(cfg, params, cache, tokens, pos, alive, tp)
-    n = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    n = L.rms_norm_rowwise(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(n, params["lm_head"])[:, :, 0], cache
 
 

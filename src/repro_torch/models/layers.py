@@ -107,6 +107,21 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
     return y.to(x.dtype)
 
 
+def layer_norm_rowwise(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor | None,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """:func:`layer_norm` with each row's statistics reduced on its own
+    (``F.layer_norm``, one block a row on the card), so a row's result does
+    not depend on how many rows share the call (see
+    :func:`rms_norm_rowwise`)."""
+    m, d = scale.shape
+    y = F.layer_norm(x.float(), (d,), eps=eps)
+    shape = (m,) + (1,) * (x.ndim - 2) + (d,)
+    y = y * scale.float().reshape(shape)
+    if bias is not None:
+        y = y + bias.float().reshape(shape)
+    return y.to(x.dtype)
+
+
 def embed(ids: torch.Tensor, table: torch.Tensor, dtype: torch.dtype,
           instances: list[int] | None = None) -> torch.Tensor:
     """ids (M, B, S), table (M_t, V, D) -> (M, B, S, D) in ``dtype``."""
@@ -125,9 +140,9 @@ def swiglu_mlp(x, wg, wu, wd, groups: LaneGroups | None = None):
     return linear(h, wd, groups=groups)
 
 
-def gelu_mlp(x, w1, b1, w2, b2):
+def gelu_mlp(x, w1, b1, w2, b2, groups: LaneGroups | None = None):
     """The encoder's MLP; ``jax.nn.gelu``'s default is the tanh form."""
-    return linear(F.gelu(linear(x, w1, b1), approximate="tanh"), w2, b2)
+    return linear(F.gelu(linear(x, w1, b1, groups), approximate="tanh"), w2, b2, groups)
 
 
 def rope_tables(pos: torch.Tensor, hd: int, theta: float, dtype: torch.dtype):

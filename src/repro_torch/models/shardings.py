@@ -11,7 +11,7 @@ slots [d B/D, (d+1) B/D); where neither divides, every data rank holds
 the whole grid.  The data slice is taken first (:func:`data_params`),
 then the model slice below.
 
-The model axis, for the dense, moe and hybrid families:
+The model axis, for the dense, moe, hybrid and vlm families:
 
 Dense, Megatron style over the port's ``(L, M, ...)`` layer leaves:
 
@@ -28,6 +28,11 @@ Where ``tp_head_plan`` is not "kv" or d_ff does not divide over the
 ranks, the dense layers stay whole on every rank (the reference's
 "data-local" branch of ``decode_layer_sharded``); the vocab splits only
 when V divides.
+
+vlm (internvl2): the backbone takes dense's rules (48 / 8 heads split
+"kv" up to 8 ranks, d_ff 16384; V 92553 is odd, so the head stays whole)
+and the projector stays whole on every rank.  :func:`vlm_cut` applies
+them to one drawn layer, as :func:`moe_cut` does for moe.
 
 Hybrid (hymba): three splits, each decided apart by its own rule, and a
 part that does not divide stays whole on every rank (the same
@@ -95,7 +100,7 @@ LM_HEAD_SPLIT_DIM = 2                              # (M, D, V): vocab
 # moe expert leaf (L, M, E, ...) -> its experts dim
 EXPERT_SPLIT_DIM = {"we_gate": 2, "we_up": 2, "we_down": 2}
 ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "hybrid", "vlm")
 
 
 def data_split(m: int, b: int, d: int) -> str | None:
@@ -146,7 +151,7 @@ def data_params(params, rows: DataRows, first: int = 0) -> MergedParams:
     """The data slice of merged params whose instances are the grid's
     [first, first + n): the rank's instance rows, copied, or ``params``
     itself where they are exactly those rows."""
-    n = params["final_norm"].shape[0]
+    n = params["embed"].shape[0]
     lo = rows.m0 - first
     if lo < 0 or lo + rows.m > n:
         raise ValueError(f"params hold instances [{first}, {first + n}); this rank needs "
@@ -205,6 +210,24 @@ def moe_cut(cfg, rank: int, n: int):
     def cut(name: str, t: torch.Tensor, layer: bool) -> torch.Tensor:
         if layer:
             return shard(t, dims[name] - 1, rank, n) if name in dims else t
+        if name == "lm_head" and vocab_split(cfg, n):
+            return shard(t, LM_HEAD_SPLIT_DIM, rank, n)
+        return t
+    return cut
+
+
+def vlm_cut(cfg, rank: int, n: int):
+    """Rank ``rank``'s slice of a vlm leaf as it is drawn (``cut(name, t,
+    layer)`` as in :func:`moe_cut`): dense's layer split where
+    :func:`layers_split`, ``lm_head`` by vocab where :func:`vocab_split`;
+    everything else whole.  The shard of :func:`shard_params`, a layer at
+    a time."""
+    split = layers_split(cfg, n)
+
+    def cut(name: str, t: torch.Tensor, layer: bool) -> torch.Tensor:
+        if layer:
+            return shard(t, LAYER_SPLIT_DIM[name] - 1, rank, n) if (
+                split and name in LAYER_SPLIT_DIM) else t
         if name == "lm_head" and vocab_split(cfg, n):
             return shard(t, LM_HEAD_SPLIT_DIM, rank, n)
         return t
@@ -304,12 +327,13 @@ def _hybrid_layers(cfg, lay: dict, rank: int, n: int) -> dict:
 
 
 def shard_params(cfg, params, rank: int, n: int) -> MergedParams:
-    """Rank ``rank``'s shard of a dense, moe or hybrid model's merged
+    """Rank ``rank``'s shard of a dense, moe, hybrid or vlm model's merged
     params over ``n`` ranks, on the device ``params`` lie on: split leaves
-    sliced, the others shared with ``params``."""
+    sliced, the others (vlm's projector among them) shared with
+    ``params``."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"tensor parallelism is ported for the dense, moe and hybrid families, "
+            f"tensor parallelism is ported for the dense, moe, hybrid and vlm families, "
             f"not {cfg.family!r}")
     tree = params.tree()
     if cfg.family == "hybrid":

@@ -16,6 +16,9 @@ The recurrent state is updated in place.  ``valid`` (M, B, S) marks the
 junk suffix of a padded final prefill chunk: junk steps get neutral gates
 in every cell, so the carried state equals the exact-length pass.
 ``alive`` (M, B) leaves the state of a stopped decode lane untouched.
+Norms reduce each row on its own (``layers.rms_norm_rowwise``) and the
+mLSTM step's state product is the merged-matmul kernel in f32, so a
+lane's decode does not depend on how many instances share the call.
 """
 from __future__ import annotations
 
@@ -238,7 +241,12 @@ def mlstm_step_(state, q, k, v, lf, li, alive=None):
     n0.mul_(fp[..., None]).add_(ip[..., None] * kf)
     m0.copy_(mt)
     qf = q.float() / math.sqrt(hd)
-    num = (qf[..., None, :] @ C0)[..., 0, :]
+    # q C on the merged-matmul kernel, one (1, hd) @ (hd, hd) product per
+    # (lane, head) in f32 (its FMA path sums D in one order whatever the
+    # count): a batched library product would give a lane other bits at
+    # another M
+    num = K.fused_matmul(qf.reshape(-1, 1, hd).contiguous(),
+                         C0.view(-1, hd, hd)).view(qf.shape)
     den = (qf * n0).sum(-1)
     return num / torch.maximum(den.abs(), torch.exp(-mt))[..., None]
 
@@ -303,7 +311,7 @@ def mlstm_block(cfg: ModelConfig, lp, x, state: dict, *, chunk: int, valid=None,
     di, h = d_inner(cfg), cfg.num_heads
     hd = di // h
     lp = _lane_rows(lp, groups, _MLSTM_MATMUL)
-    xn = L.rms_norm(x, lp["norm"], cfg.norm_eps)
+    xn = L.rms_norm_rowwise(x, lp["norm"], cfg.norm_eps)
     up = L.linear(xn, lp["w_up"], groups=groups)
     xi, z = up[..., :di], up[..., di:]
     nvalid = valid.sum(-1) if valid is not None else None
@@ -361,7 +369,7 @@ def slstm_block(cfg: ModelConfig, lp, x, state: dict, *, valid=None, groups=None
     # instance through ``rows``: no per-lane copy of the recurrent weights
     lp = _lane_rows(lp, groups, _SLSTM_MATMUL + ("r",))
     rows = None if groups is None or groups.identity else groups.t32
-    xn = L.rms_norm(x, lp["norm"], cfg.norm_eps)
+    xn = L.rms_norm_rowwise(x, lp["norm"], cfg.norm_eps)
     # pre-activations stay in the storage dtype; the cell computes in f32
     pre = L.linear(xn, lp["w_in"], lp["b_in"], groups).reshape(m, b, s, 4, d)
     st = (state["c"], state["n"], state["h"], state["m"])
@@ -380,7 +388,7 @@ def slstm_block(cfg: ModelConfig, lp, x, state: dict, *, valid=None, groups=None
     hs = _head_norm(hs, h_heads, cfg.norm_eps)
     hs = hs * lp["out_norm"][:, None, None, :].to(hs.dtype)
     x = x + hs
-    nrm = L.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    nrm = L.rms_norm_rowwise(x, lp["ffn_norm"], cfg.norm_eps)
     return x + L.swiglu_mlp(nrm, lp["w_ff_gate"], lp["w_ff_up"], lp["w_ff_down"], groups)
 
 
@@ -430,7 +438,7 @@ def decode_step(cfg: ModelConfig, params, states, tokens, pos=None, *, alive=Non
     """One token.  tokens (M, B, 1); pos unused.  Returns (logits
     (M, B, V) f32, states updated in place)."""
     x = _trunk(cfg, params, _embed_in(cfg, params, tokens), states, alive=alive)
-    n = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    n = L.rms_norm_rowwise(x, params["final_norm"], cfg.norm_eps)
     return L.unembed(n, params["lm_head"])[:, :, 0], states
 
 

@@ -12,8 +12,12 @@ tokens]: a chunk position below P takes the projected patch embedding at
 that position (its token id is ignored), a later one its token
 embedding, and the chunk body is dense's (``_prefill_chunk_embeds``).
 After the prefill the patches live in the KV cache, so decode, the cache
-and the carry are dense's.  vlm runs on one device here; a mesh raises
-(``api``).
+and the carry are dense's.
+
+On a mesh the backbone takes dense's rules (``models/shardings.py``):
+heads and the FFN over "model" where they divide, the head whole where
+the vocab does not; the projector stays whole on every rank.  A mesh
+rank draws only its shard (``init(..., cut=shardings.vlm_cut(...))``).
 """
 from __future__ import annotations
 
@@ -55,23 +59,26 @@ def storage_dtypes(cfg: ModelConfig, tree: dict) -> dict:
     return out
 
 
-def init(cfg: ModelConfig, generator, device: torch.device) -> MergedParams:
+def init(cfg: ModelConfig, generator, device: torch.device, cut=None) -> MergedParams:
     """Random parameters with the reference's distributions, in the
     port's storage dtypes, on ``device``, each leaf drawn a layer at a
     time (``common.draw_leaf``: internvl2-26b's 48-layer backbone is
     ~40 GB an instance in bf16, twice that in f32).  ``generator``: one
     ``torch.Generator`` or a list of M, one an instance (the model then
-    equals M one-instance draws merged, bit for bit, written in place)."""
+    equals M one-instance draws merged, bit for bit, written in place).
+    ``cut`` (``shardings.vlm_cut``) keeps a mesh rank's slice of each
+    drawn layer."""
     dev, par = torch.device(device), torch_dtype(cfg.param_dtype)
     tree = {}
     for group, leaf in _shapes(cfg).items():
         if isinstance(leaf, dict):
             tree[group] = {k: draw_leaf(k, shape, init_, _dtype(cfg, group, k),
-                                        group == "layers", generator, dev, par)
+                                        group == "layers", generator, dev, par,
+                                        cut if group == "layers" else None)
                            for k, (shape, init_) in leaf.items()}
         else:
             shape, init_ = leaf
-            tree[group] = draw_leaf(group, shape, init_, par, False, generator, dev, par)
+            tree[group] = draw_leaf(group, shape, init_, par, False, generator, dev, par, cut)
     return MergedParams(tree)
 
 
@@ -88,12 +95,12 @@ def project_image(cfg: ModelConfig, params, image_embeds, groups: L.LaneGroups |
 
 
 def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
-                  instances: list[int] | None = None) -> dict:
+                  instances: list[int] | None = None, tp=None) -> dict:
     """One chunk of a state-carrying prefill.  batch["tokens"] (M, B, C)
     at positions offset .. offset + C - 1, batch["image_embeds"] (M, B, P,
     vision_dim); a position below P takes the projected patch embedding at
     that position, a later one its token embedding.  Then dense's chunk
-    body (cache appended in place; ``valid`` and ``instances`` as
+    body (cache appended in place; ``valid``, ``instances`` and ``tp`` as
     there)."""
     tokens, img = batch["tokens"], batch["image_embeds"]
     m, b, c = tokens.shape
@@ -108,7 +115,7 @@ def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
     img_x = img_x.gather(2, idx)
     x = torch.where((positions < p)[..., None], img_x.to(tok_x.dtype), tok_x)
     return dense._prefill_chunk_embeds(cfg, params, x, carry, offset, valid=batch.get("valid"),
-                                       instances=instances)
+                                       instances=instances, tp=tp)
 
 
 decode_step = dense.decode_step

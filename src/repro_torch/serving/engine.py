@@ -1,7 +1,7 @@
 """Multi-model serving engine — the paper's deployment scenario (port of
-``repro.serving.engine``, dense, moe, ssm, hybrid and vlm families;
-tensor parallelism for dense, moe and hybrid; the data axis for all but
-vlm).
+``repro.serving.engine``, dense, moe, ssm, hybrid, vlm and audio
+families; tensor parallelism for dense, moe, hybrid and vlm; the data
+axis for dense, moe, ssm and hybrid; audio on one device).
 
 M fine-tuned instances of one architecture, merged on a leading
 instances axis, are served from one program over a fixed (M, B) slot
@@ -64,7 +64,7 @@ from repro_torch.serving.prefill import ChunkedPrefill
 from repro_torch.serving.sampling import make_grid_sampler
 from repro_torch.serving.scheduler import Request, Result, Scheduler, make_scheduler
 
-SERVABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+SERVABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 class MultiModelServer:
@@ -93,6 +93,9 @@ class MultiModelServer:
     ):
         if cfg.family not in SERVABLE_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        if cfg.family == "audio" and tp is not None:
+            raise NotImplementedError("the audio family (whisper) serves on one device; "
+                                      "a mesh is not ported for it")
         if cfg.family == "hybrid":
             need = H.min_serving_context(cfg)
             if max_context < need:

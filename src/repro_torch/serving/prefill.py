@@ -1,7 +1,7 @@
 """Chunked prefill for serving admission (port of
-``repro.serving.prefill``, dense, moe, ssm and hybrid families; tensor
-parallelism for dense and hybrid: ``tp`` makes the carry a rank's
-shard; on a mesh with a data axis ``cfg`` is the rank's local config).
+``repro.serving.prefill``, every served family; under tensor parallelism
+``tp`` makes the carry a rank's shard; on a mesh with a data axis
+``cfg`` is the rank's local config).
 
 Every prompt streams through ``api.prefill_chunk`` in fixed-size chunks;
 the final partial chunk is padded and masked per position (tail
@@ -30,7 +30,9 @@ tokens); recurrent state has no ring.  Hybrid prompts start after the
 from its meta-token embeddings; vlm prompts start after the P image-patch
 positions, and every vlm chunk call carries zero patch embeddings
 (lanes, 1, P, vision_dim), as the reference serves them (the vision
-encoder is a stub).  A moe chunk call also carries each
+encoder is a stub).  Every audio chunk call carries zero frame
+embeddings (lanes, 1, F, d_model), which the model's encoder reruns on
+(its prompts start at position 0).  A moe chunk call also carries each
 lane's ``moe_limit``, the capacity an exact-length pass over the lane's
 real tokens would use (0 on a lane with no request), and a fresh lane's
 per-expert counts start at zero with its carry rows.
@@ -239,6 +241,10 @@ class ChunkedPrefill:
         if self.cfg.family == "vlm":
             batch["image_embeds"] = torch.zeros(
                 (k, 1, self.cfg.num_image_patches, self.cfg.vision_embed_dim),
+                dtype=getattr(torch, self.cfg.dtype), device=dev)
+        if self.cfg.family == "audio":
+            batch["frames"] = torch.zeros(
+                (k, 1, self.cfg.num_audio_frames, self.cfg.d_model),
                 dtype=getattr(torch, self.cfg.dtype), device=dev)
         api.prefill_chunk(self.cfg, params, batch, self._carry,
                           torch.from_numpy(offset).to(dev), instances=inst, tp=self.tp)

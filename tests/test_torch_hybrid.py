@@ -31,6 +31,7 @@ from repro_torch.configs import registry as treg
 from repro_torch.kernels import ops
 from repro_torch.models import common as C
 from repro_torch.models import hybrid as thyb
+from repro_torch.models import layers as L
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TOL_CHAIN = dict(rtol=5e-5, atol=5e-5)
@@ -184,6 +185,32 @@ def test_decode_attention_plain_matches_ref(dt, h, kvh, s):
     assert got.dtype == tdt and got.shape == (m, b, h, hd)
     np.testing.assert_allclose(got.float().numpy(), _np(want),
                                **(TOL if dt == "float32" else TOL_BF16))
+
+
+@pytest.mark.parametrize("s_cache", [128 + 32, 128 + 20])
+def test_swa_ring_visible_keys_are_the_decode_kernels_prefix(s_cache):
+    """Decode attention of an SWA group: the ring's first min(pos + 1, S)
+    slots (the decode-attention kernel's contract) are exactly the keys
+    the reference's mask leaves visible -- the R pinned meta slots as the
+    sink, the ring of S - R <= window slots over positions >= R -- before
+    the ring fills, when it is full and after it wraps (S - R = 20 < the
+    window of 32: a context below meta + window)."""
+    cfg = treg.get_smoke_config("hymba-1.5b")
+    r, w = thyb.NUM_META_TOKENS, thyb.swa_window(cfg)
+    rng = np.random.default_rng(11)
+    m, b, h, kvh, hd = 2, 3, 4, 2, 16
+    pos = torch.tensor([[r, r + 7, s_cache - 1], [s_cache, s_cache + 13, 3 * s_cache]],
+                       dtype=torch.int32)
+    q = torch.from_numpy(rng.standard_normal((m, b, h, hd)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((m, b, s_cache, kvh, hd)).astype(np.float32))
+            for _ in range(2))
+    ring = L.cache_slot_positions(pos - r, s_cache - r)
+    kv_pos = torch.cat([torch.arange(r, dtype=pos.dtype).expand(m, b, r),
+                        torch.where(ring >= 0, ring + r, torch.full_like(ring, -1))], dim=-1)
+    want = L.flash_attention_plain(q[:, :, None], k, v, pos[..., None], kv_pos, window=w,
+                                   sink=r)[:, :, 0]
+    got = ops.decode_attention(q, k, v, torch.clamp(pos + 1, max=s_cache))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def test_ssd_chunk_scan_matches_reference_with_state():

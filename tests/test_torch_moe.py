@@ -261,6 +261,6 @@ def test_init_storage_dtypes_and_refusals():
     # ssm family still refuses tensor parallelism
     two = SimpleNamespace(rank=1, size=2)
     assert tapi.make_cache(cfg, 1, 1, 8, device="cpu", tp=two).k.shape[4] == 1
-    with pytest.raises(NotImplementedError, match="dense, moe and hybrid"):
+    with pytest.raises(NotImplementedError, match="dense, moe, hybrid and vlm"):
         tapi.make_cache(treg.get_smoke_config("xlstm-1.3b"), 1, 1, 8, device="cpu",
                         tp=object())

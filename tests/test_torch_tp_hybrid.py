@@ -284,7 +284,7 @@ def test_shard_params_keeps_undivided_parts_whole():
 
 def test_tp_rejects_the_ssm_family():
     cfg = treg.get_smoke_config("xlstm-1.3b")
-    with pytest.raises(NotImplementedError, match="dense, moe and hybrid"):
+    with pytest.raises(NotImplementedError, match="dense, moe, hybrid and vlm"):
         shardings.shard_params(cfg, None, 0, 2)
 
 
