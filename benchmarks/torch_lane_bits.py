@@ -194,7 +194,10 @@ def stream_check(cfg, dev, mixes: int) -> None:
         srv = MultiModelServer(cfg, params, device=dev, **kw)
         for r in _requests(cfg, seed):
             srv.submit(r)
-        single.append({r.request_id: r.tokens for r in srv.run_until_drained()})
+        res = srv.run_until_drained()
+        # a failed chunk call ends its requests as "error" with no tokens
+        assert all(r.status == "ok" for r in res), [(r.request_id, r.error) for r in res]
+        single.append({r.request_id: r.tokens for r in res})
         del srv
     del params
     torch.cuda.empty_cache()
@@ -202,6 +205,7 @@ def stream_check(cfg, dev, mixes: int) -> None:
     ranks = mesh.spawn(mesh.in_turn, 1, *[(serve.serve_rank, cfg, 0, _requests(cfg, s), kw)
                                           for s in range(mixes)], device="cuda", data=2)
     for seed in range(mixes):
+        assert all(r[seed]["statuses"] == ["ok"] * len(single[seed]) for r in ranks)
         got = [r[seed]["streams"] for r in ranks]
         assert got[0] == got[1], "the two ranks' streams differ"
         same = sum(got[0][i] == single[seed][i] for i in single[seed])

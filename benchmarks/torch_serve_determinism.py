@@ -90,7 +90,10 @@ def main(argv=None) -> int:
         srv = MultiModelServer(cfg, params, device=dev, **kw)
         for inst, prompt in mix:
             srv.submit(Request(inst, list(prompt), 32))
-        streams = {r.request_id: r.tokens for r in srv.run_until_drained()}
+        res = srv.run_until_drained()
+        # a failed chunk call ends its requests as "error" with no tokens
+        assert all(r.status == "ok" for r in res), [(r.request_id, r.error) for r in res]
+        streams = {r.request_id: r.tokens for r in res}
         runs.append((streams, [(n, a.cpu(), b.cpu()) for n, a, b in calls]))
         del srv
     s0, c0 = runs[0]

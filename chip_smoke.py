@@ -109,6 +109,24 @@ non-zero before the result line is printed):
               again with PROFILE_STEPS engine steps after its first
               decode block under torch.profiler (the device idle share
               of that window);
+4b. periphery -- the serving periphery around full-width tinyllama-1.1b
+              (M=4, 4 slots, chunk 32, 4 lanes, K=8, the serve mix, bf16):
+              a fault-free drain first, then six gates: (a) through the
+              ``AsyncEngine`` under a ``Supervisor``, the 16 streams equal
+              the serve phase's, every launch counter set to 0 just before
+              and read just after; (b) a plan of a driver raise (device
+              step 3), a decode raise (call 7) and a chunk-call raise (call
+              2), streams equal, ``replay_mismatches == 0``, restarts ==
+              the injected raises in ``fired``; (c) a ``nan`` fault on
+              instance 2 quarantines instance 2 alone, the other three's
+              streams equal; (d) tracing and accounting on: streams equal,
+              conservation below 1e-6, the tracer's summary, tok/s with
+              tracing off and on; (e) HTTP on 127.0.0.1 port 0: two SSE
+              completions equal their streams, ``/metrics`` in Prometheus
+              text parses line by line, ``/healthz`` 200; (f) a 2 s decode
+              stall under a 0.5 s watchdog counted as a ``WatchdogTimeout``
+              and the soft recovery's streams equal; no restart and no
+              error in (a), (d), (e); the time to recover per restart;
 5. check   -- greedy K=1 vs K=8 streams identical on the card for the
               four families (full widths, cut depth; olmoe-1b-7b and
               qwen3-moe-30b-a3b and internvl2-26b at 4 layers, whisper-small
@@ -297,6 +315,9 @@ TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 # calls of the decode layer's ring attention on one input beside a busy
 # side stream, all bit for bit equal (``ring_repeat_cases``)
 RING_REPEATS = 400
+# the periphery phase's watchdog gate: a decode stall of PERIPHERY_STALL_S
+# under a watchdog of PERIPHERY_WATCHDOG_S
+PERIPHERY_STALL_S, PERIPHERY_WATCHDOG_S = 2.0, 0.5
 # merged vs per-instance outputs of the paper's models in f32, TF32 off,
 # relative to the largest output magnitude: the merged and the single
 # calls may take other cuBLAS / cuDNN algorithms, so only summation order
@@ -1605,6 +1626,25 @@ def requests(n, m, lo, hi, max_new, vocab, seed):
                     max_new) for i in range(n)]
 
 
+def ok_streams(out, n, new):
+    """The streams of a serve (``serve.serve_rank``'s dict) once every one
+    of its ``n`` requests ended ``ok`` with ``new`` tokens.  The engine ends
+    the requests of a failed chunk call or scatter as ``error`` with no
+    tokens, so two runs that failed alike would compare equal on their
+    streams alone."""
+    assert out["statuses"] == ["ok"] * n, out["statuses"]
+    assert all(len(t) == new for t in out["streams"].values()), \
+        [len(t) for t in out["streams"].values()]
+    return out["streams"]
+
+
+def drained(srv, n, new):
+    """``ok_streams`` of draining the local server ``srv``."""
+    res = srv.run_until_drained()
+    return ok_streams({"statuses": [r.status for r in res],
+                       "streams": {r.request_id: r.tokens for r in res}}, n, new)
+
+
 def serve_path(torch, dev, arch, kernels, max_context=S, m=M, layers=None):
     """One main path: the full config of ``arch`` at ``m`` instances
     (``layers``: its depth cut), 16 requests with prompts of 16-512 tokens
@@ -1777,6 +1817,240 @@ def phase_serve(torch, dev):
              "hymba-1.5b": hymba_streams}, olmoe_streams)
 
 
+def periphery_streams(torch, srv, reqs, *, plan=None, watchdog_s=None, trace=False,
+                      http_idx=()):
+    """Serve ``reqs`` through an ``AsyncEngine`` under a ``Supervisor``
+    (``plan``: a fault plan armed just before; ``trace``: tracing and
+    accounting on for the run; ``http_idx``: those requests are sent as
+    SSE completions over HTTP on 127.0.0.1 instead, with the scrape
+    routes read after).  Returns (Results in request order, supervisor,
+    seconds, what HTTP answered)."""
+    import asyncio
+
+    from repro_torch.serving import (AsyncEngine, FaultInjector, Supervisor,
+                                     start_http_server)
+
+    async def client(engine, r):
+        s = await engine.submit(r)
+        toks = [t async for t in s]
+        res = await s.result()
+        assert res.tokens == toks, (res.request_id, res.status)
+        return res
+
+    async def sse(port, r):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        body = json.dumps({"model": r.instance, "prompt": r.prompt,
+                           "max_tokens": r.max_new_tokens, "stream": True}).encode()
+        writer.write(f"POST /v1/completions HTTP/1.1\r\nHost: t\r\nContent-Length: "
+                     f"{len(body)}\r\n\r\n".encode() + body)
+        await writer.drain()
+        raw = await reader.read()
+        writer.close()
+        head, _, rest = raw.partition(b"\r\n\r\n")
+        assert head.startswith(b"HTTP/1.1 200"), head
+        ev = [json.loads(x[6:]) for x in rest.split(b"\n\n")
+              if x.startswith(b"data: ") and x != b"data: [DONE]"]
+        return [e["choices"][0]["token"] for e in ev if e["choices"][0]["token"] is not None]
+
+    async def get(port, path, accept="application/json"):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: t\r\nAccept: {accept}\r\n\r\n".encode())
+        await writer.drain()
+        raw = await reader.read()
+        writer.close()
+        head, _, rest = raw.partition(b"\r\n\r\n")
+        return int(head.split()[1]), rest.decode()
+
+    async def main():
+        engine = AsyncEngine(srv)
+        sup = Supervisor(engine, watchdog_s=watchdog_s, max_retries=8, seed=0)
+        sup.start()
+        if trace:
+            await engine.set_tracing(True)
+            await engine.set_accounting(True)
+        if plan is not None:
+            srv.faults = FaultInjector(plan["faults"], seed=plan.get("seed", 0)).arm()
+        t0 = time.perf_counter()
+        if http_idx:
+            http = await start_http_server(engine, "127.0.0.1", 0)
+            port = http.sockets[0].getsockname()[1]
+            toks = await asyncio.gather(*(sse(port, reqs[i]) for i in http_idx))
+            wall = time.perf_counter() - t0
+            got = {"sse": toks, "metrics": await get(port, "/metrics", "text/plain"),
+                   "healthz": await get(port, "/healthz")}
+            http.close()
+            await http.wait_closed()
+            await engine.aclose()
+            return [], sup, wall, got
+        out = await asyncio.gather(*(client(engine, r) for r in reqs))
+        wall = time.perf_counter() - t0
+        await engine.aclose()
+        return out, sup, wall, None
+
+    out = asyncio.run(asyncio.wait_for(main(), 600))
+    torch.cuda.synchronize()
+    return out
+
+
+PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+                         r'(\{([a-zA-Z_][a-zA-Z0-9_]*="(\\.|[^"\\])*",?)*\})?'
+                         r' (NaN|[+-]Inf|[+-]?[0-9.eE+-]+)$')
+
+
+def phase_periphery(torch, dev, single_streams):
+    """The serving periphery around the tinyllama-1.1b serve cell (module
+    docstring, phase 4b).  Returns the launch counts of gate (a)."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import FaultInjector, HealthMonitor, MultiModelServer
+
+    cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=M)
+    t0 = time.perf_counter()
+    params = serve.random_merged(cfg, 0, dev)[0]
+    kw = dict(slots_per_instance=B, max_context=S, prefill_chunk=C, prefill_lanes=4,
+              decode_steps=8)
+    mix = lambda: requests(16, M, 16, 512, 32, cfg.vocab_size, 0)
+    want = [single_streams["tinyllama-1.1b"][i] for i in range(16)]
+    servers = []
+
+    def server(**k):
+        # one server at a time beside the shared params: free the last
+        servers.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        servers.append(MultiModelServer(cfg, params, device=dev, **kw, **k))
+        return servers[-1]
+
+    def equal(results, idx=range(16)):
+        return sum(results[i].tokens == want[i] for i in idx)
+
+    def clean(name, results, sup):
+        assert all(r.status == "ok" for r in results), \
+            (name, [(r.request_id, r.status, r.error) for r in results if r.status != "ok"])
+        assert sup.restarts == 0, (name, sup.snapshot())
+
+    warm = server()
+    for r in mix():
+        warm.submit(r)
+    res = warm.run_until_drained()
+    torch.cuda.synchronize()
+    assert [r.tokens for r in sorted(res, key=lambda r: r.request_id)] == want, "warm drain"
+    log("periphery", gate="warm", setup_and_warm_s=round(time.perf_counter() - t0, 1))
+
+    # (a) async streams; the path's launch counts
+    srv = server()
+    ops.reset_launches()
+    out, sup, wall_a, _ = periphery_streams(torch, srv, mix())
+    launches = ops.launches()
+    clean("a", out, sup)
+    n = equal(out)
+    assert n == 16, f"async streams equal to the serve phase's: {n} of 16"
+    for name in ("decode_layer", "chunk_prefill_attention", "logits_sample"):
+        assert launches[name] > 0, f"{name} was never launched on the periphery path"
+    log("periphery", gate="a_async", equal=f"{n}/16", restarts=sup.restarts,
+        tok_per_s=round(512 / wall_a, 1), wall_s=round(wall_a, 3),
+        launches=json.dumps(launches).replace(" ", ""))
+
+    # (b) supervised crash recovery, exactly once
+    plan = {"seed": 0, "faults": [{"site": "driver", "kind": "raise", "at_call": 3},
+                                  {"site": "decode", "kind": "raise", "at_call": 7},
+                                  {"site": "prefill", "kind": "raise", "at_call": 2}]}
+    srv = server()
+    out, sup, wall_b, _ = periphery_streams(torch, srv, mix(), plan=plan)
+    fired = list(srv.faults.fired)
+    crashes = [f for f in fired if f[2] == "raise"]
+    assert all(r.status == "ok" for r in out), [(r.request_id, r.status, r.error)
+                                                for r in out if r.status != "ok"]
+    n = equal(out)
+    assert n == 16, f"crash-replay streams equal: {n} of 16"
+    assert srv.metrics.replay_mismatches == 0, srv.metrics.replay_mismatches
+    assert len(crashes) == 3, fired
+    assert sup.restarts == len(crashes), (sup.snapshot(), fired)
+    recov = sup.snapshot()["recoveries"]
+    log("periphery", gate="b_crash_replay", equal=f"{n}/16", fired=json.dumps(fired),
+        restarts=sup.restarts, replay_mismatches=srv.metrics.replay_mismatches,
+        replayed_tokens=srv.metrics.replayed_tokens, wall_s=round(wall_b, 3),
+        time_to_recover_ms=[round(1e3 * r["time_to_recover_s"], 3) for r in recov],
+        reasons=[r["reason"].rsplit(":", 1)[-1].strip() for r in recov])
+
+    # (d) tracing and accounting on; tok/s with tracing off, then on
+    srv = server()
+    out_off, sup, wall_off, _ = periphery_streams(torch, srv, mix())
+    clean("d_off", out_off, sup)
+    srv = server()
+    out, sup, wall_on, _ = periphery_streams(torch, srv, mix(), trace=True)
+    clean("d", out, sup)
+    n = equal(out)
+    assert n == 16 and equal(out_off) == 16, f"traced streams equal: {n} of 16"
+    cons = srv.accounting.conservation()
+    assert cons["settled_s"] > 0 and cons["rel_err"] < 1e-6, cons
+    summ = srv.tracer.summary()
+    gap = summ["dispatch_overhead_ms"]
+    log("periphery", gate="d_traced", equal=f"{n}/16", conservation_rel_err=cons["rel_err"],
+        settled_s=round(cons["settled_s"], 4),
+        dispatch_gap_ms_p50_p95_p99=[round(gap[k], 3) for k in ("p50", "p95", "p99")],
+        mean_grid_occupancy=round(summ["mean_grid_occupancy"], 4),
+        mean_lane_occupancy=round(summ["mean_prefill_lane_occupancy"], 4),
+        device_calls=summ["device_calls"],
+        tok_per_s_tracing_off=round(512 / wall_off, 1),
+        tok_per_s_tracing_on=round(512 / wall_on, 1))
+
+    # (e) HTTP: two SSE completions, the Prometheus scrape, /healthz
+    srv = server()
+    _, sup, wall_e, got = periphery_streams(torch, srv, mix(), http_idx=(0, 1))
+    assert sup.restarts == 0 and srv.metrics.snapshot()["failed"] == 0, sup.snapshot()
+    assert got["sse"] == want[:2], "SSE streams differ from (a)"
+    st, text = got["metrics"]
+    lines = text.strip().split("\n")
+    bad = [l for l in lines if not l.startswith("# ") and not PROM_SAMPLE.match(l)]
+    assert st == 200 and not bad, (st, bad[:3])
+    assert got["healthz"][0] == 200, got["healthz"]
+    log("periphery", gate="e_http", sse_equal="2/2", prometheus_lines=len(lines),
+        healthz=got["healthz"][0], wall_s=round(wall_e, 3))
+
+    # (f) the watchdog on a decode stall, soft recovery
+    plan = {"faults": [{"site": "decode", "kind": "stall", "stall_s": PERIPHERY_STALL_S,
+                        "at_call": 3}]}
+    srv = server()
+    out, sup, wall_f, _ = periphery_streams(torch, srv, mix(), plan=plan,
+                                            watchdog_s=PERIPHERY_WATCHDOG_S)
+    assert all(r.status == "ok" for r in out), [r.status for r in out]
+    n = equal(out)
+    assert sup.watchdog_timeouts == 1 and sup.restarts == 1, sup.snapshot()
+    assert n == 16, f"streams after the watchdog's soft recovery: {n} of 16"
+    log("periphery", gate="f_watchdog", equal=f"{n}/16", watchdog_timeouts=sup.watchdog_timeouts,
+        restarts=sup.restarts, wall_s=round(wall_f, 3),
+        time_to_recover_ms=[round(1e3 * r["time_to_recover_s"], 3)
+                            for r in sup.snapshot()["recoveries"]])
+
+    # (c) a NaN on instance 2 quarantines instance 2 alone
+    quarantined = []
+    hm = HealthMonitor(M)
+    srv = server(health=hm, faults=FaultInjector([{"site": "decode", "kind": "nan",
+                                                   "instance": 2, "at_call": 4}]))
+    hm.on_quarantine = quarantined.append
+    for r in mix():
+        srv.submit(r)
+    srv.faults.arm()
+    res = sorted(srv.run_until_drained(), key=lambda r: r.request_id)
+    torch.cuda.synchronize()
+    others = [i for i in range(16) if i % M != 2]
+    n = equal(res, others)
+    errors = [r.request_id for r in res if r.status == "error"]
+    assert quarantined == [2] and errors and all(i % M == 2 for i in errors), \
+        (quarantined, errors)
+    assert n == len(others), f"other instances' streams: {n} of {len(others)}"
+    per = hm.snapshot()["per_instance"]
+    assert [p["quarantines"] for p in per] == [0, 0, 1, 0], per
+    log("periphery", gate="c_quarantine", quarantined=quarantined, failed=errors,
+        others_equal=f"{n}/{len(others)}", states_after=hm.states())
+    servers.clear()
+    del params
+    gc.collect()
+    return launches
+
+
 def device_us(e):
     """An event's own device time in us (an op's total would count its
     kernels a second time under the op)."""
@@ -1939,7 +2213,8 @@ def phase_tp(torch, dev):
             setup_peak_gib_on_card=round(out["setup_peak_gib"], 2),
             launches=json.dumps(la).replace(" ", ""))
     assert all(o["streams"] == full[0]["streams"] for o in full), "the ranks' streams differ"
-    k1, k8 = [r[1]["streams"] for r in ranks], [r[2]["streams"] for r in ranks]
+    k1 = [ok_streams(r[1], len(check_reqs), 16) for r in ranks]
+    k8 = [ok_streams(r[2], len(check_reqs), 16) for r in ranks]
     assert all(s_ == k1[0] for s_ in k1 + k8), "greedy streams differ between K=1 and K=8"
     log("tp", arch=cut.name, layers=cut.num_layers, streams="K1==K8, ranks equal",
         requests=len(k1[0]), tokens=sum(len(t) for t in k1[0].values()))
@@ -2066,7 +2341,7 @@ def phase_tp_hybrid(torch, dev):
     cpu = MultiModelServer(small, small_params, device="cpu", **small_kw)
     for q in requests(8, 2, 1, 48, 8, small.vocab_size, 3):
         cpu.submit(q)
-    want = {q.request_id: q.tokens for q in cpu.run_until_drained()}
+    want = drained(cpu, 8, 8)
     t0 = time.perf_counter()
     kv_ranks = mesh.spawn(
         mesh.in_turn, 5, (serve.serve_rank, kv_cut, 2, kv_reqs,
@@ -2165,7 +2440,7 @@ def phase_data(torch, dev, single_streams):
     cpu = MultiModelServer(small, small_params, device="cpu", **small_kw)
     for q in small_reqs:
         cpu.submit(q)
-    want_small = {q.request_id: q.tokens for q in cpu.run_until_drained()}
+    want_small = drained(cpu, len(small_reqs), 8)
     out, matmul_launches = {}, 0
     for d, t in DATA_MESHES:
         rows = shardings.data_rows(M, B, SimpleNamespace(rank=0, size=d))
@@ -2394,7 +2669,7 @@ def phase_moe_mesh(torch, dev, single_streams, meshes=MOE_MESHES):
     cpu = MultiModelServer(small, small_params, device="cpu", **small_kw)
     for q in small_reqs:
         cpu.submit(q)
-    want_small = {q.request_id: q.tokens for q in cpu.run_until_drained()}
+    want_small = drained(cpu, len(small_reqs), 8)
     out = {}
     for d, t in meshes:
         cfg = qwen if (d, t) == (2, 2) else olmoe
@@ -2443,7 +2718,8 @@ def phase_moe_mesh(torch, dev, single_streams, meshes=MOE_MESHES):
             log("moe_mesh", mesh=f"{d}x{t}",
                 streams_equal_to_single_device_at_M=f"{same}/{TP_REQUESTS}")
         else:
-            k1, k8 = [r[3]["streams"] for r in ranks], [r[4]["streams"] for r in ranks]
+            k1 = [ok_streams(r[3], len(check_reqs), 16) for r in ranks]
+            k8 = [ok_streams(r[4], len(check_reqs), 16) for r in ranks]
             assert all(x == k1[0] for x in k1 + k8), "greedy streams differ between K=1 and K=8"
             log("moe_mesh", mesh=f"{d}x{t}", arch=cfg.name, streams="K1==K8, ranks equal",
                 requests=len(k1[0]))
@@ -2518,7 +2794,7 @@ def phase_vlm_mesh(torch, dev):
     cpu = MultiModelServer(small, small_params, device="cpu", **small_kw)
     for q in small_reqs:
         cpu.submit(q)
-    want_small = {q.request_id: q.tokens for q in cpu.run_until_drained()}
+    want_small = drained(cpu, len(small_reqs), 8)
     split = shardings.layers_split(cfg, t)
     assert split and not shardings.vocab_split(cfg, t)
     log("vlm_mesh", mesh=f"1x{t}", arch=cfg.name, instances=VLM_M, layers=cfg.num_layers,
@@ -2603,7 +2879,7 @@ def phase_check(torch, dev):
                               prefill_chunk=C, decode_steps=k)
             for r in requests(12, M, 16, 200, 16, cfg.vocab_size, 1):
                 srv.submit(r)
-            streams.append({r.request_id: r.tokens for r in srv.run_until_drained()})
+            streams.append(drained(srv, 12, 16))
             del srv
             gc.collect()
         assert streams[0] == streams[1], f"{arch}: greedy streams differ between K=1 and K=8"
@@ -3334,6 +3610,8 @@ def main() -> int:
     timed("build", phase_build)
     b32 = timed("kernels", phase_kernels, torch, dev)
     launches, single_streams, olmoe_streams = timed("serve", phase_serve, torch, dev)
+    launches["tinyllama-1.1b/periphery"] = timed("periphery", phase_periphery, torch, dev,
+                                                 single_streams)
     timed("check", phase_check, torch, dev)
     timed("graph", phase_graph, torch, dev)
     launches[f"tinyllama-1.1b/tp{TP}-rank0"] = timed("tp", phase_tp, torch, dev)

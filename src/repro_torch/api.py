@@ -37,6 +37,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def settle(device: torch.device) -> None:
+    """Wait until the work queued on ``device`` has run (a no-op on the
+    CPU): where the reference calls ``jax.block_until_ready``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def family_module(cfg: ModelConfig):
     if cfg.family not in _FAMILY:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")

@@ -40,12 +40,37 @@ prints, and the CLI checks that every rank's streams are identical.
 Hybrid archs raise ``--max-context`` to the meta tokens plus the SWA
 window plus ``--max-new``, as the reference's CLI does; vlm archs raise
 it to the image patches plus the longest prompt plus ``--max-new``.
+
+The serving periphery, on one device (``--mesh-shape 1x1``; on a mesh
+these flags raise, the SLO flags excepted):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --smoke --device cpu --stream --fault-plan \
+      '{"faults": [{"site": "decode", "kind": "raise", "at_call": 3}]}'
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --smoke --device cpu --trace-out trace.json --account \
+      --slo-ttft-ms 500 --slo-itl-ms 50
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --smoke --device cpu --http 8000
+
+``--stream`` drives the request mix through the ``AsyncEngine`` as
+concurrent clients (tokens print as they land); ``--http PORT`` serves
+``POST /v1/completions`` (SSE with ``"stream": true``), ``GET /metrics``,
+``/healthz``, ``/v1/slo``, ``/debug/trace`` and ``/debug/flight`` until
+Ctrl-C.  ``--fault-plan`` arms a deterministic fault plan (a JSON
+literal or file); with ``--stream`` / ``--http`` a ``Supervisor``
+recovers from it (``--watchdog-ms``, ``--max-restarts``).
+``--trace-out`` writes a Chrome trace of the run, ``--account`` prints
+the per-tenant ledger, ``--flight-dir`` arms the flight recorder.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import gc
+import json
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -57,8 +82,14 @@ from repro_torch.launch import mesh
 from repro_torch.models import hybrid as H
 from repro_torch.models.common import merge_drawn
 from repro_torch.models.shardings import data_rows, moe_cut, vlm_cut
-from repro_torch.serving import MultiModelServer, Request
+from repro_torch.serving import (AsyncEngine, FaultInjector, FlightRecorder,
+                                 MultiModelServer, Request, SLOConfig, Supervisor,
+                                 start_http_server)
 from repro_torch.serving.scheduler import POLICIES
+
+# flags of the periphery that serves on one device only
+ONE_DEVICE_FLAGS = ("stream", "http", "max_queue", "fault_plan", "watchdog_ms",
+                    "trace_out", "account", "flight_dir")
 
 
 # families whose ``init`` takes a generator an instance and draws the
@@ -121,8 +152,16 @@ def random_merged(cfg, seed: int, device, on_host: bool = False, rows=None, cut=
     return merged, time.perf_counter() - t0 - draw_s, where
 
 
-def serve(cfg, params, reqs, *, device, tp=None, **server_kw) -> dict:
-    """Serve ``reqs`` to the end on a new server.  Every launch counter
+def drain(server, reqs) -> list:
+    """Submit ``reqs`` and step the server until it is idle."""
+    for r in reqs:
+        server.submit(r)
+    return server.run_until_drained()
+
+
+def serve(cfg, params, reqs, *, device, tp=None, run=drain, **server_kw) -> dict:
+    """Serve ``reqs`` to the end on a new server, through ``run(server,
+    reqs)`` (the synchronous drain by default).  Every launch counter
     and the card's peak memory are reset just before the requests are
     submitted and read after the drain.  ``params`` is a whole merged
     model, or an int seed of :func:`random_merged` (drawn on ``device``;
@@ -152,9 +191,7 @@ def serve(cfg, params, reqs, *, device, tp=None, **server_kw) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     ops.reset_launches()
     t0 = time.perf_counter()
-    for r in reqs:
-        server.submit(r)
-    results = server.run_until_drained()
+    results = run(server, reqs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -207,6 +244,11 @@ def report(out, cfg, tp=None) -> None:
               f"[{rows.m0}, {rows.m0 + rows.m}) x slots [{rows.b0}, {rows.b0 + rows.b})")
     toks = sum(len(r.tokens) for r in results)
     snap = out["snapshot"]
+    statuses = Counter(r.status for r in results)
+    if set(statuses) - {"ok"}:
+        # failed, shed or unavailable requests (a fault plan's retry budget
+        # spent, a quarantined instance) are not a smaller clean run
+        print("requests by status: " + ", ".join(f"{k} {v}" for k, v in sorted(statuses.items())))
     print(f"served {len(results)} requests, {toks} tokens in {dt:.2f}s "
           f"({toks / dt:.1f} tok/s, {snap['decode_steps']} decode steps in "
           f"{server.steps} blocks @ K={server.decode_steps}, "
@@ -217,6 +259,127 @@ def report(out, cfg, tp=None) -> None:
     print(server.metrics.format_table())
     for r in sorted(results, key=lambda r: r.request_id)[:4]:
         print(f"  req {r.request_id} (instance {r.instance}): {r.tokens[:8]}...")
+
+
+def _supervise(engine, args):
+    """A started Supervisor where the run asked for recovery
+    (``--fault-plan`` or ``--watchdog-ms``), else None."""
+    if not (args.fault_plan or args.watchdog_ms > 0):
+        return None
+    sup = Supervisor(engine, watchdog_s=args.watchdog_ms / 1e3 if args.watchdog_ms > 0 else None,
+                     max_restarts=args.max_restarts, seed=args.seed)
+    sup.start()
+    return sup
+
+
+def _print_recovery(sup) -> None:
+    if sup is None:
+        return
+    s = sup.snapshot()
+    print(f"supervision: {s['driver_restarts']} restart(s), "
+          f"{s['watchdog_timeouts']} watchdog timeout(s), "
+          f"{s['request_retries']} request requeue(s), "
+          f"{s['tokens_replayed']} token(s) replayed"
+          + (f", last recovery {s['last_recovery_s'] * 1e3:.1f} ms"
+             if s["last_recovery_s"] is not None else ""))
+
+
+def _print_obs(server) -> None:
+    """The per-tenant ledger and the SLO table, where either is on."""
+    acct = server.accounting
+    if acct.enabled or acct.settled_s > 0:
+        print(acct.format_table())
+    rep = server.metrics.slo_report()
+    if rep.get("configured"):
+        c = rep["config"]
+        lines = [f"SLO (target {c['target']:.0%}"
+                 + (f", ttft<={c['ttft_ms']:g}ms" if c["ttft_ms"] else "")
+                 + (f", itl<={c['itl_ms']:g}ms" if c["itl_ms"] else "") + ")"]
+        for i, inst in enumerate(rep["instances"]):
+            objs = "  ".join(f"{name}: {o['bad_frac']:.2%} bad, burn {o['burn_rate']:.2f}, "
+                             f"budget {o['budget_remaining']:.0%}"
+                             for name, o in inst["objectives"].items())
+            lines.append(f"  inst {i} [{inst['state']:>8}]  {objs}")
+        print("\n".join(lines))
+
+
+def stream_run(args):
+    """``run`` for :func:`serve`: one async client per request through the
+    ``AsyncEngine``, tokens printed as they land (supervised where the
+    run asked for recovery)."""
+    def run(server, reqs):
+        async def go():
+            engine = AsyncEngine(server, max_queue_depth=args.max_queue)
+            sup = _supervise(engine, args)
+
+            async def client(r):
+                stream = await engine.submit(r)
+                async for tok in stream:
+                    print(f"  req {stream.request_id:>3} inst {r.instance} +{tok}")
+                return await stream.result()
+
+            results = await asyncio.gather(*(client(r) for r in reqs))
+            await engine.aclose()
+            _print_recovery(sup)
+            return list(results)
+        return asyncio.run(go())
+    return run
+
+
+def http_run(args):
+    """``run`` for :func:`serve`: serve HTTP on ``--http PORT`` until
+    Ctrl-C, then drain; the request mix is not used."""
+    def run(server, _reqs):
+        async def go():
+            engine = AsyncEngine(server, max_queue_depth=args.max_queue)
+            sup = _supervise(engine, args)
+            http = await start_http_server(engine, port=args.http)
+            host, port = http.sockets[0].getsockname()[:2]
+            print(f"serving HTTP on {host}:{port}: POST /v1/completions "
+                  f"(model-0..model-{server.m - 1}, prompt = token ids, \"stream\": true "
+                  f"for SSE), GET /metrics, /healthz, /v1/slo, /debug/trace", flush=True)
+            try:
+                async with http:
+                    await http.serve_forever()
+            except asyncio.CancelledError:
+                pass
+            finally:
+                http.close()
+                await http.wait_closed()
+                await engine.aclose()
+                _print_recovery(sup)
+        try:
+            asyncio.run(go())
+        except KeyboardInterrupt:
+            pass
+        return []
+    return run
+
+
+def observed(run, args):
+    """``run`` with the periphery flags applied: accounting and tracing
+    started, the fault plan armed, the trace written at the end."""
+    def go(server, reqs):
+        if args.account:
+            server.accounting.start()
+        if args.trace_out:
+            server.tracer.start()
+        if args.fault_plan:
+            server.faults.arm()
+        results = run(server, reqs)
+        if args.trace_out:
+            server.tracer.stop()
+            chrome = server.tracer.export_chrome()
+            summ = server.tracer.summary()
+            with open(args.trace_out, "w") as f:
+                json.dump(chrome, f)
+            do = summ["dispatch_overhead_ms"]
+            print(f"wrote {args.trace_out}: {len(chrome['traceEvents'])} events"
+                  + ("" if do is None else
+                     f", dispatch gap p50/p95 {do['p50']:.2f}/{do['p95']:.2f} ms, "
+                     f"grid occupancy {summ['mean_grid_occupancy']:.2f}"))
+        return results
+    return go
 
 
 def main(argv=None):
@@ -244,9 +407,41 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh-shape", default="1x1", metavar="DxT",
                     help="serve under a (data=D, model=T) mesh, one process per rank")
+    ap.add_argument("--stream", action="store_true",
+                    help="drive the requests through the AsyncEngine as concurrent clients")
+    ap.add_argument("--http", type=int, default=0, metavar="PORT",
+                    help="serve HTTP on PORT until Ctrl-C (0: off)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="per-instance queue bound of the async paths (0: unbounded)")
+    ap.add_argument("--fault-plan", default=None, metavar="JSON",
+                    help='deterministic fault plan, a JSON literal or file: {"seed": 0, '
+                         '"faults": [{"site": "decode", "kind": "raise", "at_call": 3}]}; '
+                         "with --stream / --http a Supervisor recovers")
+    ap.add_argument("--watchdog-ms", type=float, default=0.0,
+                    help="per-step watchdog of the async paths (0: none)")
+    ap.add_argument("--max-restarts", type=int, default=5,
+                    help="supervisor restart budget before giving up")
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                    help="capture a step trace of the run as Chrome-trace JSON")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                    help="TTFT objective threshold (0: none)")
+    ap.add_argument("--slo-itl-ms", type=float, default=0.0,
+                    help="ITL objective threshold (0: none)")
+    ap.add_argument("--slo-target", type=float, default=0.99,
+                    help="fraction of samples that must meet each objective")
+    ap.add_argument("--account", action="store_true",
+                    help="per-tenant device-time ledger, printed at the end")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="flight recorder: dump JSON on crash, watchdog or quarantine")
+    ap.add_argument("--no-tail-fold", action="store_true",
+                    help="single-token tail calls instead of a padded final chunk")
     args = ap.parse_args(argv)
 
     d, t = mesh.parse_mesh_shape(args.mesh_shape)
+    used = [f"--{f.replace('_', '-')}" for f in ONE_DEVICE_FLAGS if getattr(args, f)]
+    if d * t > 1 and used:
+        raise NotImplementedError(f"{', '.join(used)}: the serving periphery serves on one "
+                                  f"device; --mesh-shape {args.mesh_shape} is not ported for it")
     device = api.resolve_device(args.device)
     base = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
     # the engine refuses a mesh for audio too, but inside the spawned ranks,
@@ -276,10 +471,22 @@ def main(argv=None):
                      temperature=args.temperature, top_k=args.top_k, seed=args.seed,
                      scheduler=args.policy, prefill_chunk=args.chunk,
                      prefill_lanes=args.lanes, chunk_budget=args.chunk_budget,
-                     decode_steps=args.decode_steps)
+                     decode_steps=args.decode_steps, tail_fold=not args.no_tail_fold)
+    if args.slo_ttft_ms > 0 or args.slo_itl_ms > 0:
+        server_kw["slo"] = SLOConfig(ttft_ms=args.slo_ttft_ms or None,
+                                     itl_ms=args.slo_itl_ms or None, target=args.slo_target)
     print(f"policy={args.policy}, mesh {d}x{t}")
     if d * t == 1:
-        report(serve(cfg, args.seed, reqs, device=device, **server_kw), cfg)
+        if args.fault_plan:
+            server_kw["faults"] = FaultInjector.from_json(args.fault_plan)
+            print(f"fault plan: {len(server_kw['faults'].plan)} spec(s), "
+                  f"seed {server_kw['faults'].seed}")
+        if args.flight_dir:
+            server_kw["flight"] = FlightRecorder(args.flight_dir)
+        run = http_run(args) if args.http else stream_run(args) if args.stream else drain
+        out = serve(cfg, args.seed, reqs, device=device, run=observed(run, args), **server_kw)
+        report(out, cfg)
+        _print_obs(out["server"])
         return
     print(mesh.describe(d * t, device.type))
     outs = mesh.spawn(serve_rank, t, cfg, args.seed, reqs, server_kw, True,

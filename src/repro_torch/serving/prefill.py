@@ -9,7 +9,10 @@ folding), so a lane batch drains in ``ceil(L_max / chunk)`` chunk calls.
 Up to ``lanes`` requests prefill together in ONE carry, each lane reading
 its own fine-tune's weights through views (``instances=``), at its own
 offset.  The engine grants a per-step chunk budget, so prefill work
-interleaves with decode.
+interleaves with decode.  ``tail_fold=False`` keeps the reference's
+A/B option: lanes with less than a chunk left advance one position per
+call instead (single-token tail calls, chunk and tail rounds
+alternating).
 
 The reference re-initialises ``fresh`` lanes and keeps non-working
 lanes unchanged by selecting between carry trees.  The port's carry is
@@ -36,6 +39,10 @@ embeddings (lanes, 1, F, d_model), which the model's encoder reruns on
 lane's ``moe_limit``, the capacity an exact-length pass over the lane's
 real tokens would use (0 on a lane with no request), and a fresh lane's
 per-expert counts start at zero with its carry rows.
+
+With a tracer or an accounting ledger on, each chunk call is settled
+(``api.settle``) and recorded; with both off no call is settled but the
+last of an ``advance``.
 """
 from __future__ import annotations
 
@@ -80,13 +87,21 @@ class _Lane:
 
 class ChunkedPrefill:
     def __init__(self, cfg, *, max_context: int, device, chunk: int = DEFAULT_CHUNK,
-                 lanes: int = DEFAULT_LANES, metrics=None, tp=None):
+                 lanes: int = DEFAULT_LANES, metrics=None, tp=None,
+                 tail_fold: bool = True, tracer=None, accounting=None):
         api.family_module(cfg)                # raises for a family not ported
         self.cfg = cfg
         self.tp = tp
         self.device = torch.device(device)
         self.max_context = max_context
         self.metrics = metrics
+        # engine-owned observers (None for standalone use); every site
+        # guards on ``.enabled``, so with both off nothing is settled
+        self.tracer = tracer
+        self.accounting = accounting
+        self.tail_fold = tail_fold
+        self._tail_turn = False             # chunk / tail round alternation
+        self._widths: set[int] = set()      # chunk widths ever called
         self.lanes = max(1, lanes)
         # a chunk must map to distinct cache slots: clamp it to the ring
         ring = self._min_ring_width()
@@ -114,6 +129,12 @@ class ChunkedPrefill:
 
     def max_prompt_len(self) -> int:
         return self.max_context - self.prefix
+
+    @property
+    def compiled_shapes(self) -> int:
+        """Distinct chunk widths called: 1 with tail folding, at most 2
+        (the chunk and the single-token tail) without."""
+        return len(self._widths)
 
     # -- lane bookkeeping ----------------------------------------------------
 
@@ -155,6 +176,15 @@ class ChunkedPrefill:
                 return True
         return False
 
+    def reset(self) -> None:
+        """Crash recovery: evict every lane.  The next request on a lane
+        starts from the initial carry rows (``fresh``), so a carry a
+        failed call left half written is never read."""
+        for lane in self._lanes:
+            lane.req = None
+            lane.fresh = False
+        self._tail_turn = False
+
     def _reset_fresh(self) -> None:
         fresh = [i for i, lane in enumerate(self._lanes)
                  if lane.req is not None and lane.fresh]
@@ -164,10 +194,12 @@ class ChunkedPrefill:
 
     # -- the chunk pump ------------------------------------------------------
 
-    def advance(self, params, budget: int) -> list[tuple[Request, PrefillOut]]:
+    def advance(self, params, budget: int,
+                step: int = 0) -> list[tuple[Request, PrefillOut]]:
         """Run up to ``budget`` chunk calls; return the requests whose
         prefill completed.  Their rows alias the live carry, which the
-        next ``advance`` updates in place: scatter them first."""
+        next ``advance`` updates in place: scatter them first.  ``step``
+        tags trace events with the engine's step counter."""
         # a single-token prompt needs no chunk call: its state is the
         # initial one, taken from the pristine one-lane carry (the live
         # lane turns idle, and idle lanes ride later calls as junk)
@@ -182,11 +214,23 @@ class ChunkedPrefill:
         stepped = False
         t0 = time.perf_counter()
         while budget > 0:
-            workable = [i for i, l in enumerate(self._lanes)
-                        if l.req is not None and l.total > l.next_pos]
-            if not workable:
+            left = {i: l.total - l.next_pos for i, l in enumerate(self._lanes)
+                    if l.req is not None and l.total > l.next_pos}
+            if not left:
                 break
-            self._step(params, workable)
+            if self.tail_fold:
+                # every lane with work advances; a lane with less than a
+                # chunk left rides a padded final chunk, masked per position
+                workable, c = list(left), self.chunk
+            else:
+                chunkable = [i for i, n in left.items() if n >= self.chunk]
+                tailable = [i for i, n in left.items() if n < self.chunk]
+                # alternate when both kinds of work exist, so a lane one
+                # token from done is not starved behind full chunks
+                run_tail = bool(tailable) and (self._tail_turn or not chunkable)
+                self._tail_turn = not run_tail
+                workable, c = (tailable, 1) if run_tail else (chunkable, self.chunk)
+            self._step(params, workable, c, step)
             stepped = True
             budget -= 1
             for i, lane in enumerate(self._lanes):
@@ -195,16 +239,15 @@ class ChunkedPrefill:
                                                       lane.req.prompt[-1])))
                     lane.req = None
         if stepped:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            api.settle(self.device)
             if self.metrics is not None:
                 self.metrics.note_prefill_wall(time.perf_counter() - t0)
         for _, out in done:
             out.cache = self._carry["cache"]
         return zero_done + done
 
-    def _step(self, params, workable: list[int]) -> None:
-        k, c = self.lanes, self.chunk
+    def _step(self, params, workable: list[int], c: int, step: int) -> None:
+        k = self.lanes
         toks = np.zeros((k, 1, c), np.int32)
         # an idle lane computes nothing that is kept; its own index keeps
         # the lane -> instance map the identity where it can be
@@ -246,10 +289,35 @@ class ChunkedPrefill:
             batch["frames"] = torch.zeros(
                 (k, 1, self.cfg.num_audio_frames, self.cfg.d_model),
                 dtype=getattr(torch, self.cfg.dtype), device=dev)
+        tr, acct = self.tracer, self.accounting
+        trace_on = tr is not None and tr.enabled
+        acct_on = acct is not None and acct.enabled
+        if trace_on or acct_on:
+            t0 = time.perf_counter()
         api.prefill_chunk(self.cfg, params, batch, self._carry,
                           torch.from_numpy(offset).to(dev), instances=inst, tp=self.tp)
         self.device_calls += 1
+        self._widths.add(c)
         for lane, adv in staged:
             lane.next_pos += adv
+        if trace_on or acct_on:
+            t_dispatch = time.perf_counter()
+            # a settle per chunk is the cost of observing: it buys the
+            # call's device time; the unobserved path settles once per
+            # advance
+            api.settle(dev)
+            t_settled = time.perf_counter()
+            if trace_on:
+                tr.device_call(
+                    "prefill_chunk", t0, t_dispatch, t_settled, step=step,
+                    lanes_busy=self.in_flight(), lanes=self.lanes,
+                    valid_frac=tokens_done / (len(workable) * c),
+                    tokens=tokens_done)
+            if acct_on:
+                # each busy lane charges its tenant wall / lanes; the
+                # unoccupied lanes are idle
+                acct.note_prefill(t_settled - t0,
+                                  [self._lanes[i].req.instance for i in workable],
+                                  self.lanes)
         if self.metrics is not None:
             self.metrics.note_prefill_batch(len(workable), tokens_done)

@@ -32,6 +32,15 @@ class Request:
     request_id: int = -1
     submit_time: float = 0.0       # host clock at submit (metrics)
     _seq: int = -1                 # global arrival index (scheduler-owned)
+    # crash recovery: on requeue after a driver crash the first
+    # ``emit_skip`` regenerated tokens were already delivered to the
+    # client; the engine replays them with emission suppressed
+    # (``replay_expect`` holds the delivered prefix for the mismatch
+    # counter); ``retries`` counts the supervisor's restarts against the
+    # per-request retry budget
+    emit_skip: int = 0
+    replay_expect: list[int] | None = None
+    retries: int = 0
 
 
 @dataclasses.dataclass
@@ -41,7 +50,12 @@ class Result:
     tokens: list[int]              # generated tokens (excluding prompt)
     prompt_len: int = 0
     latency_s: float = 0.0
-    status: str = "ok"             # ok | rejected | cancelled
+    # every accepted (and, through ``try_submit``, every rejected) request
+    # ends in exactly one Result.  "error" = device-call / driver failure,
+    # "unavailable" = instance quarantined (HTTP 503), "shed" = dropped
+    # by overload brownout, "expired" = past its TTL
+    status: str = "ok"   # ok | rejected | cancelled | expired | error
+    #                    # | unavailable | shed
     error: str | None = None
     finish_reason: str | None = None   # "stop" (EOS) or "length"
 
@@ -75,17 +89,52 @@ class Scheduler:
     def depth(self, instance: int) -> int:
         return len(self.queues[instance])
 
+    def depths(self) -> list[int]:
+        """Per-instance queue depths (for /healthz and the flight recorder)."""
+        return [len(q) for q in self.queues]
+
+    def queued_instances(self) -> list[int]:
+        """Instances with at least one queued request: the waiters the
+        accounting layer's interference report charges each settled
+        device call against."""
+        return [m for m, q in enumerate(self.queues) if q]
+
     def total_pending(self) -> int:
         return sum(len(q) for q in self.queues)
 
     def cancel(self, request_id: int) -> Request | None:
-        """Remove a still-queued request; return it, or None."""
+        """Remove a still-queued request; return it, or None.  Policy
+        state is untouched: token-budget charges a prompt at admission,
+        so a request cancelled before admission was never charged."""
         for q in self.queues:
             for req in q:
                 if req.request_id == request_id:
                     q.remove(req)
                     return req
         return None
+
+    def drain_all(self) -> list[Request]:
+        """Pop every queued request, in arrival order (crash recovery
+        requeues them); policy state is untouched, as in ``cancel``."""
+        out: list[Request] = []
+        for q in self.queues:
+            out.extend(q)
+            q.clear()
+        out.sort(key=lambda r: r._seq)
+        return out
+
+    def shed_older_than(self, cutoff: float) -> list[Request]:
+        """Pop every queued request submitted before ``cutoff`` (overload
+        brownout sheds by age), oldest first."""
+        out: list[Request] = []
+        for q in self.queues:
+            keep = [r for r in q if r.submit_time >= cutoff]
+            if len(keep) != len(q):
+                out.extend(r for r in q if r.submit_time < cutoff)
+                q.clear()
+                q.extend(keep)
+        out.sort(key=lambda r: r._seq)
+        return out
 
     def note_generated(self, instance: int, n: int) -> None:
         pass
