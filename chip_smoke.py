@@ -143,6 +143,23 @@ non-zero before the result line is printed):
               convolutions, batch norm, max pool, 1000 classes) merged at
               M in {1, 8, 32}: the merged run against the M per-instance
               runs in f32, TF32 off, within PAPER_EXACT_TOL, both timed;
+5c. train  -- training (``train/loop.py``, ``launch/train.py``): (a)
+              tinyllama-1.1b and (b) xlstm-1.3b at full depth and width
+              (M=2; B=2, S=512 and B=1, S=256), f32 master weights, bf16
+              compute, remat per layer, TRAIN_STEPS AdamW steps on one
+              fixed batch, every launch counter set to 0 just before and
+              read just after: losses finite and falling, grad norms
+              finite and above 0, every parameter with a gradient, the
+              mLSTM and sLSTM kernels (under their autograd Functions)
+              twice a layer and step (forward and remat's recompute), no
+              other kernel; ms a step, tokens/s, peak memory; (c) one
+              step's loss and gradients on the card against the CPU on
+              the f32 smoke configs of the three families; (d) instance
+              isolation of M=3 fused training; (e) the training CLI at
+              full tinyllama width with ``--save``, the checkpoint
+              restored and served; (f) whole-sequence ``api.prefill``
+              against the chunked path's last logits (bf16 at full
+              tinyllama width, first greedy tokens on the f32 smokes);
 6. tp      -- tensor-parallel serving over 2 ranks, one process each, sharing
               the card (gloo): the full tinyllama-1.1b (M=4, 16 requests of
               16-512 tokens, 32 new, K=8) with every launch counter set to 0
@@ -242,7 +259,8 @@ non-zero before the result line is printed):
               time; the decode attention beside SDPA's device time and its
               latency floor (an empty kernel on its grid of clusters); the
               mLSTM's device time at the profiler shape, over four chunks
-              of 64 and two of 128.  Each serve path logs the tensor maps it encoded; the
+              of 64 and two of 128, and both recurrent kernels at the train
+              phase's xlstm shape.  Each serve path logs the tensor maps it encoded; the
               tinyllama serve's profile counts the decode layer's kernels
               per layer (at most 6).
 
@@ -254,6 +272,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -318,6 +337,21 @@ RING_REPEATS = 400
 # the periphery phase's watchdog gate: a decode stall of PERIPHERY_STALL_S
 # under a watchdog of PERIPHERY_WATCHDOG_S
 PERIPHERY_STALL_S, PERIPHERY_WATCHDOG_S = 2.0, 0.5
+# the train phase's cells at full depth and width: (arch, M, B, S); AdamW
+# steps a cell, on one fixed batch, cosine schedule from this lr
+TRAIN_CELLS = (("tinyllama-1.1b", 2, 2, 512), ("xlstm-1.3b", 2, 1, 256))
+TRAIN_STEPS, TRAIN_LR = 4, 3e-5
+# one training step on the card against the CPU on f32 smoke configs: the
+# loss relative, every gradient leaf relative to its largest magnitude
+# (kernels and library calls sum in other orders; a gradient sums over
+# every token)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+# instance isolation with AdamW's clip (the instances' one coupling) off:
+# instance 0's largest parameter difference against the run with the other
+# instances on other streams (summation order only), and against instance 0
+# trained alone (the fused loss averages over M, so AdamW's eps acts on the
+# tiniest gradients); instance 0 fed another stream moves by ~2e-2
+ISOLATION_OTHERS_TOL, ISOLATION_SOLO_TOL = 1e-4, 1e-3
 # merged vs per-instance outputs of the paper's models in f32, TF32 off,
 # relative to the largest output magnitude: the merged and the single
 # calls may take other cuBLAS / cuDNN algorithms, so only summation order
@@ -3036,6 +3070,288 @@ def phase_graph(torch, dev):
             del weights, w_dev, x_dev, fused, per, merged, mw
 
 
+def train_cell(torch, dev, cfg, b, s, steps=TRAIN_STEPS, lr=TRAIN_LR):
+    """``steps`` AdamW steps of ``train/loop.make_train_step`` (cosine
+    schedule, warm-up 1, remat per layer) on one fixed ``SyntheticLM``
+    batch of (M, b, s) tokens, the parameters f32 masters drawn from a
+    seed on the card.  Every launch counter is set to 0 just before the
+    steps and read just after.  Gates: every loss finite, the last below
+    the first, every grad norm finite and above 0, and no parameter left
+    without a gradient (``loop`` raises).  Returns (launches, the log)."""
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.optim import cosine_with_warmup
+    from repro_torch.train import loop
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = loop.init_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    batch = pipeline.SyntheticLM(cfg.vocab_size, cfg.num_instances, 0, dev).batch(0, b, s)
+    step_fn = loop.make_train_step(cfg, lr_schedule=cosine_with_warmup(lr, 1, steps))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    losses, norms, ms = [], [], []
+    ops.reset_launches()
+    for _ in range(steps):
+        t = time.perf_counter()
+        state, met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
+    steady = sorted(ms[1:])[len(ms[1:]) // 2]
+    out = dict(arch=cfg.name, instances=cfg.num_instances, layers=cfg.num_layers, batch=b,
+               seq=s, params=n_params, losses=[round(x, 4) for x in losses],
+               grad_norms=[round(x, 3) for x in norms], first_step_ms=round(ms[0], 1),
+               step_ms=round(steady, 1),
+               tok_per_s=round(cfg.num_instances * b * s / steady * 1e3, 1),
+               peak_gib=round(peak, 2), setup_s=round(setup_s, 1),
+               params_finite=finite,
+               launches=json.dumps({k: v for k, v in launches.items() if v}).replace(" ", ""))
+    log("train", **out)
+    assert all(math.isfinite(x) for x in losses) and finite, losses
+    assert losses[-1] < losses[0], f"{cfg.name}: loss did not fall: {losses}"
+    assert all(math.isfinite(x) and x > 0 for x in norms), norms
+    del state, batch, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _grads_of(torch, cfg, params, batch):
+    """(loss, {name: grad}) of ``api.loss_fn`` on a trainable model."""
+    from repro_torch import api
+
+    params.zero_grad(set_to_none=True)
+    loss, _ = api.loss_fn(cfg, params, batch)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().cpu() for n, p in params.named_parameters()}
+
+
+def phase_train(torch, dev):
+    """Training on the card (``train/loop.py``, ``launch/train.py``):
+
+    (a) tinyllama-1.1b at full depth and width, M=2, B=2, S=512, bf16
+        compute with f32 master weights, remat, AdamW, TRAIN_STEPS steps;
+    (b) xlstm-1.3b likewise at M=2, B=1, S=256: the mLSTM kernel 42 times
+        and the sLSTM kernel 6 times a forward, each again in remat's
+        recompute;
+    (c) one step's loss and every gradient on the card (the kernels under
+        their autograd Functions) against the CPU (plain versions) on the
+        f32 smoke configs of the three families, TF32 off;
+    (d) instance isolation (``examples/train_merged.py``, AdamW's clip
+        off): tinyllama-smoke f32 (V=64), M=3 trained fused for 10 steps
+        at a constant lr of 1e-3; instance 0 against the same run with the
+        other instances on other streams, and against instance 0 trained
+        alone on its stream;
+    (e) ``python -m repro_torch.launch.train`` at full tinyllama-1.1b
+        width (M=2, 2 steps, B=2, S=256, ``--save``), the checkpoint read
+        by ``checkpoint.store.restore_params`` and served (4 greedy
+        requests, each ``ok``);
+    (f) ``api.prefill`` against the chunked path's last logits (chunk
+        calls over the prompt but its last token, then a decode step on
+        it) at the full tinyllama-1.1b width in bf16; on the f32 smoke
+        configs of the three families (hymba's at 4 layers, its 40-token
+        prompt longer than the SWA ring) the last logits and 4 greedy
+        decode steps continuing from each path's cache, tokens equal.
+    Returns the launches of (a) and (b) by path."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import common as Cm
+    from repro_torch.models import hybrid, ssm
+    from repro_torch.optim import adamw, constant
+    from repro_torch.serving import MultiModelServer
+    from repro_torch.train import loop
+
+    by_path = {}
+    # (a), (b): full depth and width
+    for arch, m, b, s in TRAIN_CELLS:
+        cfg = registry.get_config(arch).with_(num_instances=m)
+        la, out = train_cell(torch, dev, cfg, b, s)
+        if cfg.family == "ssm":
+            n_s = len(ssm.mlstm_runs(cfg)) - 1
+            n_m = cfg.num_layers - n_s
+            # a forward, and remat's recompute of it in the backward
+            assert la["mlstm_chunkwise"] == 2 * n_m * TRAIN_STEPS, la
+            assert la["slstm_cell"] == 2 * n_s * TRAIN_STEPS, la
+        others = {k: v for k, v in la.items() if v and k not in ("mlstm_chunkwise", "slstm_cell")}
+        assert not others, f"{arch}: kernels without a backward launched in training: {others}"
+        by_path[f"{arch}/train"] = la
+
+    # (c) the card against the CPU on f32 smoke configs
+    for arch in ("tinyllama-1.1b", "xlstm-1.3b", "hymba-1.5b"):
+        small = registry.get_smoke_config(arch).with_(num_instances=2)
+        cpu_p = api.init(small, torch.Generator().manual_seed(0), "cpu", train=True)
+        dev_p = Cm.training_params(small, Cm.tree_map(lambda t: t.to(dev), cpu_p.tree()))
+        batch = pipeline.SyntheticLM(small.vocab_size, 2, seed=1).batch(0, 2, 32)
+        l_cpu, g_cpu = _grads_of(torch, small, cpu_p, batch)
+        ops.reset_launches()
+        l_dev, g_dev = _grads_of(torch, small, dev_p, {k: v.to(dev) for k, v in batch.items()})
+        la = {k: v for k, v in ops.launches().items() if v}
+        e_loss = abs(l_dev - l_cpu) / abs(l_cpu)
+        e_grad = max(part_err(g_dev[n], g_cpu[n]) for n in g_cpu)
+        assert math.isfinite(l_dev) and e_loss <= TRAIN_LOSS_TOL, (arch, l_dev, l_cpu)
+        assert e_grad <= TRAIN_GRAD_TOL, (arch, e_grad)
+        if small.family == "ssm":
+            assert la.get("mlstm_chunkwise") and la.get("slstm_cell"), la
+        log("train", check="card-vs-cpu", config=small.name, loss=f"{l_dev:.6f}",
+            loss_rel_err=f"{e_loss:.2e}", grad_leaves=len(g_cpu),
+            worst_grad_err=f"{e_grad:.2e}", launches=json.dumps(la).replace(" ", ""))
+
+    # (d) instance isolation, the clip off: instance 0 of M=3 fused against
+    # the same run with the others on other streams, and against it alone
+    cfg1 = registry.get_smoke_config("tinyllama-1.1b").with_(vocab_size=64)
+    cfg3 = cfg1.with_(num_instances=3)
+    kw = dict(steps=10, batch_size=4, seq_len=32, lr_schedule=constant(1e-3), log_every=9,
+              print_fn=lambda *_: None, max_grad_norm=math.inf)
+
+    def singles():
+        return [api.init(cfg1, torch.Generator(device=dev).manual_seed(i), dev, train=True)
+                for i in range(3)]
+
+    def fused(seeds):
+        merged = Cm.training_params(cfg3, Cm.merge_instances([p.tree() for p in singles()]))
+        streams = [pipeline.SyntheticLM(64, 1, seed=sd, device=dev) for sd in seeds]
+        st, losses = loop.train_loop(
+            cfg3, lambda step: {k: torch.cat([x.batch(step, 4, 32)[k] for x in streams])
+                                for k in ("tokens", "labels")},
+            state=loop.TrainState(merged, adamw.adamw_init(merged)), **kw)
+        return Cm._leaves(Cm.instance_views(st.params, 0).tree()), losses
+
+    def worst(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    inst0, f_losses = fused((50, 51, 52))
+    e_others = worst(inst0, fused((50, 61, 62))[0])
+    solo0 = Cm.training_params(cfg1, singles()[0].tree())
+    solo, s_losses = loop.train_loop(cfg1, pipeline.SyntheticLM(64, 1, seed=50, device=dev),
+                                     state=loop.TrainState(solo0, adamw.adamw_init(solo0)), **kw)
+    e_solo = worst(inst0, Cm._leaves(solo.params.tree()))
+    log("train", check="isolation", instances=3, steps=10, clip="off",
+        fused_loss=f"{f_losses[0][1]:.3f}->{f_losses[-1][1]:.3f}",
+        solo_loss=f"{s_losses[0][1]:.3f}->{s_losses[-1][1]:.3f}",
+        max_diff_other_streams=f"{e_others:.2e}", max_diff_solo=f"{e_solo:.2e}")
+    assert e_others < ISOLATION_OTHERS_TOL, e_others
+    assert e_solo < ISOLATION_SOLO_TOL, e_solo
+    del inst0, solo, solo0
+
+    # (e) the CLI at full width, its checkpoint restored and served
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "tinyllama-1.1b",
+             "--num-instances", "2", "--steps", "2", "--batch", "2", "--seq", "256",
+             "--save", tmp], cwd=HERE, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": os.path.join(HERE, "src")})
+        assert r.returncode == 0, r.stderr[-3000:]
+        cli_s = time.perf_counter() - t0
+        cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=2)
+        t0 = time.perf_counter()
+        params = store.restore_params(tmp, cfg, api.init(cfg, None, "meta"), dev)
+        restore_s = time.perf_counter() - t0
+        srv = MultiModelServer(cfg, params, device=dev, slots_per_instance=2, max_context=S,
+                               prefill_chunk=C, decode_steps=8)
+        for q in requests(4, 2, 16, 200, 16, cfg.vocab_size, 3):
+            srv.submit(q)
+        served = drained(srv, 4, 16)
+        log("train", check="cli-save-serve", cli_s=round(cli_s, 1),
+            cli_tail=r.stdout.strip().splitlines()[-2].replace(",", ";"),
+            checkpoint_gib=round(sum(f.stat().st_size for f in pathlib.Path(tmp).iterdir())
+                                 / 2 ** 30, 2), restore_s=round(restore_s, 1),
+            requests_ok=len(served))
+        del srv, params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) whole-sequence prefill against the chunked path
+    def chunked(cfg, params, tok, d, cache_len):
+        """(last logits, cache) of chunk calls over the prompt but its last
+        token, then a decode step on it."""
+        m, b, n = tok.shape
+        pre = api.prefill_prefix_len(cfg)
+        carry = api.init_chunk_carry(cfg, m, b, cache_len, device=d)
+        ctx = tok[:, :, :-1]
+        if pre:
+            # the learned prefix's positions come first; their ids are ignored
+            ctx = torch.cat([torch.zeros(m, b, pre, dtype=tok.dtype, device=d), ctx], dim=2)
+        for start in range(0, ctx.shape[2], C):
+            off = torch.full((m, b), start, dtype=torch.int32, device=d)
+            api.prefill_chunk(cfg, params, {"tokens": ctx[:, :, start:start + C]}, carry, off)
+        pos = torch.full((m, b), ctx.shape[2], dtype=torch.int32, device=d)
+        return api.decode_step(cfg, params, carry["cache"], tok[:, :, -1:], pos)
+
+    def greedy(cfg, params, logits, cache, pos0, steps=4):
+        """``steps`` greedy decode steps from (logits, cache): tokens
+        (steps, M, B) and each step's logits."""
+        toks, outs = [], []
+        for k in range(steps):
+            t = logits.argmax(-1).to(torch.int32)
+            toks.append(t)
+            logits, cache = api.decode_step(cfg, params, cache, t[..., None],
+                                            torch.full_like(t, pos0 + k))
+            outs.append(logits)
+        return torch.stack(toks), outs
+
+    rng = np.random.default_rng(4)
+    cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=2)
+    params = serve.random_merged(cfg, 0, dev)[0]
+    tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 2, 256)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        whole = api.prefill(cfg, params, {"tokens": tok})[0]
+        chunk_last = chunked(cfg, params, tok, dev, 256 + 8)[0]
+    e_bf16 = rel_err(whole, chunk_last)
+    assert torch.isfinite(whole).all() and e_bf16 <= TOL["bfloat16"], e_bf16
+    del params
+    smokes = {}
+    for arch, layers in (("tinyllama-1.1b", None), ("xlstm-1.3b", None), ("hymba-1.5b", 4)):
+        small = registry.get_smoke_config(arch).with_(num_instances=2)
+        if layers:
+            small = small.with_(num_layers=layers)
+        n, pre = 40, api.prefill_prefix_len(small)
+        # equal caches: the dense cache with room for the decode steps; the
+        # hybrid global groups sized to the prompt, as the whole prefill does
+        cache_len = pre + n + (8 if small.family == "dense" else 0)
+        assert small.family != "hybrid" or n > hybrid.swa_window(small)
+        p = api.init(small, torch.Generator().manual_seed(0), "cpu").to(dev)
+        t = torch.from_numpy(rng.integers(1, small.vocab_size, (2, 2, n)).astype(np.int32))
+        ops.reset_launches()
+        with torch.no_grad():
+            w, w_cache = api.prefill(small, p, {"tokens": t.to(dev)}, cache_len=cache_len)
+            la = {k: v for k, v in ops.launches().items() if v}
+            c_, c_cache = chunked(small, p, t.to(dev), dev, cache_len)
+            w_tok, w_out = greedy(small, p, w, w_cache, pre + n)
+            c_tok, c_out = greedy(small, p, c_, c_cache, pre + n)
+        e_last = rel_err(w, c_)
+        e_dec = max(rel_err(a, b) for a, b in zip(w_out, c_out))
+        assert e_last <= TOL["float32"] and e_dec <= TOL["float32"], (arch, e_last, e_dec)
+        assert torch.equal(w_tok, c_tok), f"{arch}: greedy tokens after the prefill differ"
+        smokes[small.name] = dict(layers=small.num_layers, last_rel_err=f"{e_last:.2e}",
+                                  decode_rel_err=f"{e_dec:.2e}", prefill_launches=la)
+    log("train", check="whole-prefill", config=cfg.name, prompt=256,
+        bf16_rel_err=f"{e_bf16:.2e}", smoke_prompt=40, smoke_greedy_tokens="4 equal",
+        smoke=json.dumps(smokes).replace(" ", ""))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def time_ms(torch, fn, reps=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -3217,6 +3533,8 @@ def phase_times(torch, dev, by_path, profile_launches, b32):
 
     err, ms, dev_ms, plain, (bms, by) = slstm_time(4, 1, C)
     d_err, d_ms, d_dev_ms, d_plain, (d_bms, d_by) = slstm_time(M, B, 1)
+    # the train phase's shape: xlstm-1.3b at M=2, B=1, S=256
+    t_err, t_ms, t_dev_ms, t_plain, (t_bms, t_by) = slstm_time(2, 1, 256)
     rows.append(dict(name="slstm_cell", route="cuda",
                      source="src/repro_torch/csrc/slstm_cell.cu",
                      replaces="src/repro/kernels/slstm_cell.py:37",
@@ -3225,7 +3543,9 @@ def phase_times(torch, dev, by_path, profile_launches, b32):
                      plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=None,
                      shape="prefill S=32, 4 lanes", device_ms=dev_ms, decode_ms=d_ms,
                      decode_device_ms=d_dev_ms, decode_plain_ms=d_plain,
-                     decode_bound_ms=d_bms, decode_bound_by=d_by, decode_max_abs_err=d_err))
+                     decode_bound_ms=d_bms, decode_bound_by=d_by, decode_max_abs_err=d_err,
+                     train_ms=t_ms, train_device_ms=t_dev_ms, train_plain_ms=t_plain,
+                     train_bound_ms=t_bms, train_bound_by=t_by, train_max_abs_err=t_err))
     log("times", name="slstm_cell", shape="decode S=1, M=4 x B=4", ms=f"{d_ms:.4f}",
         device_ms=f"{d_dev_ms:.4f}", plain_ms=f"{d_plain:.4f}", bound_ms=f"{d_bms:.4f}",
         bound_by=d_by, of_bound=f"{d_bms / d_dev_ms:.1%}")
@@ -3275,7 +3595,8 @@ def phase_times(torch, dev, by_path, profile_launches, b32):
                      floor_device_ms=floor, library="SDPA, the prefix mask, GQA"))
     del sets, lib_in
 
-    rows += new_time_rows(torch, dev, profile_launches, per_path("fused_matmul"))
+    rows += new_time_rows(torch, dev, profile_launches, per_path("fused_matmul"),
+                          per_path("mlstm_chunkwise"))
     rows += phase_time_rows(torch, dev, launches, per_path)
     rows.append(sharded_attn_time_row(torch, dev, launches, per_path))
     rows.append(sharded_matmul_time_row(torch, dev, launches, per_path))
@@ -3339,12 +3660,13 @@ def sharded_matmul_time_row(torch, dev, launches, per_path):
                 bert_bound_by=b_by, bert_max_abs_err=b_err)
 
 
-def new_time_rows(torch, dev, launches, moe_launches):
+def new_time_rows(torch, dev, launches, moe_launches, mlstm_launches):
     """Times rows of the merged matmul, the group RMS norm and the chunkwise
     mLSTM at the profiler's shapes; ``launches`` are the counts of the
     profile phase (their main path), ``moe_launches`` the merged matmul's
     on the serve and mesh paths, by path (moe's experts, xlstm's mLSTM
-    decode step, whisper's prefill cross-attention)."""
+    decode step, whisper's prefill cross-attention), ``mlstm_launches``
+    the mLSTM's on the other paths by path (the train phase's)."""
     from repro_torch.kernels import fused_matmul as fm
     from repro_torch.kernels import group_norm as gn
     from repro_torch.kernels import mlstm_chunk as ml
@@ -3446,16 +3768,18 @@ def new_time_rows(torch, dev, launches, moe_launches):
     # beside it: four chunks of 64 and xlstm-1.3b's reference chunk of 128
     # over two chunks (C kept in registers over the chunks)
     extra = {}
-    for tag, (s_, cs) in (("4x64", (256, 64)), ("2x128", (256, 128))):
-        q2, k2, v2, lf2, li2 = mlstm_inputs(torch, dev, bf16, 4, 1, 4, s_, 1024, 43)
+    # and at the train phase's shape (xlstm-1.3b at M=2, B=1, S=256: 8 lanes)
+    for tag, (m_, s_, cs) in (("4x64", (4, 256, 64)), ("2x128", (4, 256, 128)),
+                              ("_train2x128", (2, 256, 128))):
+        q2, k2, v2, lf2, li2 = mlstm_inputs(torch, dev, bf16, m_, 1, 4, s_, 1024, 43)
         e2 = abs_err(ml.mlstm_chunkwise_cuda(q2, k2, v2, lf2, li2, chunk=cs)[0],
                      ml.mlstm_chunkwise_plain(q2, k2, v2, lf2, li2, chunk=cs)[0])
         d2 = time_queued_ms(torch, lambda: ml.mlstm_chunkwise_cuda(q2, k2, v2, lf2, li2,
                                                                    chunk=cs))
-        b2, by2 = mlstm_bound(16, s_, 1024, cs)
+        b2, by2 = mlstm_bound(4 * m_, s_, 1024, cs)
         extra.update({f"chunks{tag}_device_ms": d2, f"chunks{tag}_bound_ms": b2,
                       f"chunks{tag}_bound_by": by2, f"chunks{tag}_max_abs_err": e2})
-        log("times", name="mlstm_chunkwise", shape=f"qkv (4,1,4,{s_},1024) bf16, chunk {cs}",
+        log("times", name="mlstm_chunkwise", shape=f"qkv ({m_},1,4,{s_},1024) bf16, chunk {cs}",
             device_ms=f"{d2:.4f}", bound_ms=f"{b2:.4f}", bound_by=by2,
             of_bound=f"{b2 / d2:.1%}")
         del q2, k2, v2, lf2, li2
@@ -3464,7 +3788,9 @@ def new_time_rows(torch, dev, launches, moe_launches):
         of_bound=f"{bms / device_ms:.1%}")
     rows.append(dict(name="mlstm_chunkwise", route="cuda", source="src/repro_torch/csrc/mlstm_chunk.cu",
                      replaces="src/repro/kernels/mlstm_chunk.py:29",
-                     launches=launches["mlstm_chunkwise"], max_abs_err=err, ms=ms,
+                     launches=launches["mlstm_chunkwise"] + sum(mlstm_launches.values()),
+                     launches_by_path={"profile": launches["mlstm_chunkwise"],
+                                       **mlstm_launches}, max_abs_err=err, ms=ms,
                      device_ms=device_ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                      library_ms=None,
                      library="none: no one PyTorch call computes the chunkwise scan",
@@ -3614,6 +3940,7 @@ def main() -> int:
                                                  single_streams)
     timed("check", phase_check, torch, dev)
     timed("graph", phase_graph, torch, dev)
+    launches.update(timed("train", phase_train, torch, dev))
     launches[f"tinyllama-1.1b/tp{TP}-rank0"] = timed("tp", phase_tp, torch, dev)
     launches[f"hymba-1.5b/tp{TP}-rank0"] = timed("tp_hybrid", phase_tp_hybrid, torch, dev)
     by_mesh, matmul_launches = timed("data", phase_data, torch, dev, single_streams)

@@ -3,7 +3,10 @@ hybrid, vlm and audio entries.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); with no device given and no card present they raise
-instead of carrying on on the CPU.  Families not ported yet raise.
+instead of carrying on on the CPU.  Families not ported yet raise.  The
+training and whole-sequence entries (``train_logits``, ``loss_fn``,
+``prefill``, ``init(..., train=True)``) take the dense, ssm and hybrid
+families.
 
 ``tp`` (a ``models.common.TensorParallel``) runs an entry on this rank's
 shard under tensor parallelism; the dense, moe, hybrid and vlm families
@@ -61,11 +64,64 @@ def _tp(cfg: ModelConfig, tp) -> dict:
     return {"tp": tp}
 
 
-def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None):
+def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None, *,
+         train: bool = False):
     """Random merged parameters (the reference's distributions) drawn from
-    ``generator``, which must live on the target device."""
+    ``generator``, which must live on the target device.  ``train`` gives
+    the trainable form (every leaf in ``param_dtype``, requiring a
+    gradient; dense, ssm and hybrid)."""
     dev = resolve_device(device)
+    if train:
+        return _whole_sequence(cfg).init(cfg, generator, dev, train=True)
     return family_module(cfg).init(cfg, generator, dev)
+
+
+# ---------------------------------------------------------------------------
+# whole-sequence entry points: training and a prefill from scratch
+# ---------------------------------------------------------------------------
+
+# families whose whole-sequence forward and prefill are ported
+WHOLE_SEQUENCE = ("dense", "ssm", "hybrid")
+
+
+def _whole_sequence(cfg: ModelConfig):
+    if cfg.family not in WHOLE_SEQUENCE:
+        raise NotImplementedError(
+            f"the whole-sequence forward of the {cfg.family!r} family is not ported yet "
+            "(ROADMAP.md Queue 1: the whole-sequence moe, vlm and audio forwards)")
+    return _FAMILY[cfg.family]
+
+
+def train_logits(cfg: ModelConfig, params, batch, *, remat: bool | None = None):
+    """Logits (M, B, S, V) f32 aligned with ``batch["labels"]`` (the next
+    tokens); ``remat`` defaults to ``cfg.remat``.  Batch layout: tokens
+    and labels (M, B, S) int32."""
+    remat = cfg.remat if remat is None else remat
+    return _whole_sequence(cfg).forward(cfg, params, batch["tokens"], remat=remat)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Mean next-token cross-entropy over (M, B, S) from the f32
+    log-softmax: (loss, {"nll", "aux"}).  The families ported here have no
+    auxiliary loss (moe's router loss comes with its forward)."""
+    logits = train_logits(cfg, params, batch).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    loss = nll.mean()
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + cfg.router_aux_loss * aux, {"nll": loss, "aux": aux}
+
+
+def prefill(cfg: ModelConfig, params, batch, *, cache_len: int | None = None):
+    """A whole prompt from scratch, without a gradient: (last logits
+    (M, B, V) f32, the decode cache or recurrent state).  ``cache_len``
+    sizes the dense KV cache; the ssm state is positionless and the
+    hybrid cache is sized by its window."""
+    fam = _whole_sequence(cfg)
+    with torch.no_grad():
+        if cfg.family == "dense":
+            return fam.prefill(cfg, params, batch["tokens"], cache_len=cache_len)
+        return fam.prefill(cfg, params, batch["tokens"])
 
 
 def prefill_prefix_len(cfg: ModelConfig) -> int:

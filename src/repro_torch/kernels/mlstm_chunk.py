@@ -4,7 +4,8 @@ launcher of its Hopper kernel (``csrc/mlstm_chunk.cu``).
 Port of ``repro/kernels/mlstm_chunk.py`` (the Pallas ``_kernel``) with the
 oracle of ``repro/kernels/ref.py`` (``mlstm_chunkwise``, which is the
 model's chunkwise scan from C = 0, n = 0, m = -1e30): the plain version is
-the port's ``models/ssm.mlstm_sequence`` from that state.  The chunk is
+the model's chunkwise scan :func:`mlstm_sequence` (which ``models/ssm``
+imports) from that state.  The chunk is
 clamped to a divisor of S, as the reference clamps it.
 """
 from __future__ import annotations
@@ -139,16 +140,109 @@ def zero_state(q):
             torch.full(lead, NEG_INF, **kw))
 
 
+def _mlstm_chunk(carry, blk, hd: int):
+    """One chunk.  carry: (C (.., hd, hd), n (.., hd), m (..)) f32 with
+    leading dims (M, B, H); blk: q, k, v (M, B, H, Cs, hd) in their storage
+    dtype, lf, li (M, B, H, Cs) f32.  Contractions take storage-dtype
+    inputs and accumulate in f32, as the reference's
+    ``preferred_element_type`` does."""
+    C0, n0, m0 = carry
+    q, k, v, lf, li = blk
+    cs = q.shape[-2]
+    f32 = torch.float32
+    b = torch.cumsum(lf, dim=-1)
+    g = torch.cummax(li - b, dim=-1).values
+    mt = b + torch.maximum(m0[..., None], g)
+    a_inter = torch.exp(b + m0[..., None] - mt)
+    logD = li[..., None, :] - b[..., None, :] + b[..., :, None] - mt[..., None]
+    tri = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=q.device))
+    # the mask goes in before the exp: above the diagonal logD can pass 88
+    # (a strong forget gate over the chunk), and exp's gradient there,
+    # inf times the masked 0, would be NaN; the values are the same
+    D = torch.exp(torch.where(tri, logD, torch.full((), NEG_INF, dtype=f32, device=q.device)))
+
+    qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
+    s_qk = (qf @ kf.transpose(-1, -2)) / math.sqrt(hd)
+    w = s_qk * D
+    num = w.to(v.dtype).to(f32) @ vf
+    num = num + a_inter[..., None] * (qf @ C0) / math.sqrt(hd)
+    den = w.sum(-1) + a_inter * (qf @ n0[..., None])[..., 0] / math.sqrt(hd)
+    h = num / torch.maximum(den.abs(), torch.exp(-mt))[..., None]
+
+    m_end = mt[..., -1]
+    w_end = torch.exp(li + b[..., -1:] - b - m_end[..., None])
+    decay0 = torch.exp(b[..., -1] + m0 - m_end)
+    kw = w_end.to(v.dtype).to(f32)[..., None] * kf
+    C_new = decay0[..., None, None] * C0 + kw.transpose(-1, -2) @ vf
+    n_new = decay0[..., None] * n0 + (w_end.to(k.dtype).to(f32)[..., None] * kf).sum(-2)
+    return (C_new, n_new, m_end), h.to(v.dtype)
+
+
+def mlstm_sequence(q, k, v, lf, li, state, *, chunk: int = 64):
+    """Chunkwise mLSTM continuing ``state`` = (C, n, m).  q, k, v
+    (M, B, H, S, hd); lf, li (M, B, H, S).  Returns (h (M, B, H, S, hd),
+    new state)."""
+    s, hd = q.shape[3], q.shape[4]
+    cs = min(chunk, s)
+    while s % cs:
+        cs -= 1
+    hs = []
+    for i in range(0, s, cs):
+        sl = slice(i, i + cs)
+        state, h = _mlstm_chunk(state, (q[..., sl, :], k[..., sl, :], v[..., sl, :],
+                                        lf[..., sl], li[..., sl]), hd)
+        hs.append(h)
+    return torch.cat(hs, dim=3), state
+
+
 def mlstm_chunkwise_plain(q, k, v, lf, li, *, chunk: int = 64):
     """q, k, v (M, B, H, S, hd); lf, li (M, B, H, S) f32.  Returns (h
     (M, B, H, S, hd) in q's dtype, (C (M, B, H, hd, hd), n (M, B, H, hd),
     m (M, B, H)) f32)."""
-    from repro_torch.models import ssm
-
     _check(q, k, v, lf, li)
-    h, state = ssm.mlstm_sequence(q, k, v, lf.float(), li.float(), zero_state(q),
+    h, state = mlstm_sequence(q, k, v, lf.float(), li.float(), zero_state(q),
                                   chunk=chunk)
     return h.to(q.dtype), state
+
+
+class Chunkwise(torch.autograd.Function):
+    """The chunkwise mLSTM from zero state under autograd.
+
+    ``forward`` runs ``fwd`` (the kernel's launcher on the card; a test
+    may pass the plain version), which allocates the state it returns.
+    ``backward`` recomputes the reference's training math -- the model's
+    chunkwise scan :func:`mlstm_sequence` from C = 0, n = 0, m =
+    -1e30 -- and differentiates it: the reference trains on that XLA scan
+    because ``pallas_call`` has no VJP, and the port writes no backward
+    kernel either.  Gradients reach q, k, v, lf and li."""
+
+    @staticmethod
+    def forward(ctx, fwd, chunk, q, k, v, lf, li):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(q, k, v, lf, li)
+        h, (C, n, m) = fwd(q, k, v, lf, li, chunk=chunk)
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        ins = [t.detach().requires_grad_(r) for t, r in zip(ctx.saved_tensors, need)]
+        q, k, v, lf, li = ins
+        with torch.enable_grad():
+            h, state = mlstm_sequence(q, k, v, lf.float(), li.float(), zero_state(q),
+                                          chunk=ctx.chunk)
+            pairs = [(o, g) for o, g in zip((h.to(q.dtype),) + state, grads) if g is not None]
+            wrt = [t for t, r in zip(ins, need) if r]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                           allow_unused=True) if pairs and wrt else ())
+        return (None, None) + tuple(next(got, None) if r else None for r in need)
+
+
+def mlstm_chunkwise_grad(fwd, q, k, v, lf, li, *, chunk: int = 64):
+    """``fwd`` (same contract as the plain version) under :class:`Chunkwise`."""
+    h, C, n, m = Chunkwise.apply(fwd, chunk, q, k, v, lf, li)
+    return h, (C, n, m)
 
 
 @functools.cache

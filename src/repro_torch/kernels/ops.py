@@ -31,23 +31,54 @@ from repro_torch.kernels import mlstm_chunk as _ml
 from repro_torch.kernels import slstm_cell as _sc
 
 
-class Kernel:
-    """A kernel wrapper: plain version on the CPU, kernel on CUDA."""
+def _requires_grad(x) -> bool:
+    """Whether a tensor in ``x`` (nested in dicts, lists, tuples) requires
+    a gradient."""
+    if isinstance(x, torch.Tensor):
+        return x.requires_grad
+    if isinstance(x, dict):
+        x = x.values()
+    elif not isinstance(x, (list, tuple)):
+        return False
+    return any(_requires_grad(v) for v in x)
 
-    def __init__(self, name: str, plain, cuda):
+
+class Kernel:
+    """A kernel wrapper: plain version on the CPU, kernel on CUDA.
+
+    Under autograd (grad enabled and an input requiring a gradient) a
+    kernel with a ``grad`` form runs through it: ``grad(fwd, *args)``
+    wraps the forward callable of the device (the kernel's launch, or the
+    plain version on the CPU) in a ``torch.autograd.Function`` whose
+    backward differentiates the reference's math.  A CUDA launch of a
+    kernel without one raises there: its output would carry no
+    ``grad_fn``, and the parameters upstream would silently get no
+    gradient.  On the CPU the plain version is differentiable as it is."""
+
+    def __init__(self, name: str, plain, cuda, grad=None):
         self.name = name
         self.plain = plain
         self.cuda = cuda
+        self.grad = grad
         self.launches = 0
+
+    def launch(self, *args, **kw):
+        self.launches += 1
+        return self.cuda(*args, **kw)
 
     def __call__(self, probe, *args, **kw):
         dev = probe.device.type
-        if dev == "cpu":
-            return self.plain(*args, **kw)
-        if dev != "cuda":
+        if dev not in ("cpu", "cuda"):
             raise ValueError(f"{self.name}: no kernel for device {probe.device}")
-        self.launches += 1
-        return self.cuda(*args, **kw)
+        fwd = self.plain if dev == "cpu" else self.launch
+        if torch.is_grad_enabled() and _requires_grad((args, kw)):
+            if self.grad is not None:
+                return self.grad(fwd, *args, **kw)
+            if dev == "cuda":
+                raise RuntimeError(
+                    f"{self.name}: the kernel has no backward; it was launched on inputs "
+                    "that require a gradient (run it under torch.no_grad())")
+        return fwd(*args, **kw)
 
 
 _decode_layer = Kernel("decode_layer", _dl.decode_layer_plain, _dl.decode_layer_cuda)
@@ -58,7 +89,8 @@ _logits = Kernel("logits_sample", _dl.logits_argmax_plain, _dl.logits_argmax_cud
 _chunk = Kernel("chunk_prefill_attention", _cpa.chunk_prefill_attention_plain,
                 _cpa.chunk_prefill_attention_cuda)
 
-_slstm = Kernel("slstm_cell", _sc.slstm_cell_plain, _sc.slstm_cell_cuda)
+_slstm = Kernel("slstm_cell", _sc.slstm_cell_plain, _sc.slstm_cell_cuda,
+                grad=_sc.slstm_cell_grad)
 _decode_attn = Kernel("decode_attention", _da.decode_attention_plain,
                       _da.decode_attention_cuda)
 _decode_attn_sh = Kernel("decode_attention_sharded", _da.decode_attention_plain,
@@ -68,7 +100,8 @@ _fused_matmul = Kernel("fused_matmul", _fm.fused_matmul_plain, _fm.fused_matmul_
 _fused_matmul_sh = Kernel("fused_matmul_sharded", _fm.fused_matmul_plain,
                           _fm.fused_matmul_cuda)
 _group_rms = Kernel("group_rms_norm", _gn.group_rms_norm_plain, _gn.group_rms_norm_cuda)
-_mlstm = Kernel("mlstm_chunkwise", _ml.mlstm_chunkwise_plain, _ml.mlstm_chunkwise_cuda)
+_mlstm = Kernel("mlstm_chunkwise", _ml.mlstm_chunkwise_plain, _ml.mlstm_chunkwise_cuda,
+                grad=_ml.mlstm_chunkwise_grad)
 
 KERNELS = (_decode_layer, _logits, _chunk, _slstm, _decode_attn, _fused_matmul, _group_rms,
            _mlstm, _attn_phase, _ffn_phase, _decode_attn_sh, _fused_matmul_sh)
@@ -162,7 +195,9 @@ def chunk_prefill_attention(q, k, v, offset, *, s_cache: int, pin: int = 0,
 def slstm_cell(pre, r, state, *, num_heads: int, alive=None, rows=None):
     """The sLSTM scan over S steps; state (c, n, h, m) updated in place.
     ``rows`` (M,) int32, when given, names the instance of r (M_r, ...)
-    each row reads.  Returns (hs (M, B, S, D), state)."""
+    each row reads.  Returns (hs (M, B, S, D), state).  Under autograd
+    the scan runs through ``slstm_cell.Scan``: the state passed in is not
+    written, and the new state comes back as new tensors."""
     return _slstm(pre, pre, r, state, num_heads=num_heads, alive=alive, rows=rows)
 
 
@@ -229,5 +264,6 @@ def group_rms_norm(x, scale, *, eps: float = 1e-5):
 
 def mlstm_chunkwise(q, k, v, lf, li, *, chunk: int = 64):
     """Chunkwise mLSTM from zero state over q, k, v (M, B, H, S, hd).
-    Returns (h, (C, n, m))."""
+    Returns (h, (C, n, m)); under autograd through
+    ``mlstm_chunk.Chunkwise``."""
     return _mlstm(q, q, k, v, lf, li, chunk=chunk)

@@ -164,6 +164,35 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
 
 
+def slstm_scan(pre, r, state, num_heads: int):
+    """The reference's sLSTM training math (``repro/models/ssm.py``,
+    ``slstm_block``'s step scan): pre (M, B, S, 4, D) upcast per step, r
+    (M, 4, H, hd, hd) in f32, state (c, n, h, m) each (M, B, D) with c, n,
+    m in f32 and h in its storage dtype, to which each step's h is
+    rounded.  Functional (nothing in place), so autograd differentiates
+    it.  Returns (hs (M, B, S, D) in h's dtype, the final state)."""
+    m, b, s, _, d = pre.shape
+    hd = d // num_heads
+    c, n, h, mst = state
+    c, n, mst, rf = c.float(), n.float(), mst.float(), r.float()
+    hs = []
+    for t in range(s):
+        rec = torch.einsum("mbhd,mghde->mbghe", h.float().reshape(m, b, num_heads, hd),
+                           rf).reshape(m, b, 4, d)
+        pre_t = pre[:, :, t].float()
+        zt, it, ft, ot = (pre_t[:, :, j] + rec[:, :, j] for j in range(4))
+        lf = log_sigmoid(ft)
+        mt = torch.maximum(lf + mst, it)
+        fp = torch.exp(lf + mst - mt)
+        ip = torch.exp(it - mt)
+        c = fp * c + ip * torch.tanh(zt)
+        n = fp * n + ip
+        h = (torch.sigmoid(ot) * c / torch.clamp(n, min=1e-6)).to(h.dtype)
+        mst = mt
+        hs.append(h)
+    return torch.stack(hs, dim=2), (c, n, h, mst)
+
+
 def _check_shapes(pre, r, state, num_heads, rows=None):
     m, b, s, four, d = pre.shape
     if four != 4 or d % num_heads:
@@ -185,30 +214,59 @@ def slstm_cell_plain(pre, r, state, *, num_heads: int, alive=None, rows=None):
     (M_r, 4, H, hd, hd) with ``rows`` (M,) int32 naming each row's
     instance; state (c, n, h, m) each (M, B, D): c/n/m f32, h in its
     storage dtype, updated in place.  Returns (hs (M, B, S, D) in h's
-    dtype, state)."""
-    m, b, s, d, hd = _check_shapes(pre, r, state, num_heads, rows)
-    c0, n0, h0, m0 = state
-    rf = (r if rows is None else r.index_select(0, rows.long())).float()
-    c, n, h, mst = c0.float(), n0.float(), h0, m0.float()
-    hs = torch.empty((m, b, s, d), dtype=h0.dtype, device=pre.device)
-    for t in range(s):
-        hh = h.float().reshape(m, b, num_heads, hd)
-        rec = torch.einsum("mbhd,mghde->mbghe", hh, rf).reshape(m, b, 4, d)
-        pre_t = pre[:, :, t].float()
-        zt, it, ft, ot = (pre_t[:, :, j] + rec[:, :, j] for j in range(4))
-        lf = log_sigmoid(ft)
-        mt = torch.maximum(lf + mst, it)
-        fp = torch.exp(lf + mst - mt)
-        ip = torch.exp(it - mt)
-        c = fp * c + ip * torch.tanh(zt)
-        n = fp * n + ip
-        h = (torch.sigmoid(ot) * c / torch.clamp(n, min=1e-6)).to(h0.dtype)
-        mst = mt
-        hs[:, :, t] = h
+    dtype, state).  The scan is :func:`slstm_scan`."""
+    _check_shapes(pre, r, state, num_heads, rows)
+    rr = r if rows is None else r.index_select(0, rows.long())
+    hs, new = slstm_scan(pre, rr, state, num_heads)
     keep = None if alive is None else alive[..., None]
-    for dst, new in zip(state, (c, n, h, mst)):
-        dst.copy_(new if keep is None else torch.where(keep, new.to(dst.dtype), dst))
+    for dst, t in zip(state, new):
+        dst.copy_(t if keep is None else torch.where(keep, t.to(dst.dtype), dst))
     return hs, state
+
+
+class Scan(torch.autograd.Function):
+    """The sLSTM scan under autograd.
+
+    ``forward`` runs ``fwd`` (the kernel's launcher on the card; a test
+    may pass the plain version) into freshly allocated copies of the
+    initial state, which it returns.  ``backward`` recomputes the
+    reference's training math (:func:`slstm_scan`, the step scan
+    with h rounded to its dtype each step) and differentiates it; no
+    backward kernel is written, as the reference has none.  Gradients
+    reach pre, r and the initial state."""
+
+    @staticmethod
+    def forward(ctx, fwd, num_heads, pre, r, c, n, h, m):
+        ctx.set_materialize_grads(False)
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(pre, r, c, n, h, m)
+        state = tuple(t.clone(memory_format=torch.contiguous_format) for t in (c, n, h, m))
+        hs, _ = fwd(pre, r, state, num_heads=num_heads)
+        return (hs,) + state
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[2:]
+        ins = [t.detach().requires_grad_(q) for t, q in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            hs, state = slstm_scan(ins[0], ins[1], tuple(ins[2:]), ctx.num_heads)
+            pairs = [(o, g) for o, g in zip((hs,) + state, grads) if g is not None]
+            wrt = [t for t, q in zip(ins, need) if q]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wrt, [g for _, g in pairs],
+                                           allow_unused=True) if pairs and wrt else ())
+        return (None, None) + tuple(next(got, None) if q else None for q in need)
+
+
+def slstm_cell_grad(fwd, pre, r, state, *, num_heads: int, alive=None, rows=None):
+    """``fwd`` (same contract as the plain version) under :class:`Scan`:
+    the initial state is not written; the new state comes back as new
+    tensors.  Training has no frozen lanes and no per-lane instances, so
+    ``alive`` and ``rows`` are refused."""
+    if alive is not None or rows is not None:
+        raise NotImplementedError("slstm_cell under autograd takes no alive / rows")
+    _check_shapes(pre, r, state, num_heads)
+    hs, *new = Scan.apply(fwd, num_heads, pre, r, *state)
+    return hs, tuple(new)
 
 
 def slstm_cell_cuda(pre, r, state, *, num_heads: int, alive=None, rows=None):

@@ -173,10 +173,16 @@ class MergedParams(nn.Module):
     Subscripting mirrors the reference's tree (``params["layers"]["wq"]``,
     ``params["mlstm_runs"][0]["w_up"]``; lists and ``None`` entries as in
     the ssm tree), so the model math is written once over plain tensors.
-    Nothing in serving needs a gradient."""
 
-    def __init__(self, tree: dict):
+    Serving builds it with ``trainable=False``: no leaf needs a gradient.
+    Training builds it with ``trainable=True`` (:func:`training_params`):
+    every leaf requires a gradient and is a master weight in
+    ``param_dtype``; ``layers.linear`` casts a weight to the activation
+    dtype at each call, as the reference does."""
+
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
+        self.trainable = trainable
         for name, leaf in tree.items():
             self._add(name, leaf)
 
@@ -184,11 +190,11 @@ class MergedParams(nn.Module):
         if leaf is None or isinstance(leaf, MergedParams):
             self.add_module(name, leaf)
         elif isinstance(leaf, dict):
-            self.add_module(name, MergedParams(leaf))
+            self.add_module(name, MergedParams(leaf, self.trainable))
         elif isinstance(leaf, list):
-            self.add_module(name, MergedList(leaf))
+            self.add_module(name, MergedList(leaf, self.trainable))
         else:
-            self.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(leaf, requires_grad=self.trainable))
 
     def __getitem__(self, name: str):
         if name in self._parameters:
@@ -204,18 +210,19 @@ class MergedParams(nn.Module):
     def get(self, name: str, default=None):
         return self[name] if name in self else default
 
-    def tree(self) -> dict:
-        """Plain nested dict of the parameter tensors."""
-        out: dict[str, Any] = {k: v.data for k, v in self._parameters.items()}
-        out.update({k: None if m is None else m.tree() for k, m in self._modules.items()})
+    def tree(self, field: str = "data") -> dict:
+        """Plain nested dict of the parameter tensors (``field="grad"``:
+        of their gradients, ``None`` where a leaf has none)."""
+        out: dict[str, Any] = {k: getattr(v, field) for k, v in self._parameters.items()}
+        out.update({k: None if m is None else m.tree(field) for k, m in self._modules.items()})
         return out
 
 
 class MergedList(MergedParams):
     """A list node of the parameter tree (entries may be ``None``)."""
 
-    def __init__(self, items: list):
-        super().__init__({str(i): v for i, v in enumerate(items)})
+    def __init__(self, items: list, trainable: bool = False):
+        super().__init__({str(i): v for i, v in enumerate(items)}, trainable)
 
     def __getitem__(self, i: int):
         return super().__getitem__(str(i))
@@ -226,9 +233,19 @@ class MergedList(MergedParams):
     def __iter__(self):
         return (self[i] for i in range(len(self)))
 
-    def tree(self) -> list:
-        t = super().tree()
+    def tree(self, field: str = "data") -> list:
+        t = super().tree(field)
         return [t[str(i)] for i in range(len(self))]
+
+
+def training_params(cfg, tree) -> MergedParams:
+    """The trainable form of a merged model: every leaf of ``tree`` (a
+    parameter tree or a ``MergedParams``) in ``cfg.param_dtype``, requiring
+    a gradient.  A leaf already in that dtype is taken as it is, not
+    copied."""
+    dtype = getattr(torch, cfg.param_dtype)
+    return MergedParams(_map_params(lambda l, ax: l.detach().to(dtype), _as_tree(tree)),
+                        trainable=True)
 
 
 def _as_tree(params) -> dict:
@@ -317,6 +334,7 @@ def gather_instances(params, idx) -> MergedParams:
 
 
 def _leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a tree of dicts, lists and tuples, in order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
     if tree is None:

@@ -8,6 +8,10 @@ through ``kernels/ops.py`` (the Hopper kernels on CUDA tensors, their
 plain versions on CPU tensors); the other matrix products are
 ``torch.matmul``, as the reference leaves them to XLA.
 
+Training and a prefill from scratch (``forward``, ``prefill``) run the
+whole sequence through ``seq_block``, whose attention is the reference's
+XLA ``flash_attention`` (``layers.flash_attention_plain``; no kernel).
+
 Caches are updated in place.
 
 Tensor parallelism: with a ``TensorParallel`` handle ``tp`` the params
@@ -29,7 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models import shardings as S
-from repro_torch.models.common import Factory, MergedParams
+from repro_torch.models.common import Factory, MergedParams, training_params
 from repro_torch.models.layers import KVCache
 
 # layer leaves stored in cfg.dtype (``layers.linear`` casts them to the
@@ -91,14 +95,16 @@ def build_params(cfg: ModelConfig, f: Factory) -> dict:
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None,
-         device: torch.device) -> MergedParams:
+         device: torch.device, *, train: bool = False) -> MergedParams:
     """Random parameters with the reference's distributions, drawn from
-    ``generator`` (on ``device``), in the port's storage dtypes.
+    ``generator`` (on ``device``), in the port's storage dtypes; with
+    ``train``, the trainable form (``common.training_params``).
 
     The fan-in of a layer-stacked (L, M, D, F) leaf is D, as in the
     reference, which draws each layer's (M, D, F) leaf separately."""
     f = Factory(generator, torch_dtype(cfg.param_dtype), torch.device(device))
-    return MergedParams(storage_dtypes(cfg, build_params(cfg, f)))
+    tree = build_params(cfg, f)
+    return training_params(cfg, tree) if train else MergedParams(storage_dtypes(cfg, tree))
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +131,75 @@ def _head(cfg, params, vtp=None):
 
 def _embed_in(cfg, params, tokens, instances=None):
     return L.embed(tokens, params["embed"], torch_dtype(cfg.dtype), instances)
+
+
+def _positions(tokens):
+    m, b, s = tokens.shape
+    return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(m, b, s)
+
+
+def seq_block(cfg: ModelConfig, lp, x, positions, cos, sin, *, window: int = 0):
+    """One block over a whole sequence x (M, B, S, D) (training and a
+    prefill from scratch): rms -> QKV (+bias) -> RoPE -> causal attention
+    with the reference's positional mask (``layers.flash_attention_plain``,
+    its XLA ``flash_attention``; no kernel) -> out-proj + residual -> SwiGLU
+    + residual.  Returns (x, k, v) with the rotated k and v of the
+    sequence."""
+    m, b, s, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = L.linear(n, lp["wq"], lp.get("bq")).reshape(m, b, s, h, hd)
+    k = L.linear(n, lp["wk"], lp.get("bk")).reshape(m, b, s, kvh, hd)
+    v = L.linear(n, lp["wv"], lp.get("bv")).reshape(m, b, s, kvh, hd)
+    q, k = L.rope_apply(q, cos, sin), L.rope_apply(k, cos, sin)
+    o = L.flash_attention_plain(q, k, v, positions, positions, window=window)
+    x = x + L.linear(o.reshape(m, b, s, h * hd), lp["wo"])
+    nn_ = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + L.swiglu_mlp(nn_, lp["w_gate"], lp["w_up"], lp["w_down"]), k, v
+
+
+def _logits(cfg: ModelConfig, params, x):
+    n = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(n, _head(cfg, params))
+
+
+def forward(cfg: ModelConfig, params, tokens, *, remat: bool = False):
+    """Whole-sequence forward (training): logits (M, B, S, V) f32.  With
+    ``remat`` each layer runs under activation checkpointing."""
+    x = _embed_in(cfg, params, tokens)
+    positions = _positions(tokens)
+    cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.dtype)
+    for i in range(cfg.num_layers):
+        x = L.remat(lambda xc, i=i: seq_block(cfg, _layer(params, i), xc, positions, cos, sin,
+                                              window=cfg.sliding_window)[0], remat)(x)
+    return _logits(cfg, params, x)
+
+
+def prefill(cfg: ModelConfig, params, tokens, *, cache_len: int | None = None):
+    """A whole prompt: (logits of the last position (M, B, V) f32, KVCache).
+
+    The cache is ``cache_len`` long (default: the window for a
+    sliding-window model, else the prompt length) and laid out
+    ring-consistently, so decode continues at pos = S: a longer cache
+    holds the prompt from slot 0, a shorter one (S a multiple of it) its
+    last ``cache_len`` positions."""
+    m, b, s = tokens.shape
+    window = cfg.sliding_window
+    cache_len = cache_len or (window if window else s)
+    if cache_len < s and s % cache_len:
+        raise ValueError(f"a prompt of {s} must be a multiple of the {cache_len}-slot ring")
+    act = torch_dtype(cfg.dtype)
+    x = _embed_in(cfg, params, tokens)
+    positions = _positions(tokens)
+    cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.dtype)
+    cache = L.make_kv_cache(cfg.num_layers, m, b, cache_len, cfg.num_kv_heads, cfg.head_dim,
+                            act, x.device)
+    keep = min(s, cache_len)
+    for i in range(cfg.num_layers):
+        x, k, v = seq_block(cfg, _layer(params, i), x, positions, cos, sin, window=window)
+        cache.k[i, :, :, :keep] = k[:, :, s - keep:]
+        cache.v[i, :, :, :keep] = v[:, :, s - keep:]
+    return _logits(cfg, params, x[:, :, -1:])[:, :, 0], cache
 
 
 def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device,

@@ -11,8 +11,11 @@ a plain ring over the whole context for the global groups, a ring of
 ``R + window`` slots whose first R slots pin the meta tokens for the SWA
 groups.
 
-Serving only: ``prefill_chunk`` (chained chunks over the meta prefix and
-the prompt), ``decode_step`` and ``decode_step_sample``.  Attention of a
+Serving: ``prefill_chunk`` (chained chunks over the meta prefix and the
+prompt), ``decode_step`` and ``decode_step_sample``.  Training and a
+prefill from scratch: ``forward`` and ``prefill`` over the whole
+sequence, as the reference's, its XLA attention in
+``layers.flash_attention_plain`` (no kernel on either path).  Attention of a
 prefill chunk is the chunk-attention kernel (``pin``/``window``/``sink``
 per group); decode attention of every group is the decode-attention
 kernel over the ring's first min(pos + 1, S) slots (an SWA ring holds
@@ -49,7 +52,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models import shardings as S
-from repro_torch.models.common import Factory, MergedParams, tree_put_slot, tree_take_slot
+from repro_torch.models.common import (
+    Factory, MergedParams, training_params, tree_put_slot, tree_take_slot,
+)
 from repro_torch.models.layers import KVCache
 from repro_torch.models.ssm import _causal_conv, _lane_rows
 
@@ -171,11 +176,13 @@ def storage_dtypes(cfg: ModelConfig, tree: dict) -> dict:
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None,
-         device: torch.device) -> MergedParams:
+         device: torch.device, *, train: bool = False) -> MergedParams:
     """Random parameters with the reference's distributions, drawn from
-    ``generator`` (on ``device``), in the port's storage dtypes."""
+    ``generator`` (on ``device``), in the port's storage dtypes; with
+    ``train``, the trainable form (``common.training_params``)."""
     f = Factory(generator, torch_dtype(cfg.param_dtype), torch.device(device))
-    return MergedParams(storage_dtypes(cfg, build_params(cfg, f)))
+    tree = build_params(cfg, f)
+    return training_params(cfg, tree) if train else MergedParams(storage_dtypes(cfg, tree))
 
 
 # ---------------------------------------------------------------------------
@@ -291,27 +298,38 @@ def mamba_branch(cfg: ModelConfig, lp, xn, *, state=None, valid=None, groups=Non
 # ---------------------------------------------------------------------------
 
 
-def hymba_block(cfg: ModelConfig, lp, x, attend, ssm_state: dict, *, split: S.HybridSplit,
-                valid=None, groups=None):
-    """One hybrid block on x (M, B, S, D).  ``attend(xn)`` is the attention
-    branch (projections, cache write, attention, out-projection) of this
-    layer's cache; ``ssm_state`` {"h", "conv"} is updated in place.
-    ``split`` (``shardings.hybrid_split``) names the parts that split
-    over the ranks: each one's partial is summed before its norm."""
+def hymba_layer(cfg: ModelConfig, lp, x, attend, ssm_state: dict | None, *,
+                split: S.HybridSplit, valid=None, groups=None):
+    """One hybrid block on x (M, B, S, D), nothing written in place.
+    ``attend(xn)`` is the attention branch (projections, any cache write,
+    attention, out-projection); ``ssm_state`` {"h", "conv"} the mamba
+    state it starts from (None: zero).  ``split``
+    (``shardings.hybrid_split``) names the parts that split over the
+    ranks: each one's partial is summed before its norm.  Returns (x, the
+    new mamba state)."""
     eps = cfg.norm_eps
     xn = L.rms_norm_rowwise(x, lp["norm"], eps)
     attn_out = S.sum_over(split.heads, attend(xn))
     ssm_out, new = mamba_branch(cfg, lp, xn, state=ssm_state, valid=valid, groups=groups,
                                 tp=split.ssm)
     ssm_out = S.sum_over(split.ssm, ssm_out)
-    ssm_state["h"].copy_(new["h"])
-    ssm_state["conv"].copy_(new["conv"])
     fused = 0.5 * (L.rms_norm_rowwise(attn_out, lp["attn_out_norm"], eps)
                    + L.rms_norm_rowwise(ssm_out, lp["ssm_out_norm"], eps))
     x = x + fused
     nrm = L.rms_norm_rowwise(x, lp["mlp_norm"], eps)
     return x + S.sum_over(split.ffn, L.swiglu_mlp(nrm, lp["w_gate"], lp["w_up"],
-                                                  lp["w_down"], groups))
+                                                  lp["w_down"], groups)), new
+
+
+def hymba_block(cfg: ModelConfig, lp, x, attend, ssm_state: dict, *, split: S.HybridSplit,
+                valid=None, groups=None):
+    """:func:`hymba_layer` with ``ssm_state`` updated in place (serving);
+    returns x."""
+    x, new = hymba_layer(cfg, lp, x, attend, ssm_state, split=split, valid=valid,
+                         groups=groups)
+    ssm_state["h"].copy_(new["h"])
+    ssm_state["conv"].copy_(new["conv"])
+    return x
 
 
 def _qkv(cfg, lp, xn, cos, sin, groups=None):
@@ -524,3 +542,96 @@ def decode_step_sample(cfg: ModelConfig, params, cache, tokens, pos, *, alive=No
     tok = K.logits_sample_sharded(x[:, :, 0], params["final_norm"], params["lm_head"],
                                   tp=None, eps=cfg.norm_eps)
     return tok, cache
+
+
+# ---------------------------------------------------------------------------
+# whole-sequence entry points (training, a prefill from scratch)
+# ---------------------------------------------------------------------------
+
+
+def _seq_in(cfg: ModelConfig, params, tokens):
+    """The meta tokens then the prompt's embeddings, (M, B, R + S, D), with
+    their positions 0 .. R + S - 1 and RoPE tables."""
+    m, b, s = tokens.shape
+    act = torch_dtype(cfg.dtype)
+    x = L.embed(tokens, params["embed"], act)
+    meta = params["meta_tokens"][:, None].to(act).expand(m, b, NUM_META_TOKENS, x.shape[-1])
+    x = torch.cat([meta, x], dim=2)
+    positions = torch.arange(x.shape[2], dtype=torch.int32, device=x.device).expand(
+        m, b, x.shape[2])
+    cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, act)
+    return x, positions, cos, sin
+
+
+def _seq_attend(cfg: ModelConfig, lp, positions, cos, sin, window: int, kv=None):
+    """The attention branch over a whole sequence: causal, the layer's
+    window with the meta tokens as sinks (``layers.flash_attention_plain``,
+    the reference's XLA ``flash_attention``; no kernel).  Appends the
+    rotated k, v to ``kv`` when given."""
+    def attend(xn):
+        m, b, s, _ = xn.shape
+        q, k, v = _qkv(cfg, lp, xn, cos, sin)
+        if kv is not None:
+            kv.extend((k, v))
+        o = L.flash_attention_plain(q, k, v, positions, positions, window=window,
+                                    sink=NUM_META_TOKENS)
+        return L.linear(o.reshape(m, b, s, -1), lp["wo"])
+    return attend
+
+
+def _window(cfg: ModelConfig, i: int) -> int:
+    return GLOBAL_WINDOW if i in global_layers(cfg) else swa_window(cfg)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, remat: bool = False):
+    """Whole-sequence forward (training): logits (M, B, S, V) f32 over the
+    prompt's positions (the meta tokens' are dropped).  With ``remat``
+    each layer runs under activation checkpointing."""
+    x, positions, cos, sin = _seq_in(cfg, params, tokens)
+    split = S.hybrid_split(cfg, None)
+    for i in range(cfg.num_layers):
+        def layer(xc, i=i):
+            lp = _layer(params, i)
+            attend = _seq_attend(cfg, lp, positions, cos, sin, _window(cfg, i))
+            return hymba_layer(cfg, lp, xc, attend, None, split=split)[0]
+        x = L.remat(layer, remat)(x)
+    n = L.rms_norm_rowwise(x[:, :, NUM_META_TOKENS:], params["final_norm"], cfg.norm_eps)
+    return L.unembed(n, params["lm_head"])
+
+
+def prefill(cfg: ModelConfig, params, tokens):
+    """A whole prompt from scratch: (logits of the last position (M, B, V)
+    f32, the decode cache).  Layer by layer, each layer's k, v go into its
+    group's cache: a global group's holds positions 0 .. R + S - 1 from
+    slot 0; an SWA group's pins the R meta tokens and keeps the prompt's
+    last ring-width positions at their ring slots.  The cache's context is
+    max(R + S, R + window), so decode continues at pos = R + S."""
+    m, b, s = tokens.shape
+    r, w = NUM_META_TOKENS, swa_window(cfg)
+    x, positions, cos, sin = _seq_in(cfg, params, tokens)
+    st = x.shape[2]
+    cache = make_cache(cfg, m, b, max(st, r + w), x.device)
+    split = S.hybrid_split(cfg, None)
+    for gi, (i0, i1, is_global) in enumerate(decode_groups(cfg)):
+        ck_g, cv_g = cache["kv"][gi]
+        for li in range(i0, i1):
+            lp = _layer(params, li)
+            kv = []
+            x, new = hymba_layer(cfg, lp, x, _seq_attend(cfg, lp, positions, cos, sin,
+                                                         _window(cfg, li), kv),
+                                 None, split=split)
+            cache["ssm"]["h"][li] = new["h"]
+            cache["ssm"]["conv"][li] = new["conv"]
+            for dst, t in zip((ck_g[li - i0], cv_g[li - i0]), kv):
+                if is_global:
+                    dst[:, :, :st] = t
+                    continue
+                ring = dst.shape[2] - r
+                dst[:, :, :r] = t[:, :, :r]
+                if st - r <= ring:
+                    dst[:, :, r:st] = t[:, :, r:]
+                else:
+                    # the last ``ring`` positions, rotated to their ring slots
+                    dst[:, :, r:] = torch.roll(t[:, :, st - ring:], (st - r) % ring, dims=2)
+    n = L.rms_norm_rowwise(x[:, :, -1:], params["final_norm"], cfg.norm_eps)
+    return L.unembed(n, params["lm_head"])[:, :, 0], cache

@@ -318,3 +318,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pv = torch.einsum("mbkgqc,mbckd->mbkgqd", p.to(v.dtype).float(), v.float())
     o = pv / torch.clamp(l, min=1e-30)[..., None]
     return o.permute(0, 1, 4, 2, 3, 5).reshape(m, b, sq, h, hd).to(q.dtype)
+
+
+def remat(fn, on: bool):
+    """``fn``, or with ``on`` ``fn`` under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant): its activations are
+    recomputed in the backward pass instead of saved, the reference's
+    ``jax.checkpoint`` with ``nothing_saveable`` around one layer.  Casts
+    of f32 master weights to the activation dtype inside ``fn`` are
+    recomputed too, so no bf16 copy of a weight is held."""
+    if not on:
+        return fn
+    from torch.utils.checkpoint import checkpoint
+
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)

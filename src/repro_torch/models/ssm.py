@@ -5,14 +5,23 @@ Layer layout: layer i is an sLSTM block when
 layers are stacked on a leading L axis.  Parameters carry a leading
 instances axis M, activations are (M, B, S, D).
 
-The mLSTM is plain PyTorch, as the reference serves it through its XLA
-path: the chunkwise-parallel ``mlstm_sequence`` for a prefill chunk and
-the single-step ``mlstm_step`` for decode.  Every sLSTM block runs its
-recurrent scan through ``kernels/ops.slstm_cell`` (the Hopper kernel on
-CUDA tensors, its plain version on CPU tensors), in each prefill chunk
-and each decode step; greedy decode ends in the fused logits kernel.
+Serving: the mLSTM is plain PyTorch, as the reference serves it through
+its XLA path: the chunkwise-parallel ``mlstm_sequence`` for a prefill
+chunk and the single-step ``mlstm_step`` for decode.  Every sLSTM block
+runs its recurrent scan through ``kernels/ops.slstm_cell`` (the Hopper
+kernel on CUDA tensors, its plain version on CPU tensors), in each
+prefill chunk and each decode step; greedy decode ends in the fused
+logits kernel.
 
-The recurrent state is updated in place.  ``valid`` (M, B, S) marks the
+Training and a prefill from scratch (``forward``, ``prefill``): every
+block runs its whole-sequence form from a zero state, nothing in place;
+the mLSTM cell is ``ops.mlstm_chunkwise`` and the sLSTM scan
+``ops.slstm_cell``, both under autograd Functions whose backward
+differentiates the reference's training math (``mlstm_sequence``,
+``slstm_scan``, kept beside their kernels in ``kernels/mlstm_chunk`` and
+``kernels/slstm_cell``).
+
+The serving state is updated in place.  ``valid`` (M, B, S) marks the
 junk suffix of a padded final prefill chunk: junk steps get neutral gates
 in every cell, so the carried state equals the exact-length pass.
 ``alive`` (M, B) leaves the state of a stopped decode lane untouched.
@@ -29,10 +38,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
-from repro_torch.kernels.slstm_cell import log_sigmoid
+# the reference's training math lives beside the kernels it differentiates
+from repro_torch.kernels.mlstm_chunk import mlstm_sequence
+from repro_torch.kernels.slstm_cell import log_sigmoid, slstm_scan
 from repro_torch.models import layers as L
 from repro_torch.models.common import (
-    Factory, MergedParams, tree_put_slot, tree_take_slot,
+    Factory, MergedParams, training_params, tree_map, tree_put_slot, tree_take_slot,
 )
 
 NEG_INF = -1e30
@@ -152,68 +163,18 @@ def storage_dtypes(cfg: ModelConfig, tree: dict) -> dict:
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None,
-         device: torch.device) -> MergedParams:
+         device: torch.device, *, train: bool = False) -> MergedParams:
     """Random parameters with the reference's distributions, drawn from
-    ``generator`` (on ``device``), in the port's storage dtypes."""
+    ``generator`` (on ``device``), in the port's storage dtypes; with
+    ``train``, the trainable form (``common.training_params``)."""
     f = Factory(generator, torch_dtype(cfg.param_dtype), torch.device(device))
-    return MergedParams(storage_dtypes(cfg, build_params(cfg, f)))
+    tree = build_params(cfg, f)
+    return training_params(cfg, tree) if train else MergedParams(storage_dtypes(cfg, tree))
 
 
 # ---------------------------------------------------------------------------
 # mLSTM cell: chunkwise-parallel sequence form and single-step form
 # ---------------------------------------------------------------------------
-
-
-def _mlstm_chunk(carry, blk, hd: int):
-    """One chunk.  carry: (C (.., hd, hd), n (.., hd), m (..)) f32 with
-    leading dims (M, B, H); blk: q, k, v (M, B, H, Cs, hd) in their storage
-    dtype, lf, li (M, B, H, Cs) f32.  Contractions take storage-dtype
-    inputs and accumulate in f32, as the reference's
-    ``preferred_element_type`` does."""
-    C0, n0, m0 = carry
-    q, k, v, lf, li = blk
-    cs = q.shape[-2]
-    f32 = torch.float32
-    b = torch.cumsum(lf, dim=-1)
-    g = torch.cummax(li - b, dim=-1).values
-    mt = b + torch.maximum(m0[..., None], g)
-    a_inter = torch.exp(b + m0[..., None] - mt)
-    logD = li[..., None, :] - b[..., None, :] + b[..., :, None] - mt[..., None]
-    tri = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=q.device))
-    D = torch.where(tri, torch.exp(logD), torch.zeros((), dtype=f32, device=q.device))
-
-    qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
-    s_qk = (qf @ kf.transpose(-1, -2)) / math.sqrt(hd)
-    w = s_qk * D
-    num = w.to(v.dtype).to(f32) @ vf
-    num = num + a_inter[..., None] * (qf @ C0) / math.sqrt(hd)
-    den = w.sum(-1) + a_inter * (qf @ n0[..., None])[..., 0] / math.sqrt(hd)
-    h = num / torch.maximum(den.abs(), torch.exp(-mt))[..., None]
-
-    m_end = mt[..., -1]
-    w_end = torch.exp(li + b[..., -1:] - b - m_end[..., None])
-    decay0 = torch.exp(b[..., -1] + m0 - m_end)
-    kw = w_end.to(v.dtype).to(f32)[..., None] * kf
-    C_new = decay0[..., None, None] * C0 + kw.transpose(-1, -2) @ vf
-    n_new = decay0[..., None] * n0 + (w_end.to(k.dtype).to(f32)[..., None] * kf).sum(-2)
-    return (C_new, n_new, m_end), h.to(v.dtype)
-
-
-def mlstm_sequence(q, k, v, lf, li, state, *, chunk: int = 64):
-    """Chunkwise mLSTM continuing ``state`` = (C, n, m).  q, k, v
-    (M, B, H, S, hd); lf, li (M, B, H, S).  Returns (h (M, B, H, S, hd),
-    new state)."""
-    s, hd = q.shape[3], q.shape[4]
-    cs = min(chunk, s)
-    while s % cs:
-        cs -= 1
-    hs = []
-    for i in range(0, s, cs):
-        sl = slice(i, i + cs)
-        state, h = _mlstm_chunk(state, (q[..., sl, :], k[..., sl, :], v[..., sl, :],
-                                        lf[..., sl], li[..., sl]), hd)
-        hs.append(h)
-    return torch.cat(hs, dim=3), state
 
 
 def mlstm_step_(state, q, k, v, lf, li, alive=None):
@@ -302,20 +263,19 @@ def _head_norm(hs, h: int, eps: float):
 _MLSTM_MATMUL = ("w_up", "w_gates", "w_down")
 
 
-def mlstm_block(cfg: ModelConfig, lp, x, state: dict, *, chunk: int, valid=None,
-                groups=None, alive=None):
-    """x (M, B, S, D); state dict(C, n, m, conv) of this layer, updated in
-    place.  S > 1 runs the chunkwise form (a prefill chunk), S == 1 the
-    step form, as the reference.  Returns the block output."""
+def _mlstm_in(cfg: ModelConfig, lp, x, conv_state, valid=None, groups=None):
+    """The mLSTM block up to the cell: rms -> up-projection -> causal conv
+    over [``conv_state``, x] -> q, k, v and the gates.  Returns (q, k, v
+    (M, B, S, H, hd), lf, li (M, B, S, H) f32, z, the new conv window);
+    junk steps (``valid`` False) get neutral gates."""
     m, b, s, d = x.shape
     di, h = d_inner(cfg), cfg.num_heads
     hd = di // h
-    lp = _lane_rows(lp, groups, _MLSTM_MATMUL)
     xn = L.rms_norm_rowwise(x, lp["norm"], cfg.norm_eps)
     up = L.linear(xn, lp["w_up"], groups=groups)
     xi, z = up[..., :di], up[..., di:]
     nvalid = valid.sum(-1) if valid is not None else None
-    xc, new_conv = _causal_conv(xi, lp["conv_w"], lp["conv_b"], state["conv"], nvalid)
+    xc, new_conv = _causal_conv(xi, lp["conv_w"], lp["conv_b"], conv_state, nvalid)
     xc = F.silu(xc)
 
     q = _head_proj(xc.reshape(m, b, s, h, hd), lp["wq"])
@@ -328,9 +288,28 @@ def mlstm_block(cfg: ModelConfig, lp, x, state: dict, *, chunk: int, valid=None,
         vm = valid[..., None]
         li = torch.where(vm, li, torch.full_like(li, NEG_INF))
         lf = torch.where(vm, lf, torch.zeros_like(lf))
+    return q, k, v, lf, li, z, new_conv
 
+
+def _mlstm_out(cfg: ModelConfig, lp, x, hs, z, groups=None):
+    """The mLSTM block after the cell: hs (M, B, S, H, hd) -> head norm ->
+    output gate -> down-projection + residual."""
+    m, b, s, _ = x.shape
+    di = d_inner(cfg)
+    hs = _head_norm(hs.reshape(m, b, s, di).to(x.dtype), cfg.num_heads, cfg.norm_eps)
+    hs = hs * lp["out_norm"][:, None, None, :].to(hs.dtype)
+    return x + L.linear(hs * F.silu(z), lp["w_down"], groups=groups)
+
+
+def mlstm_block(cfg: ModelConfig, lp, x, state: dict, *, chunk: int, valid=None,
+                groups=None, alive=None):
+    """x (M, B, S, D); state dict(C, n, m, conv) of this layer, updated in
+    place.  S > 1 runs the chunkwise form (a prefill chunk), S == 1 the
+    step form, as the reference.  Returns the block output."""
+    lp = _lane_rows(lp, groups, _MLSTM_MATMUL)
+    q, k, v, lf, li, z, new_conv = _mlstm_in(cfg, lp, x, state["conv"], valid, groups)
     cell = (state["C"], state["n"], state["m"])
-    if s > 1:
+    if x.shape[2] > 1:
         tr = lambda t: t.transpose(2, 3)                           # (M,B,H,S,...)
         hseq, new_cell = mlstm_sequence(tr(q), tr(k), tr(v), tr(lf), tr(li), cell,
                                         chunk=chunk)
@@ -343,10 +322,21 @@ def mlstm_block(cfg: ModelConfig, lp, x, state: dict, *, chunk: int, valid=None,
     if alive is not None:
         new_conv = torch.where(alive[..., None, None], new_conv, state["conv"])
     state["conv"].copy_(new_conv)
+    return _mlstm_out(cfg, lp, x, hs, z, groups)
 
-    hs = _head_norm(hs.reshape(m, b, s, di).to(x.dtype), h, cfg.norm_eps)
-    hs = hs * lp["out_norm"][:, None, None, :].to(hs.dtype)
-    return x + L.linear(hs * F.silu(z), lp["w_down"], groups=groups)
+
+def mlstm_block_seq(cfg: ModelConfig, lp, x, *, chunk: int):
+    """The whole-sequence mLSTM block from a zero state (training, and a
+    prefill from scratch): the cell is ``ops.mlstm_chunkwise`` (on the
+    card the Hopper kernel, under autograd through its Function).  Nothing
+    is written in place.  Returns (output, the layer's new state dict)."""
+    m, b, _, _ = x.shape
+    conv0 = x.new_zeros(m, b, cfg.conv_kernel - 1, d_inner(cfg))
+    q, k, v, lf, li, z, conv = _mlstm_in(cfg, lp, x, conv0)
+    tr = lambda t: t.transpose(2, 3).contiguous()                  # (M,B,H,S,...)
+    hseq, (C, n, mm) = K.mlstm_chunkwise(tr(q), tr(k), tr(v), tr(lf), tr(li), chunk=chunk)
+    out = _mlstm_out(cfg, lp, x, hseq.transpose(2, 3), z)
+    return out, {"C": C, "n": n, "m": mm, "conv": conv}
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +344,24 @@ def mlstm_block(cfg: ModelConfig, lp, x, state: dict, *, chunk: int, valid=None,
 # ---------------------------------------------------------------------------
 
 _SLSTM_MATMUL = ("w_in", "w_ff_gate", "w_ff_up", "w_ff_down")
+
+
+def _slstm_pre(cfg: ModelConfig, lp, x, groups=None):
+    """The gate pre-activations (M, B, S, 4, D), in the storage dtype (the
+    cell computes in f32)."""
+    m, b, s, d = x.shape
+    xn = L.rms_norm_rowwise(x, lp["norm"], cfg.norm_eps)
+    return L.linear(xn, lp["w_in"], lp["b_in"], groups).reshape(m, b, s, 4, d)
+
+
+def _slstm_out(cfg: ModelConfig, lp, x, hs, groups=None):
+    """The sLSTM block after the cell: head norm + residual, then the
+    gated FFN."""
+    hs = _head_norm(hs, cfg.num_heads, cfg.norm_eps)
+    hs = hs * lp["out_norm"][:, None, None, :].to(hs.dtype)
+    x = x + hs
+    nrm = L.rms_norm_rowwise(x, lp["ffn_norm"], cfg.norm_eps)
+    return x + L.swiglu_mlp(nrm, lp["w_ff_gate"], lp["w_ff_up"], lp["w_ff_down"], groups)
 
 
 def slstm_block(cfg: ModelConfig, lp, x, state: dict, *, valid=None, groups=None,
@@ -364,32 +372,42 @@ def slstm_block(cfg: ModelConfig, lp, x, state: dict, *, valid=None, groups=None
     forget +1e30), which keep c, n and m; h, which every step emits, is
     re-taken at the last valid step afterwards."""
     m, b, s, d = x.shape
-    h_heads = cfg.num_heads
     # r stays the merged model's (M_w, ...) and the cell reads each lane's
     # instance through ``rows``: no per-lane copy of the recurrent weights
     lp = _lane_rows(lp, groups, _SLSTM_MATMUL + ("r",))
     rows = None if groups is None or groups.identity else groups.t32
-    xn = L.rms_norm_rowwise(x, lp["norm"], cfg.norm_eps)
-    # pre-activations stay in the storage dtype; the cell computes in f32
-    pre = L.linear(xn, lp["w_in"], lp["b_in"], groups).reshape(m, b, s, 4, d)
+    pre = _slstm_pre(cfg, lp, x, groups)
     st = (state["c"], state["n"], state["h"], state["m"])
     if valid is not None:
         neutral = torch.tensor([0.0, NEG_INF, -NEG_INF, 0.0], dtype=pre.dtype,
                                device=pre.device).reshape(1, 1, 1, 4, 1)
         pre = torch.where(valid[..., None, None], pre, neutral)
         h_in = state["h"].clone()
-    hs, _ = K.slstm_cell(pre, lp["r"], st, num_heads=h_heads, alive=alive, rows=rows)
+    hs, _ = K.slstm_cell(pre, lp["r"], st, num_heads=cfg.num_heads, alive=alive, rows=rows)
     if valid is not None:
         nv = valid.sum(-1)                                          # (M,B)
         idx = torch.clamp(nv - 1, 0, s - 1).long()[..., None, None].expand(m, b, 1, d)
         h_sel = torch.take_along_dim(hs, idx, dim=2)[:, :, 0]
         state["h"].copy_(torch.where((nv > 0)[..., None], h_sel, h_in))
+    return _slstm_out(cfg, lp, x, hs, groups)
 
-    hs = _head_norm(hs, h_heads, cfg.norm_eps)
-    hs = hs * lp["out_norm"][:, None, None, :].to(hs.dtype)
-    x = x + hs
-    nrm = L.rms_norm_rowwise(x, lp["ffn_norm"], cfg.norm_eps)
-    return x + L.swiglu_mlp(nrm, lp["w_ff_gate"], lp["w_ff_up"], lp["w_ff_down"], groups)
+
+def slstm_block_seq(cfg: ModelConfig, lp, x):
+    """The whole-sequence sLSTM block from a zero state: the scan is
+    ``ops.slstm_cell`` (on the card the Hopper kernel, under autograd
+    through its Function) into a fresh state.  Returns (output, the new
+    state dict)."""
+    pre = _slstm_pre(cfg, lp, x)
+    hs, st = K.slstm_cell(pre, lp["r"], _slstm_zero(cfg, x), num_heads=cfg.num_heads)
+    return _slstm_out(cfg, lp, x, hs), dict(zip(("c", "n", "h", "m"), st))
+
+
+def _slstm_zero(cfg: ModelConfig, x) -> tuple:
+    """A zero sLSTM state (c, n, h, m) for x's (M, B) lanes."""
+    m, b, _, d = x.shape
+    z = lambda dt: torch.zeros(m, b, d, dtype=dt, device=x.device)
+    return (z(torch.float32), z(torch.float32), z(x.dtype),
+            torch.full((m, b, d), NEG_INF, dtype=torch.float32, device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -415,8 +433,60 @@ def _trunk(cfg: ModelConfig, params, x, states: dict, *, valid=None, groups=None
     return x
 
 
+def _trunk_seq(cfg: ModelConfig, params, x, *, remat: bool = False, keep_state: bool = False):
+    """Every block over the whole sequence x (M, B, S, D) from a zero
+    state, nothing written in place; ``remat`` checkpoints each layer (the
+    reference's ``_trunk``).  Returns x, and with ``keep_state`` also the
+    final states in ``make_state``'s layout."""
+    runs = mlstm_runs(cfg)
+    states = {"mlstm_runs": [], "slstm": []}
+
+    def run(block, x):
+        # a layer's recompute under remat runs after the loop has moved on:
+        # ``block`` binds everything it reads
+        if keep_state:
+            return block(x)
+        return L.remat(lambda xc: block(xc)[0], remat)(x), None
+
+    for ri, n in enumerate(runs):
+        sts = []
+        for i in range(n):
+            x, st = run(lambda xc, run_p=params["mlstm_runs"][ri], i=i: mlstm_block_seq(
+                cfg, {k: run_p[k][i] for k in run_p.keys()}, xc, chunk=cfg.mlstm_chunk), x)
+            sts.append(st)
+        if keep_state:
+            states["mlstm_runs"].append(
+                {k: torch.stack([st[k] for st in sts]) for k in sts[0]} if n else None)
+        if ri < len(runs) - 1:
+            x, st = run(lambda xc, ri=ri: slstm_block_seq(cfg, params["slstm"][ri], xc), x)
+            states["slstm"].append(st)
+    return (x, states) if keep_state else x
+
+
 def _embed_in(cfg, params, tokens, instances=None):
     return L.embed(tokens, params["embed"], torch_dtype(cfg.dtype), instances)
+
+
+def forward(cfg: ModelConfig, params, tokens, *, remat: bool = False):
+    """Whole-sequence forward (training): logits (M, B, S, V) f32."""
+    x = _trunk_seq(cfg, params, _embed_in(cfg, params, tokens), remat=remat)
+    n = L.rms_norm_rowwise(x, params["final_norm"], cfg.norm_eps)
+    return L.unembed(n, params["lm_head"])
+
+
+def prefill(cfg: ModelConfig, params, tokens, *, state=None):
+    """A whole prompt: (last logits (M, B, V) f32, the recurrent states).
+    From scratch the blocks run their whole-sequence forms (the mLSTM and
+    sLSTM kernels from a zero state); a given ``state`` is continued
+    exactly by the chunk forms, on a copy of it."""
+    x = _embed_in(cfg, params, tokens)
+    if state is None:
+        x, states = _trunk_seq(cfg, params, x, keep_state=True)
+    else:
+        states = tree_map(torch.clone, state)
+        x = _trunk(cfg, params, x, states)
+    n = L.rms_norm_rowwise(x[:, :, -1:], params["final_norm"], cfg.norm_eps)
+    return L.unembed(n, params["lm_head"])[:, :, 0], states
 
 
 def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
