@@ -5,11 +5,14 @@
       --instances 2 --batch 1 --seq 256
   PYTHONPATH=src python benchmarks/torch_train_profile.py --arch tinyllama-1.1b \\
       --instances 2 --batch 2 --seq 512
+  PYTHONPATH=src python benchmarks/torch_train_profile.py --arch olmoe-1b-7b \\
+      --instances 2 --batch 1 --seq 512 --layers 4
   PYTHONPATH=src python benchmarks/torch_train_profile.py --arch xlstm-1.3b \\
       --smoke --device cpu            # a dry run on the CPU: no device numbers
 
 Builds the trainable merged model (f32 masters from a seed), takes
-``--warmup`` AdamW steps on one fixed ``SyntheticLM`` batch, then times
+``--warmup`` AdamW steps on one fixed batch of ``pipeline.make_batch``
+(vlm's patch embeddings and audio's frames with the tokens), then times
 ``--steps`` steps split into the loss (forward), ``backward`` and the
 AdamW update, each ended by a synchronise (host clock), and profiles one
 more step with ``torch.profiler``: the device busy time of that step,
@@ -82,8 +85,7 @@ def main(argv=None):
     if args.layers:
         cfg = cfg.with_(num_layers=args.layers)
     state = loop.init_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    batch = pipeline.SyntheticLM(cfg.vocab_size, cfg.num_instances, 0, dev).batch(
-        0, args.batch, args.seq)
+    batch = pipeline.make_batch(cfg, 0, args.batch, args.seq, device=dev)
     step_fn = loop.make_train_step(cfg, lr_schedule=constant(args.lr))
     for _ in range(args.warmup):
         state, _ = step_fn(state, batch)

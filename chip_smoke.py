@@ -152,14 +152,23 @@ non-zero before the result line is printed):
               finite and above 0, every parameter with a gradient, the
               mLSTM and sLSTM kernels (under their autograd Functions)
               twice a layer and step (forward and remat's recompute), no
-              other kernel; ms a step, tokens/s, peak memory; (c) one
+              other kernel; ms a step, tokens/s, peak memory; (g)
+              olmoe-1b-7b (4 of 16 layers; B=1, S=512; the merged matmul
+              under its autograd Function 12 times a layer and step, its
+              aux logged), internvl2-26b (1 of 48 layers; 256 patches +
+              256 tokens) and whisper-small (full depth; B=2, S=256, 1500
+              frames), the same gates, vlm and audio launching no kernel;
+              the Function's bf16 output, dx and dw at an olmoe expert
+              shape against the plain version's autograd; (c) one
               step's loss and gradients on the card against the CPU on
-              the f32 smoke configs of the three families; (d) instance
+              the f32 smoke configs of the six families; (d) instance
               isolation of M=3 fused training; (e) the training CLI at
               full tinyllama width with ``--save``, the checkpoint
               restored and served; (f) whole-sequence ``api.prefill``
               against the chunked path's last logits (bf16 at full
-              tinyllama width, first greedy tokens on the f32 smokes);
+              tinyllama width, first greedy tokens on the f32 smokes),
+              and for the moe, vlm and audio smokes its cache against the
+              chunked path's and 4 greedy steps from each;
 6. tp      -- tensor-parallel serving over 2 ranks, one process each, sharing
               the card (gloo): the full tinyllama-1.1b (M=4, 16 requests of
               16-512 tokens, 32 new, K=8) with every launch counter set to 0
@@ -337,9 +346,23 @@ RING_REPEATS = 400
 # the periphery phase's watchdog gate: a decode stall of PERIPHERY_STALL_S
 # under a watchdog of PERIPHERY_WATCHDOG_S
 PERIPHERY_STALL_S, PERIPHERY_WATCHDOG_S = 2.0, 0.5
-# the train phase's cells at full depth and width: (arch, M, B, S); AdamW
-# steps a cell, on one fixed batch, cosine schedule from this lr
-TRAIN_CELLS = (("tinyllama-1.1b", 2, 2, 512), ("xlstm-1.3b", 2, 1, 256))
+# the train phase's cells at full width: (arch, M, B, S, layers: None for
+# the full depth); AdamW steps a cell, on one fixed batch, cosine schedule
+# from this lr.  olmoe-1b-7b keeps 4 of its 16 layers (3.77 B parameters at
+# M=2, 60.3 GB of f32 master, gradient and two moments; all 16 would be
+# 221 GB) and internvl2-26b 1 of its 48 (3.09 B, 49.5 GB: its f32 embed and
+# head are 4.55 GB each, and two layers would be about 62 GB before AdamW's
+# temporaries), computed from the configs' shapes.  vlm's S counts the 256
+# patch positions and 256 tokens.
+TRAIN_CELLS = (("tinyllama-1.1b", 2, 2, 512, None), ("xlstm-1.3b", 2, 1, 256, None),
+               ("olmoe-1b-7b", 2, 1, 512, 4), ("internvl2-26b", 2, 1, 512, 1),
+               ("whisper-small", 2, 2, 256, None))
+# the merged matmul's launches a moe layer and train step: 3 products
+# forward, 3 again in remat's recompute, dx and dw of each in the backward
+MOE_TRAIN_LAUNCHES = 12
+# the merged matmul's Function at an olmoe-1b-7b train shape (M=2 x 64
+# experts, 80 rows a pair, D=2048, F=1024): x bf16, w the f32 master
+TRAIN_MATMUL = (128, 80, 2048, 1024)
 TRAIN_STEPS, TRAIN_LR = 4, 3e-5
 # one training step on the card against the CPU on f32 smoke configs: the
 # loss relative, every gradient leaf relative to its largest magnitude
@@ -3072,12 +3095,13 @@ def phase_graph(torch, dev):
 
 def train_cell(torch, dev, cfg, b, s, steps=TRAIN_STEPS, lr=TRAIN_LR):
     """``steps`` AdamW steps of ``train/loop.make_train_step`` (cosine
-    schedule, warm-up 1, remat per layer) on one fixed ``SyntheticLM``
-    batch of (M, b, s) tokens, the parameters f32 masters drawn from a
-    seed on the card.  Every launch counter is set to 0 just before the
-    steps and read just after.  Gates: every loss finite, the last below
-    the first, every grad norm finite and above 0, and no parameter left
-    without a gradient (``loop`` raises).  Returns (launches, the log)."""
+    schedule, warm-up 1, remat per layer) on one fixed batch of
+    ``pipeline.make_batch`` ((M, b, s) positions; vlm's patch embeddings,
+    audio's frames), the parameters f32 masters drawn from a seed on the
+    card.  Every launch counter is set to 0 just before the steps and read
+    just after.  Gates: every loss finite, the last below the first, every
+    grad norm finite and above 0, and no parameter left without a gradient
+    (``loop`` raises).  Returns (launches, the log)."""
     from repro_torch.data import pipeline
     from repro_torch.kernels import ops
     from repro_torch.optim import cosine_with_warmup
@@ -3087,11 +3111,11 @@ def train_cell(torch, dev, cfg, b, s, steps=TRAIN_STEPS, lr=TRAIN_LR):
     t0 = time.perf_counter()
     state = loop.init_state(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     n_params = sum(p.numel() for p in state.params.parameters())
-    batch = pipeline.SyntheticLM(cfg.vocab_size, cfg.num_instances, 0, dev).batch(0, b, s)
+    batch = pipeline.make_batch(cfg, 0, b, s, device=dev)
     step_fn = loop.make_train_step(cfg, lr_schedule=cosine_with_warmup(lr, 1, steps))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    losses, norms, ms = [], [], []
+    losses, norms, aux, ms = [], [], [], []
     ops.reset_launches()
     for _ in range(steps):
         t = time.perf_counter()
@@ -3100,13 +3124,16 @@ def train_cell(torch, dev, cfg, b, s, steps=TRAIN_STEPS, lr=TRAIN_LR):
         ms.append(1e3 * (time.perf_counter() - t))
         losses.append(float(met["loss"]))
         norms.append(float(met["grad_norm"]))
+        aux.append(float(met["aux"]))
     launches = ops.launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     finite = all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
     steady = sorted(ms[1:])[len(ms[1:]) // 2]
     out = dict(arch=cfg.name, instances=cfg.num_instances, layers=cfg.num_layers, batch=b,
                seq=s, params=n_params, losses=[round(x, 4) for x in losses],
-               grad_norms=[round(x, 3) for x in norms], first_step_ms=round(ms[0], 1),
+               grad_norms=[round(x, 3) for x in norms],
+               **({"aux": [round(x, 5) for x in aux]} if cfg.family == "moe" else {}),
+               first_step_ms=round(ms[0], 1),
                step_ms=round(steady, 1),
                tok_per_s=round(cfg.num_instances * b * s / steady * 1e3, 1),
                peak_gib=round(peak, 2), setup_s=round(setup_s, 1),
@@ -3120,6 +3147,40 @@ def train_cell(torch, dev, cfg, b, s, steps=TRAIN_STEPS, lr=TRAIN_LR):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, out
+
+
+def train_matmul_check(torch, dev):
+    """``fused_matmul.Merged`` on the card at TRAIN_MATMUL: x bf16, w the
+    f32 master.  The output, dx (bf16) and dw (f32, the master's gradient)
+    against autograd through the plain version on the same inputs, within
+    bf16's TOL; the Function's forward + backward and the plain version's
+    timed (CUDA events).  Its launches are not on the main path's count."""
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import ops
+
+    m, t, d, f = TRAIN_MATMUL
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn(m, t, d, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(m, d, f, generator=g, device=dev) * d ** -0.5
+    dy = torch.randn(m, t, f, generator=g, device=dev).to(torch.bfloat16)
+
+    def run(fwd):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fwd(xs, ws)
+        y.backward(dy)
+        return y.detach(), xs.grad, ws.grad
+
+    kernel = lambda a, b: fm.fused_matmul_grad(ops._fused_matmul.cuda, a, b)
+    got, want = run(kernel), run(fm.fused_matmul_plain)
+    errs = {n: rel_err(a, b) for n, a, b in zip(("y", "dx", "dw"), got, want)}
+    assert got[1].dtype == torch.bfloat16 and got[2].dtype == torch.float32
+    assert all(e <= TOL["bfloat16"] for e in errs.values()), errs
+    del got, want
+    ms = time_ms(torch, lambda: run(kernel), reps=5, warmup=1)
+    plain = time_ms(torch, lambda: run(fm.fused_matmul_plain), reps=5, warmup=1)
+    log("train", check="merged-matmul-function", shape=f"({m},{t},{d})@({m},{d},{f})",
+        x="bf16", w="f32 master", **{f"{n}_rel_err": f"{e:.2e}" for n, e in errs.items()},
+        fwd_bwd_ms=f"{ms:.4f}", plain_fwd_bwd_ms=f"{plain:.4f}")
 
 
 def _grads_of(torch, cfg, params, batch):
@@ -3140,9 +3201,14 @@ def phase_train(torch, dev):
     (b) xlstm-1.3b likewise at M=2, B=1, S=256: the mLSTM kernel 42 times
         and the sLSTM kernel 6 times a forward, each again in remat's
         recompute;
+    (g) olmoe-1b-7b at 4 of its 16 layers (M=2, B=1, S=512): the merged
+        matmul under ``fused_matmul.Merged`` MOE_TRAIN_LAUNCHES times a
+        layer and step; internvl2-26b at 1 of its 48 layers (M=2, B=1,
+        256 patches + 256 tokens) and whisper-small at full depth (M=2,
+        B=2, S=256), launching no kernel; then ``train_matmul_check``;
     (c) one step's loss and every gradient on the card (the kernels under
         their autograd Functions) against the CPU (plain versions) on the
-        f32 smoke configs of the three families, TF32 off;
+        f32 smoke configs of the six families, TF32 off;
     (d) instance isolation (``examples/train_merged.py``, AdamW's clip
         off): tinyllama-smoke f32 (V=64), M=3 trained fused for 10 steps
         at a constant lr of 1e-3; instance 0 against the same run with the
@@ -3157,8 +3223,11 @@ def phase_train(torch, dev):
         it) at the full tinyllama-1.1b width in bf16; on the f32 smoke
         configs of the three families (hymba's at 4 layers, its 40-token
         prompt longer than the SWA ring) the last logits and 4 greedy
-        decode steps continuing from each path's cache, tokens equal.
-    Returns the launches of (a) and (b) by path."""
+        decode steps continuing from each path's cache, tokens equal; on
+        the moe, vlm and audio smokes the whole prefill's cache against
+        the chunked path's over the whole prompt, then 4 greedy steps from
+        each, tokens equal.
+    Returns the launches of (a), (b) and (g) by path."""
     import pathlib
     import shutil
     import tempfile
@@ -3172,32 +3241,42 @@ def phase_train(torch, dev):
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import common as Cm
-    from repro_torch.models import hybrid, ssm
+    from repro_torch.models import hybrid, moe, ssm
     from repro_torch.optim import adamw, constant
     from repro_torch.serving import MultiModelServer
     from repro_torch.train import loop
 
     by_path = {}
-    # (a), (b): full depth and width
-    for arch, m, b, s in TRAIN_CELLS:
+    # (a), (b), (g): full width, full depth but where TRAIN_CELLS cuts it
+    for arch, m, b, s, layers in TRAIN_CELLS:
         cfg = registry.get_config(arch).with_(num_instances=m)
+        if layers:
+            cfg = cfg.with_(num_layers=layers)
         la, out = train_cell(torch, dev, cfg, b, s)
+        with_grad = ()
         if cfg.family == "ssm":
             n_s = len(ssm.mlstm_runs(cfg)) - 1
             n_m = cfg.num_layers - n_s
             # a forward, and remat's recompute of it in the backward
             assert la["mlstm_chunkwise"] == 2 * n_m * TRAIN_STEPS, la
             assert la["slstm_cell"] == 2 * n_s * TRAIN_STEPS, la
-        others = {k: v for k, v in la.items() if v and k not in ("mlstm_chunkwise", "slstm_cell")}
+            with_grad = ("mlstm_chunkwise", "slstm_cell")
+        if cfg.family == "moe":
+            # the experts' products under fused_matmul.Merged
+            assert la["fused_matmul"] == MOE_TRAIN_LAUNCHES * cfg.num_layers * TRAIN_STEPS, la
+            with_grad = ("fused_matmul",)
+        others = {k: v for k, v in la.items() if v and k not in with_grad}
         assert not others, f"{arch}: kernels without a backward launched in training: {others}"
         by_path[f"{arch}/train"] = la
+    train_matmul_check(torch, dev)
 
     # (c) the card against the CPU on f32 smoke configs
-    for arch in ("tinyllama-1.1b", "xlstm-1.3b", "hymba-1.5b"):
+    for arch in ("tinyllama-1.1b", "xlstm-1.3b", "hymba-1.5b", "olmoe-1b-7b", "internvl2-26b",
+                 "whisper-small"):
         small = registry.get_smoke_config(arch).with_(num_instances=2)
         cpu_p = api.init(small, torch.Generator().manual_seed(0), "cpu", train=True)
         dev_p = Cm.training_params(small, Cm.tree_map(lambda t: t.to(dev), cpu_p.tree()))
-        batch = pipeline.SyntheticLM(small.vocab_size, 2, seed=1).batch(0, 2, 32)
+        batch = pipeline.make_batch(small, 0, 2, 32, seed=1)
         l_cpu, g_cpu = _grads_of(torch, small, cpu_p, batch)
         ops.reset_launches()
         l_dev, g_dev = _grads_of(torch, small, dev_p, {k: v.to(dev) for k, v in batch.items()})
@@ -3208,6 +3287,8 @@ def phase_train(torch, dev):
         assert e_grad <= TRAIN_GRAD_TOL, (arch, e_grad)
         if small.family == "ssm":
             assert la.get("mlstm_chunkwise") and la.get("slstm_cell"), la
+        if small.family == "moe":
+            assert la.get("fused_matmul"), la
         log("train", check="card-vs-cpu", config=small.name, loss=f"{l_dev:.6f}",
             loss_rel_err=f"{e_loss:.2e}", grad_leaves=len(g_cpu),
             worst_grad_err=f"{e_grad:.2e}", launches=json.dumps(la).replace(" ", ""))
@@ -3297,17 +3378,36 @@ def phase_train(torch, dev):
         pos = torch.full((m, b), ctx.shape[2], dtype=torch.int32, device=d)
         return api.decode_step(cfg, params, carry["cache"], tok[:, :, -1:], pos)
 
-    def greedy(cfg, params, logits, cache, pos0, steps=4):
-        """``steps`` greedy decode steps from (logits, cache): tokens
-        (steps, M, B) and each step's logits."""
+    def greedy(cfg, params, cache, t, pos0, steps=4):
+        """``steps`` greedy decode steps from the token t (M, B) on
+        ``cache``: tokens (steps, M, B) and each step's logits."""
         toks, outs = [], []
         for k in range(steps):
-            t = logits.argmax(-1).to(torch.int32)
             toks.append(t)
             logits, cache = api.decode_step(cfg, params, cache, t[..., None],
                                             torch.full_like(t, pos0 + k))
             outs.append(logits)
+            t = logits.argmax(-1).to(torch.int32)
         return torch.stack(toks), outs
+
+    def chunked_cache(cfg, params, batch, d, cache_len):
+        """The cache of chunk calls of C positions over the whole prompt
+        (the learned prefix's positions first) with the family's stub
+        inputs in every call; moe routes at the whole prompt's capacity."""
+        tok = batch["tokens"]
+        m, b, n = tok.shape
+        pre = api.prefill_prefix_len(cfg)
+        ctx = torch.cat([torch.zeros(m, b, pre, dtype=tok.dtype, device=d), tok], dim=2)
+        carry = api.init_chunk_carry(cfg, m, b, cache_len, device=d)
+        extra = {k: batch[k] for k in ("image_embeds", "frames") if k in batch}
+        if cfg.family == "moe":
+            extra["moe_limit"] = torch.full((m, b), moe.capacity(cfg, n), dtype=torch.int32,
+                                            device=d)
+        for start in range(0, ctx.shape[2], C):
+            off = torch.full((m, b), start, dtype=torch.int32, device=d)
+            api.prefill_chunk(cfg, params, {"tokens": ctx[:, :, start:start + C], **extra},
+                              carry, off)
+        return carry["cache"]
 
     rng = np.random.default_rng(4)
     cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=2)
@@ -3336,13 +3436,42 @@ def phase_train(torch, dev):
             w, w_cache = api.prefill(small, p, {"tokens": t.to(dev)}, cache_len=cache_len)
             la = {k: v for k, v in ops.launches().items() if v}
             c_, c_cache = chunked(small, p, t.to(dev), dev, cache_len)
-            w_tok, w_out = greedy(small, p, w, w_cache, pre + n)
-            c_tok, c_out = greedy(small, p, c_, c_cache, pre + n)
+            w_tok, w_out = greedy(small, p, w_cache, w.argmax(-1).to(torch.int32), pre + n)
+            c_tok, c_out = greedy(small, p, c_cache, c_.argmax(-1).to(torch.int32), pre + n)
         e_last = rel_err(w, c_)
         e_dec = max(rel_err(a, b) for a, b in zip(w_out, c_out))
         assert e_last <= TOL["float32"] and e_dec <= TOL["float32"], (arch, e_last, e_dec)
         assert torch.equal(w_tok, c_tok), f"{arch}: greedy tokens after the prefill differ"
         smokes[small.name] = dict(layers=small.num_layers, last_rel_err=f"{e_last:.2e}",
+                                  decode_rel_err=f"{e_dec:.2e}", prefill_launches=la)
+    # moe, vlm and audio: the whole prefill's cache against the chunked
+    # path's over the whole prompt (moe routing at the whole prompt's
+    # capacity, vlm's patch positions first, audio's frames in every call),
+    # then 4 greedy steps from each cache from the whole prefill's token
+    for arch in ("olmoe-1b-7b", "internvl2-26b", "whisper-small"):
+        small = registry.get_smoke_config(arch).with_(num_instances=2)
+        n, pre = 40, api.prefill_prefix_len(small)
+        cache_len = pre + n + 8
+        p = api.init(small, torch.Generator().manual_seed(0), "cpu").to(dev)
+        batch = {k: v.to(dev) for k, v in
+                 pipeline.make_batch(small, 0, 2, pre + n, seed=4).items() if k != "labels"}
+        ops.reset_launches()
+        with torch.no_grad():
+            w, w_cache = api.prefill(small, p, batch, cache_len=cache_len)
+            la = {k: v for k, v in ops.launches().items() if v}
+            c_cache = chunked_cache(small, p, batch, dev, cache_len)
+            e_cache = max(rel_err(a, b) for a, b in zip(Cm._leaves(w_cache),
+                                                        Cm._leaves(c_cache)))
+            t0_ = w.argmax(-1).to(torch.int32)
+            w_tok, w_out = greedy(small, p, w_cache, t0_, pre + n)
+            c_tok, c_out = greedy(small, p, c_cache, t0_, pre + n)
+        e_dec = max(rel_err(a, b) for a, b in zip(w_out, c_out))
+        assert torch.isfinite(w).all() and e_cache <= TOL["float32"], (arch, e_cache)
+        assert e_dec <= TOL["float32"], (arch, e_dec)
+        assert torch.equal(w_tok, c_tok), f"{arch}: greedy tokens after the prefill differ"
+        if small.family == "moe":
+            assert la.get("fused_matmul"), la
+        smokes[small.name] = dict(layers=small.num_layers, cache_rel_err=f"{e_cache:.2e}",
                                   decode_rel_err=f"{e_dec:.2e}", prefill_launches=la)
     log("train", check="whole-prefill", config=cfg.name, prompt=256,
         bf16_rel_err=f"{e_bf16:.2e}", smoke_prompt=40, smoke_greedy_tokens="4 equal",
@@ -3700,15 +3829,24 @@ def new_time_rows(torch, dev, launches, moe_launches, mlstm_launches):
     # @ (1024, 1024) a lane and head at M=4 x B=4, 4 heads) and whisper's
     # prefill cross-attention over 1500 frames (4 lanes x 12 heads, chunk
     # 32: the scores, then P [V | 1])
-    for tag, shape in (("mlstm_step", (64, 1, 1024, 1024)), ("cross_scores", (48, C, 64, 1500)),
-                       ("cross_pv", (48, C, 1500, 65))):
+    # and the olmoe-1b-7b train cell's expert products (M=2 x 64 experts,
+    # 80 rows a pair at S=512): the forward x @ w and the backward's dx = dy
+    # @ w^T and dw = x^T @ dy as ``fused_matmul.Merged`` launches them (the
+    # transposed operand's contiguous copy is not in these times)
+    for tag, shape, dtype in (
+            ("mlstm_step", (64, 1, 1024, 1024), "float32"),
+            ("cross_scores", (48, C, 64, 1500), "float32"),
+            ("cross_pv", (48, C, 1500, 65), "float32"),
+            ("train_fwd", (128, 80, 2048, 1024), "bfloat16"),
+            ("train_dx", (128, 80, 1024, 2048), "bfloat16"),
+            ("train_dw", (128, 2048, 80, 1024), "bfloat16")):
         e_, e_ms, e_dev, _, e_lib, e_lib_dev, (e_bms, e_by) = matmul_time(
-            torch, dev, g, *shape, 2, dtype="float32")
+            torch, dev, g, *shape, 2, dtype=dtype)
         moe.update({f"{tag}_device_ms": e_dev, f"{tag}_ms": e_ms,
                     f"{tag}_library_device_ms": e_lib_dev, f"{tag}_bound_ms": e_bms,
                     f"{tag}_bound_by": e_by, f"{tag}_max_abs_err": e_})
         m_, t_, d_, f_ = shape
-        log("times", name="fused_matmul", shape=f"({m_},{t_},{d_})@({m_},{d_},{f_}) f32",
+        log("times", name="fused_matmul", shape=f"({m_},{t_},{d_})@({m_},{d_},{f_}) {dtype}",
             ms=f"{e_ms:.4f}", device_ms=f"{e_dev:.4f}", library_ms=f"{e_lib:.4f}",
             library_device_ms=f"{e_lib_dev:.4f}", bound_ms=f"{e_bms:.4f}",
             of_bound=f"{e_bms / e_dev:.1%}")

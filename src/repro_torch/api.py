@@ -3,10 +3,11 @@ hybrid, vlm and audio entries.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); with no device given and no card present they raise
-instead of carrying on on the CPU.  Families not ported yet raise.  The
-training and whole-sequence entries (``train_logits``, ``loss_fn``,
-``prefill``, ``init(..., train=True)``) take the dense, ssm and hybrid
-families.
+instead of carrying on on the CPU.  The training and whole-sequence
+entries (``train_logits``, ``loss_fn``, ``prefill``, ``init(...,
+train=True)``) take all six families, with the reference's batch layout:
+tokens and labels (M, B, S) int32; vlm adds ``image_embeds`` (M, B, P,
+vision_dim) (S counts the text), audio ``frames`` (M, B, F, D).
 
 ``tp`` (a ``models.common.TensorParallel``) runs an entry on this rank's
 shard under tensor parallelism; the dense, moe, hybrid and vlm families
@@ -69,7 +70,7 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
     """Random merged parameters (the reference's distributions) drawn from
     ``generator``, which must live on the target device.  ``train`` gives
     the trainable form (every leaf in ``param_dtype``, requiring a
-    gradient; dense, ssm and hybrid)."""
+    gradient)."""
     dev = resolve_device(device)
     if train:
         return _whole_sequence(cfg).init(cfg, generator, dev, train=True)
@@ -81,47 +82,61 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
 # ---------------------------------------------------------------------------
 
 # families whose whole-sequence forward and prefill are ported
-WHOLE_SEQUENCE = ("dense", "ssm", "hybrid")
+WHOLE_SEQUENCE = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _whole_sequence(cfg: ModelConfig):
     if cfg.family not in WHOLE_SEQUENCE:
         raise NotImplementedError(
-            f"the whole-sequence forward of the {cfg.family!r} family is not ported yet "
-            "(ROADMAP.md Queue 1: the whole-sequence moe, vlm and audio forwards)")
+            f"the whole-sequence forward of the {cfg.family!r} family is not ported")
     return _FAMILY[cfg.family]
 
 
 def train_logits(cfg: ModelConfig, params, batch, *, remat: bool | None = None):
     """Logits (M, B, S, V) f32 aligned with ``batch["labels"]`` (the next
-    tokens); ``remat`` defaults to ``cfg.remat``.  Batch layout: tokens
-    and labels (M, B, S) int32."""
+    tokens; vlm's text positions); for moe (logits, the router's aux
+    loss), as the reference returns them.  ``remat`` defaults to
+    ``cfg.remat``."""
     remat = cfg.remat if remat is None else remat
-    return _whole_sequence(cfg).forward(cfg, params, batch["tokens"], remat=remat)
+    fam, tok = _whole_sequence(cfg), batch["tokens"]
+    if cfg.family == "moe":
+        return fam.forward(cfg, params, tok, remat=remat, return_aux=True)
+    if cfg.family == "vlm":
+        return fam.text_logits(cfg, params, tok, batch["image_embeds"], remat=remat)
+    if cfg.family == "audio":
+        return fam.forward(cfg, params, tok, batch["frames"], remat=remat)
+    return fam.forward(cfg, params, tok, remat=remat)
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
     """Mean next-token cross-entropy over (M, B, S) from the f32
-    log-softmax: (loss, {"nll", "aux"}).  The families ported here have no
-    auxiliary loss (moe's router loss comes with its forward)."""
-    logits = train_logits(cfg, params, batch).float()
-    logp = torch.log_softmax(logits, dim=-1)
+    log-softmax, plus ``cfg.router_aux_loss`` times moe's aux (0 for the
+    other families): (loss, {"nll", "aux"})."""
+    out = train_logits(cfg, params, batch)
+    logits, aux = out if cfg.family == "moe" else (out, None)
+    logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     loss = nll.mean()
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + cfg.router_aux_loss * aux, {"nll": loss, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params, batch, *, cache_len: int | None = None):
     """A whole prompt from scratch, without a gradient: (last logits
     (M, B, V) f32, the decode cache or recurrent state).  ``cache_len``
-    sizes the dense KV cache; the ssm state is positionless and the
-    hybrid cache is sized by its window."""
-    fam = _whole_sequence(cfg)
+    sizes the KV cache (dense, moe, vlm) or the audio self ring; the ssm
+    state is positionless and the hybrid cache is sized by its window.
+    vlm reads ``batch["image_embeds"]``, audio ``batch["frames"]``."""
+    fam, tok = _whole_sequence(cfg), batch["tokens"]
     with torch.no_grad():
-        if cfg.family == "dense":
-            return fam.prefill(cfg, params, batch["tokens"], cache_len=cache_len)
-        return fam.prefill(cfg, params, batch["tokens"])
+        if cfg.family in ("dense", "moe"):
+            return fam.prefill(cfg, params, tok, cache_len=cache_len)
+        if cfg.family == "vlm":
+            return fam.prefill(cfg, params, tok, batch["image_embeds"], cache_len=cache_len)
+        if cfg.family == "audio":
+            return fam.prefill(cfg, params, tok, batch["frames"], cache_len=cache_len)
+        return fam.prefill(cfg, params, tok)
 
 
 def prefill_prefix_len(cfg: ModelConfig) -> int:

@@ -112,6 +112,55 @@ def fused_matmul_plain(x, w, b=None):
     return y.to(x.dtype)
 
 
+class Merged(torch.autograd.Function):
+    """The merged matmul under autograd (the MoE experts' products in
+    training).  ``forward`` runs ``fwd`` (the kernel's launcher on the
+    card, the plain version on the CPU); ``backward`` runs the same
+    ``fwd`` on the two merged products of the gradient:
+
+    * dx (M, T, D) = dy (M, T, F) @ w^T (M, F, D), w cast to x's dtype;
+    * dw (M, D, F) = x^T (M, D, T) @ dy, returned in w's dtype: the f32
+      master's gradient of the cast, as the reference's VJP of
+      ``einsum(..., w.astype(x.dtype))`` gives it;
+    * db (M, F) = the f32 sum of dy over T, in b's dtype.
+
+    The transposed operands are contiguous copies."""
+
+    @staticmethod
+    def forward(ctx, fwd, x, w, b):
+        ctx.fwd = fwd
+        ctx.save_for_backward(x, w, b)
+        return fwd(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[1:]
+        dy = _dense(dy, x.dtype)
+        dx = dw = db = None
+        if need_x:
+            dx = ctx.fwd(dy, _dense(w.transpose(1, 2), x.dtype))
+        if need_w:
+            dw = ctx.fwd(_dense(x.transpose(1, 2), x.dtype), dy).to(w.dtype)
+        if need_b:
+            db = dy.float().sum(1).to(b.dtype)
+        return None, dx, dw, db
+
+
+def _dense(t, dtype):
+    """``t`` as a contiguous tensor of ``dtype``, cast and laid out in one
+    copy (``t`` itself where it is one already)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return torch.empty(t.shape, dtype=dtype, device=t.device).copy_(t)
+
+
+def fused_matmul_grad(fwd, x, w, b=None):
+    """``fwd`` (same contract as the plain version) under :class:`Merged`."""
+    _check(x, w, b)
+    return Merged.apply(fwd, x, w, b)
+
+
 def fused_matmul_cuda(x, w, b=None):
     """The Hopper kernel: same contract as the plain version; x and w
     contiguous CUDA tensors of float32 or bfloat16 (w is cast to x's dtype

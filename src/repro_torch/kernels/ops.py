@@ -50,9 +50,11 @@ class Kernel:
     kernel with a ``grad`` form runs through it: ``grad(fwd, *args)``
     wraps the forward callable of the device (the kernel's launch, or the
     plain version on the CPU) in a ``torch.autograd.Function`` whose
-    backward differentiates the reference's math.  A CUDA launch of a
-    kernel without one raises there: its output would carry no
-    ``grad_fn``, and the parameters upstream would silently get no
+    backward differentiates the reference's math (the recurrent kernels)
+    or calls the same callable on the gradient's products (the merged
+    matmul, whose backward launches count as its forward's do).  A CUDA
+    launch of a kernel without one raises there: its output would carry
+    no ``grad_fn``, and the parameters upstream would silently get no
     gradient.  On the CPU the plain version is differentiable as it is."""
 
     def __init__(self, name: str, plain, cuda, grad=None):
@@ -96,7 +98,8 @@ _decode_attn = Kernel("decode_attention", _da.decode_attention_plain,
 _decode_attn_sh = Kernel("decode_attention_sharded", _da.decode_attention_plain,
                          _da.decode_attention_cuda)
 
-_fused_matmul = Kernel("fused_matmul", _fm.fused_matmul_plain, _fm.fused_matmul_cuda)
+_fused_matmul = Kernel("fused_matmul", _fm.fused_matmul_plain, _fm.fused_matmul_cuda,
+                       grad=_fm.fused_matmul_grad)
 _fused_matmul_sh = Kernel("fused_matmul_sharded", _fm.fused_matmul_plain,
                           _fm.fused_matmul_cuda)
 _group_rms = Kernel("group_rms_norm", _gn.group_rms_norm_plain, _gn.group_rms_norm_cuda)
@@ -241,7 +244,9 @@ def decode_attention_sharded(q, k, v, kv_len, *, plan, tp, num_kv_heads: int):
 
 def fused_matmul(x, w, b=None):
     """The NetFuse merged matmul x (M, T, D) @ w (M, D, F) [+ b (M, F)],
-    f32 sums, in x's dtype."""
+    f32 sums, in x's dtype; under autograd through
+    ``fused_matmul.Merged``, whose backward launches the kernel twice (dx
+    and dw)."""
     return _fused_matmul(x, x, w, b)
 
 

@@ -6,8 +6,11 @@ unless ``--device cpu`` is given.
       --smoke --device cpu --steps 100 --batch 4 --seq 64
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b \\
       --num-instances 2 --steps 4 --batch 1 --seq 256
+  PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+      --smoke --device cpu --num-instances 2 --steps 3 --batch 2 --seq 16
 
-The dense, ssm and hybrid families train; the others raise.  ``--save
+All six families train (moe adds its router's aux loss; vlm's batches
+carry stub patch embeddings, audio's stub frames).  ``--save
 DIR`` writes the trained merged model with ``checkpoint/store.save`` in
 the reference's format (the JAX package's ``checkpoint.restore`` reads
 it).  ``--mesh`` (data-parallel training) is not ported yet and raises.

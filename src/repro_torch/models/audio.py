@@ -33,6 +33,14 @@ Norms reduce each row on its own (``layers.layer_norm_rowwise``), so a
 lane's decode does not depend on how many rows share the call.  Caches
 are updated in place; ``alive`` (M, B) leaves a stopped lane's ring
 untouched.  One device only: ``api`` raises under a mesh.
+
+Training and a prefill from scratch (``forward``, ``decode_full``,
+``prefill``) take the reference's XLA form: the encoder
+(:func:`encode_seq`), the decoder's causal self-attention and its
+cross-attention all run ``layers.flash_attention_plain`` (the encoder
+and the cross-attention with ``causal=False``), so no kernel is reached
+under a gradient.  The serving :func:`encode` and :func:`prefill_chunk`
+keep the kernels.
 """
 from __future__ import annotations
 
@@ -45,7 +53,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
-from repro_torch.models.common import MergedParams, draw_leaf
+from repro_torch.models.common import MergedParams, draw_leaf, training_params
 from repro_torch.models.layers import KVCache
 from repro_torch.models.ssm import _lane_rows
 
@@ -118,22 +126,26 @@ def storage_dtypes(cfg: ModelConfig, tree: dict) -> dict:
                 else leaf.to(par)) for g, leaf in tree.items()}
 
 
-def init(cfg: ModelConfig, generator, device: torch.device) -> MergedParams:
+def init(cfg: ModelConfig, generator, device: torch.device, *,
+         train: bool = False) -> MergedParams:
     """Random parameters with the reference's distributions, in the
     port's storage dtypes, on ``device``, each leaf drawn a layer at a
     time (``common.draw_leaf``).  ``generator``: one ``torch.Generator``
     or a list of M, one an instance (the model then equals M one-instance
-    draws merged, bit for bit, written in place)."""
+    draws merged, bit for bit, written in place).  ``train`` gives the
+    trainable form (every leaf drawn in param_dtype, requiring a
+    gradient: ``common.training_params``)."""
     dev, par = torch.device(device), torch_dtype(cfg.param_dtype)
     tree = {}
     for group, leaf in _shapes(cfg).items():
         if group in LAYER_GROUPS:
-            tree[group] = {k: draw_leaf(k, shape, init_, _dtype(cfg, k), True, generator, dev,
-                                        par) for k, (shape, init_) in leaf.items()}
+            tree[group] = {k: draw_leaf(k, shape, init_, par if train else _dtype(cfg, k), True,
+                                        generator, dev, par)
+                           for k, (shape, init_) in leaf.items()}
         else:
             shape, init_ = leaf
             tree[group] = draw_leaf(group, shape, init_, par, False, generator, dev, par)
-    return MergedParams(tree)
+    return training_params(cfg, tree) if train else MergedParams(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -187,21 +199,41 @@ def _out(x, o, p, prefix, groups):
 # ---------------------------------------------------------------------------
 
 
+def _bidirectional(q, k, v):
+    """Every query over every key (positions 0 .. from both sides, no
+    mask): the reference's ``flash_attention(..., causal=False)`` in its
+    XLA form."""
+    m, b, sq = q.shape[:3]
+    pos = lambda n: torch.arange(n, dtype=torch.int32, device=q.device).expand(m, b, n)
+    return L.flash_attention_plain(q, k, v, pos(sq), pos(k.shape[2]), causal=False)
+
+
 def encode(cfg: ModelConfig, params, frame_embeds, groups: L.LaneGroups | None = None):
     """frame_embeds (M, B, F, D) stub conv features -> encoder states (M,
     B, F, D) in cfg.dtype (row i on instance ``groups.t[i]`` under lane
-    groups).  The attention is the chunk-attention kernel over one chunk
-    of F rows with no cache, no mask."""
-    m, b, fr, d = frame_embeds.shape
+    groups).  Serving: the attention is the chunk-attention kernel over
+    one chunk of F rows with no cache, no mask."""
+    zero = torch.zeros(frame_embeds.shape[:2], dtype=torch.int32, device=frame_embeds.device)
+    return _encoder(cfg, params, frame_embeds, groups, lambda q, k, v: K.chunk_prefill_attention(
+        q, k, v, zero, s_cache=0, causal=False))
+
+
+def encode_seq(cfg: ModelConfig, params, frame_embeds):
+    """:func:`encode` in the reference's XLA form (training and a prefill
+    from scratch): the attention is :func:`_bidirectional`, no kernel."""
+    return _encoder(cfg, params, frame_embeds, None, _bidirectional)
+
+
+def _encoder(cfg: ModelConfig, params, frame_embeds, groups, attend):
+    """The encoder stack with ``attend(q, k, v)`` as its attention."""
+    fr, d = frame_embeds.shape[2:]
     act = torch_dtype(cfg.dtype)
     sin = torch.from_numpy(_sinusoid(fr, d)).to(device=frame_embeds.device, dtype=act)
     x = frame_embeds.to(act) + sin
-    zero = torch.zeros((m, b), dtype=torch.int32, device=x.device)
     for i in range(cfg.encoder_layers or cfg.num_layers):
         p = _layer(params, "enc_layers", i, groups)
         q, k, v = _proj(cfg, _ln(cfg, x, p, "ln1"), p, "", groups)
-        o = K.chunk_prefill_attention(q, k, v, zero, s_cache=0, causal=False)
-        x = _out(x, o, p, "", groups)
+        x = _out(x, attend(q, k, v), p, "", groups)
         x = x + L.gelu_mlp(_ln(cfg, x, p, "ln2"), p["w1"], p["b1"], p["w2"], p["b2"], groups)
     top = {k: params[k] if groups is None else groups.rows(params[k])
            for k in ("enc_ln_s", "enc_ln_b")}
@@ -229,6 +261,82 @@ def _cross_attention(q, k, v):
     o = pv[..., :hd] / pv[..., hd:]
     return o.reshape(m, b, kvh, c, g, hd).permute(0, 1, 3, 2, 4, 5).reshape(
         m, b, c, h, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the whole sequence: training and a prefill from scratch
+# ---------------------------------------------------------------------------
+
+
+def _positions(tokens):
+    m, b, s = tokens.shape
+    return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(m, b, s)
+
+
+def _dec_embed(cfg: ModelConfig, params, tokens):
+    """Token embeddings plus the learned positions 0 .. S - 1."""
+    act = torch_dtype(cfg.dtype)
+    s = tokens.shape[2]
+    return L.embed(tokens, params["embed"], act) + params["pos_embed"][:, None, :s].to(act)
+
+
+def _dec_layer_seq(cfg: ModelConfig, p, x, enc, positions):
+    """One decoder layer over the whole sequence: causal self-attention,
+    the cross-attention over every frame of ``enc``, the MLP.  Returns
+    (x, k, v, cross k, cross v)."""
+    q, k, v = _proj(cfg, _ln(cfg, x, p, "ln1"), p, "", None)
+    x = _out(x, L.flash_attention_plain(q, k, v, positions, positions), p, "", None)
+    xq, xk, xv = _proj(cfg, _ln(cfg, x, p, "ln_x"), p, "x_", None, kv_x=enc)
+    x = _out(x, _bidirectional(xq, xk, xv), p, "x_", None)
+    x = x + L.gelu_mlp(_ln(cfg, x, p, "ln2"), p["w1"], p["b1"], p["w2"], p["b2"])
+    return x, k, v, xk, xv
+
+
+def _final_logits(cfg: ModelConfig, params, x):
+    """Final layer norm, then the tied head (``embed``ᵀ) in f32."""
+    n = L.layer_norm_rowwise(x, params["final_ln_s"], params["final_ln_b"], cfg.norm_eps)
+    return L.unembed(n, params["embed"].transpose(-1, -2))
+
+
+def decode_full(cfg: ModelConfig, params, tokens, enc_out, *, remat: bool = False):
+    """The teacher-forced decoder over tokens (M, B, S) reading the
+    encoder states ``enc_out``: logits (M, B, S, V) f32.  With ``remat``
+    each layer runs under activation checkpointing."""
+    x = _dec_embed(cfg, params, tokens)
+    positions = _positions(tokens)
+    for i in range(cfg.num_layers):
+        x = L.remat(lambda xc, enc, i=i: _dec_layer_seq(
+            cfg, _layer(params, "dec_layers", i, None), xc, enc, positions)[0], remat)(x, enc_out)
+    return _final_logits(cfg, params, x)
+
+
+def forward(cfg: ModelConfig, params, tokens, frame_embeds, *, remat: bool = False):
+    """Whole-sequence forward (training): :func:`encode_seq` then
+    :func:`decode_full`; logits (M, B, S, V) f32."""
+    return decode_full(cfg, params, tokens, encode_seq(cfg, params, frame_embeds), remat=remat)
+
+
+def prefill(cfg: ModelConfig, params, tokens, frame_embeds, *, cache_len: int | None = None):
+    """The frames and a whole prompt from scratch: (last logits (M, B, V)
+    f32, the decode cache ``{"self": KVCache, "cross_k", "cross_v"}``):
+    the self ring ``cache_len`` long (default the prompt) holding the
+    prompt from slot 0, the cross K/V over every frame."""
+    m, b, s = tokens.shape
+    cache_len = cache_len or s
+    if cache_len < s:
+        raise ValueError(f"a prompt of {s} does not fit a {cache_len}-slot cache")
+    enc = encode_seq(cfg, params, frame_embeds)
+    cache = make_cache(cfg, m, b, cache_len, tokens.device, frames=enc.shape[2])
+    x = _dec_embed(cfg, params, tokens)
+    positions = _positions(tokens)
+    for i in range(cfg.num_layers):
+        x, k, v, xk, xv = _dec_layer_seq(cfg, _layer(params, "dec_layers", i, None), x, enc,
+                                         positions)
+        cache["self"].k[i, :, :, :s] = k
+        cache["self"].v[i, :, :, :s] = v
+        cache["cross_k"][i] = xk
+        cache["cross_v"][i] = xv
+    return _final_logits(cfg, params, x[:, :, -1:])[:, :, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -332,8 +440,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None):
     """One decoder token.  tokens (M, B, 1); pos (M, B) int32 = index of
     this token.  Returns (logits (M, B, V) f32, cache updated in place)."""
     x = _decode_trunk(cfg, params, cache, tokens, pos, alive)
-    n = L.layer_norm_rowwise(x, params["final_ln_s"], params["final_ln_b"], cfg.norm_eps)
-    return torch.matmul(n.float(), params["embed"].transpose(-1, -2).float()), cache
+    return _final_logits(cfg, params, x), cache
 
 
 def decode_step_sample(cfg: ModelConfig, params, cache, tokens, pos, *, alive=None):
@@ -343,12 +450,14 @@ def decode_step_sample(cfg: ModelConfig, params, cache, tokens, pos, *, alive=No
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
-def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device) -> dict:
+def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device, *,
+               frames: int | None = None) -> dict:
     """The grid's decode cache: the self-attention ring (L, M, B, S, KVH,
-    hd) and the cross-attention K/V (L, M, B, F, KVH, hd), F =
-    ``cfg.num_audio_frames``, in cfg.dtype."""
+    hd) and the cross-attention K/V (L, M, B, F, KVH, hd), F = ``frames``
+    (default ``cfg.num_audio_frames``), in cfg.dtype."""
     act = torch_dtype(cfg.dtype)
-    shape = (cfg.num_layers, m, b, cfg.num_audio_frames, cfg.num_kv_heads, cfg.head_dim)
+    shape = (cfg.num_layers, m, b, frames or cfg.num_audio_frames, cfg.num_kv_heads,
+             cfg.head_dim)
     return {"self": L.make_kv_cache(cfg.num_layers, m, b, context_len, cfg.num_kv_heads,
                                     cfg.head_dim, act, device),
             "cross_k": torch.zeros(shape, dtype=act, device=device),

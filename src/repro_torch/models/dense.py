@@ -138,13 +138,13 @@ def _positions(tokens):
     return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(m, b, s)
 
 
-def seq_block(cfg: ModelConfig, lp, x, positions, cos, sin, *, window: int = 0):
-    """One block over a whole sequence x (M, B, S, D) (training and a
-    prefill from scratch): rms -> QKV (+bias) -> RoPE -> causal attention
-    with the reference's positional mask (``layers.flash_attention_plain``,
-    its XLA ``flash_attention``; no kernel) -> out-proj + residual -> SwiGLU
-    + residual.  Returns (x, k, v) with the rotated k and v of the
-    sequence."""
+def seq_attention(cfg: ModelConfig, lp, x, positions, cos, sin, *, window: int = 0):
+    """The attention half of a block over a whole sequence x (M, B, S, D)
+    (training and a prefill from scratch): rms -> QKV (+bias) -> RoPE ->
+    causal attention with the reference's positional mask
+    (``layers.flash_attention_plain``, its XLA ``flash_attention``; no
+    kernel) -> out-proj + residual.  Returns (x, k, v) with the rotated k
+    and v of the sequence."""
     m, b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     n = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -153,7 +153,13 @@ def seq_block(cfg: ModelConfig, lp, x, positions, cos, sin, *, window: int = 0):
     v = L.linear(n, lp["wv"], lp.get("bv")).reshape(m, b, s, kvh, hd)
     q, k = L.rope_apply(q, cos, sin), L.rope_apply(k, cos, sin)
     o = L.flash_attention_plain(q, k, v, positions, positions, window=window)
-    x = x + L.linear(o.reshape(m, b, s, h * hd), lp["wo"])
+    return x + L.linear(o.reshape(m, b, s, h * hd), lp["wo"]), k, v
+
+
+def seq_block(cfg: ModelConfig, lp, x, positions, cos, sin, *, window: int = 0):
+    """One block over a whole sequence: :func:`seq_attention`, then
+    SwiGLU + residual.  Returns (x, k, v)."""
+    x, k, v = seq_attention(cfg, lp, x, positions, cos, sin, window=window)
     nn_ = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     return x + L.swiglu_mlp(nn_, lp["w_gate"], lp["w_up"], lp["w_down"]), k, v
 
@@ -163,11 +169,15 @@ def _logits(cfg: ModelConfig, params, x):
     return L.unembed(n, _head(cfg, params))
 
 
-def forward(cfg: ModelConfig, params, tokens, *, remat: bool = False):
+def forward(cfg: ModelConfig, params, tokens, *, inputs_embeds=None, positions=None,
+            remat: bool = False):
     """Whole-sequence forward (training): logits (M, B, S, V) f32.  With
-    ``remat`` each layer runs under activation checkpointing."""
-    x = _embed_in(cfg, params, tokens)
-    positions = _positions(tokens)
+    ``remat`` each layer runs under activation checkpointing.
+    ``inputs_embeds`` (M, B, S, D) and ``positions`` (M, B, S), when
+    given, replace the token embeddings and 0 .. S - 1 (vlm's image
+    prefix)."""
+    x = _embed_in(cfg, params, tokens) if inputs_embeds is None else inputs_embeds
+    positions = _positions(tokens) if positions is None else positions
     cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.dtype)
     for i in range(cfg.num_layers):
         x = L.remat(lambda xc, i=i: seq_block(cfg, _layer(params, i), xc, positions, cos, sin,
@@ -183,20 +193,27 @@ def prefill(cfg: ModelConfig, params, tokens, *, cache_len: int | None = None):
     ring-consistently, so decode continues at pos = S: a longer cache
     holds the prompt from slot 0, a shorter one (S a multiple of it) its
     last ``cache_len`` positions."""
-    m, b, s = tokens.shape
+    return prefill_embeds(cfg, params, _embed_in(cfg, params, tokens), _positions(tokens),
+                          cache_len=cache_len)
+
+
+def prefill_embeds(cfg: ModelConfig, params, x, positions, *, cache_len: int | None = None,
+                   block=seq_block):
+    """:func:`prefill`'s shell over input embeddings x (M, B, S, D) at
+    ``positions`` (vlm's image prefix and tokens); ``block(cfg, lp, x,
+    positions, cos, sin, window=)`` is a layer (moe's routes its
+    experts)."""
+    m, b, s, _ = x.shape
     window = cfg.sliding_window
     cache_len = cache_len or (window if window else s)
     if cache_len < s and s % cache_len:
         raise ValueError(f"a prompt of {s} must be a multiple of the {cache_len}-slot ring")
-    act = torch_dtype(cfg.dtype)
-    x = _embed_in(cfg, params, tokens)
-    positions = _positions(tokens)
     cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.dtype)
     cache = L.make_kv_cache(cfg.num_layers, m, b, cache_len, cfg.num_kv_heads, cfg.head_dim,
-                            act, x.device)
+                            torch_dtype(cfg.dtype), x.device)
     keep = min(s, cache_len)
     for i in range(cfg.num_layers):
-        x, k, v = seq_block(cfg, _layer(params, i), x, positions, cos, sin, window=window)
+        x, k, v = block(cfg, _layer(params, i), x, positions, cos, sin, window=window)
         cache.k[i, :, :, :keep] = k[:, :, s - keep:]
         cache.v[i, :, :, :keep] = v[:, :, s - keep:]
     return _logits(cfg, params, x[:, :, -1:])[:, :, 0], cache

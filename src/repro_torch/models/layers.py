@@ -289,15 +289,18 @@ def cache_update_one(cache_layer: torch.Tensor, new: torch.Tensor, slot: torch.T
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                          window: int = 0, sink: int = 0) -> torch.Tensor:
-    """Causal GQA attention with the reference's positional mask
+                          window: int = 0, sink: int = 0,
+                          causal: bool = True) -> torch.Tensor:
+    """GQA attention with the reference's positional mask
     (``flash_attention`` of ``repro/models/layers.py``) as one block:
     q (M, B, Sq, H, hd); k, v (M, B, Skv, KVH, hd); q_pos (M, B, Sq);
     kv_pos (M, B, Skv) with -1 marking empty slots.  A key is visible
-    when kv_pos >= 0, kv_pos <= q_pos and, with a ``window``, q_pos -
-    kv_pos < window or kv_pos < ``sink``.  f32 scores, p in V's dtype,
-    f32 accumulation, as the reference's single-block decode path.
-    Returns (M, B, Sq, H, hd) in q's dtype."""
+    when kv_pos >= 0, with ``causal`` kv_pos <= q_pos, and with a
+    ``window`` q_pos - kv_pos < window or kv_pos < ``sink``.  ``causal``
+    False is the whisper encoder's and cross-attention's mask, whatever
+    q_pos is.  f32 scores, p in V's dtype, f32 accumulation, as the
+    reference's single-block decode path.  Returns (M, B, Sq, H, hd) in
+    q's dtype."""
     m, b, sq, h, hd = q.shape
     kvh = k.shape[3]
     g = h // kvh
@@ -305,7 +308,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("mbqkgd,mbckd->mbkgqc", qg, k.float()) * (1.0 / math.sqrt(hd))
     kp = kv_pos[:, :, None, :]
     qp = q_pos[..., None]
-    valid = (kp >= 0) & (kp <= qp)
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
     if window > 0:
         in_win = qp - kp < window
         if sink > 0:

@@ -41,8 +41,14 @@ same function; the port has this one.  Its ``_shmap_rows`` needs no
 counterpart: a rank's rows are local already.  The data axis slices the
 instance rows (or slots) like every family's.
 
-Not ported here: whole-sequence ``forward`` / ``prefill`` and the
-load-balance aux loss (they belong with training).
+Training and a prefill from scratch (``forward``, ``prefill``) run the
+whole sequence: dense's whole-sequence attention (``dense.seq_attention``,
+no kernel), then :func:`moe_mlp` at the capacity of the whole sequence,
+whose expert products run the merged-matmul kernel under its autograd
+Function (``fused_matmul.Merged``: the backward's dx and dw products
+launch the same kernel).  ``forward`` also returns the Switch
+load-balance aux of the reference (:func:`load_balance_aux`), averaged
+over the layers.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from repro_torch.kernels import ops as K
 from repro_torch.models import dense
 from repro_torch.models import layers as L
 from repro_torch.models import shardings as S
-from repro_torch.models.common import MergedParams, draw_leaf
+from repro_torch.models.common import MergedParams, draw_leaf, training_params
 from repro_torch.models.layers import KVCache
 
 # leaves stored in cfg.dtype (the reference casts them to the activation
@@ -109,9 +115,12 @@ def storage_dtypes(cfg: ModelConfig, tree: dict) -> dict:
     return out
 
 
-def init(cfg: ModelConfig, generator, device: torch.device, cut=None) -> MergedParams:
+def init(cfg: ModelConfig, generator, device: torch.device, cut=None, *,
+         train: bool = False) -> MergedParams:
     """Random parameters with the reference's distributions, in the
-    port's storage dtypes, on ``device``.
+    port's storage dtypes, on ``device``; with ``train``, the trainable
+    form (every leaf drawn in param_dtype, requiring a gradient:
+    ``common.training_params``), the same draws before the cast.
 
     ``generator`` is one ``torch.Generator`` (each layer of a leaf drawn
     for all M instances at once) or a list of M, one an instance: row j of
@@ -134,12 +143,12 @@ def init(cfg: ModelConfig, generator, device: torch.device, cut=None) -> MergedP
 
     tree = {
         "embed": leaf("embed", (m, v, d), "normal", par, False),
-        "layers": {k: leaf(k, shape, init_, _leaf_dtype(cfg, k), True)
+        "layers": {k: leaf(k, shape, init_, par if train else _leaf_dtype(cfg, k), True)
                    for k, (shape, init_) in _layer_shapes(cfg).items()},
         "final_norm": leaf("final_norm", (m, d), "ones", par, False),
         "lm_head": leaf("lm_head", (m, d, v), "fan_in", par, False),
     }
-    return MergedParams(tree)
+    return training_params(cfg, tree) if train else MergedParams(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +185,8 @@ def route(cfg: ModelConfig, router, x, *, cap: int, valid=None, counts=None, lim
       and with ``counts`` (M, B, E) below ``limit`` (M, B) counting the
       earlier chunks' assignments);
     * ``counts``: ``counts`` advanced by every non-masked assignment, kept
-      or dropped (None without ``counts``)."""
+      or dropped (None without ``counts``);
+    * ``probs`` (M, B, S, E): the f32 router softmax (the aux loss's)."""
     m, b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     # one product a row of the grid: the library picks its algorithm (and
@@ -208,7 +218,19 @@ def route(cfg: ModelConfig, router, x, *, cap: int, valid=None, counts=None, lim
     if counts is not None:
         keep = keep & (counts.gather(-1, eid) + pos < limit[..., None])
     return {"top_e": top_e, "top_w": top_w, "order": order, "e_sorted": e_sorted,
-            "w_sorted": w_sorted, "eid": eid, "pos": pos, "keep": keep, "counts": new_counts}
+            "w_sorted": w_sorted, "eid": eid, "pos": pos, "keep": keep, "counts": new_counts,
+            "probs": probs}
+
+
+def load_balance_aux(cfg: ModelConfig, r: dict) -> torch.Tensor:
+    """The reference's Switch-style load-balance loss of one layer's
+    routing ``r``: E * sum_e (frac_e / K) * mean p_e, averaged over the
+    instances; frac_e counts the top-k assignments to expert e per token
+    (no gradient), p_e is the f32 router softmax (0-d f32)."""
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    frac = F.one_hot(r["top_e"], e).float().sum(-2).mean(dim=(1, 2))      # (M, E)
+    pmean = r["probs"].mean(dim=(1, 2))                                  # (M, E)
+    return (e * (frac / k * pmean).sum(-1)).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -258,9 +280,10 @@ def _combine(y, r: dict, s: int, k: int):
 
 
 def moe_mlp(cfg: ModelConfig, lp, x, *, valid=None, counts=None, limit=None,
-            groups: L.LaneGroups | None = None, ltp=None):
+            groups: L.LaneGroups | None = None, ltp=None, with_aux: bool = False):
     """x (M, B, S, D) -> (M, B, S, D) in x's dtype; with ``counts`` the
-    chainable chunked form, returning (out, counts advanced).
+    chainable chunked form, returning (out, counts advanced); with
+    ``with_aux`` (the whole-sequence form), (out, :func:`load_balance_aux`).
 
     ``lp`` holds this layer's ``router`` (M_w, D, E) and ``we_gate`` /
     ``we_up`` (M_w, E, D, F), ``we_down`` (M_w, E, F, D); with ``groups``
@@ -304,7 +327,9 @@ def moe_mlp(cfg: ModelConfig, lp, x, *, valid=None, counts=None, limit=None,
     y = y * local[..., None].to(y.dtype)
     y = y * r["w_sorted"][..., None].to(y.dtype)
     out = S.sum_over(ltp, _combine(y, r, s, k))
-    return (out, r["counts"]) if chunked else out
+    if chunked:
+        return out, r["counts"]
+    return (out, load_balance_aux(cfg, r)) if with_aux else out
 
 
 def _experts_of(lay, i: int) -> dict:
@@ -314,6 +339,49 @@ def _experts_of(lay, i: int) -> dict:
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+
+def seq_layer(cfg: ModelConfig, lp, x, positions, cos, sin, *, window: int = 0):
+    """One layer over a whole sequence x (M, B, S, D): dense's attention,
+    then the experts at the capacity of the whole sequence.  Returns (x,
+    k, v, the layer's aux)."""
+    x, k, v = dense.seq_attention(cfg, lp, x, positions, cos, sin, window=window)
+    y, aux = moe_mlp(cfg, lp, L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps), with_aux=True)
+    return x + y, k, v, aux
+
+
+def forward(cfg: ModelConfig, params, tokens, *, remat: bool = False,
+            return_aux: bool = False):
+    """Whole-sequence forward (training): logits (M, B, S, V) f32, and
+    with ``return_aux`` the load-balance aux summed over the layers and
+    divided by their count.  With ``remat`` each layer runs under
+    activation checkpointing, (x, aux) its outputs."""
+    x = dense._embed_in(cfg, params, tokens)
+    positions = dense._positions(tokens)
+    cos, sin = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta, x.dtype)
+
+    def layer(xc, i):
+        xc, _, _, a = seq_layer(cfg, dense._layer(params, i), xc, positions, cos, sin,
+                                window=cfg.sliding_window)
+        return xc, a
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.num_layers):
+        x, a = L.remat(layer, remat)(x, i)
+        aux = aux + a
+    logits = dense._logits(cfg, params, x)
+    return (logits, aux / cfg.num_layers) if return_aux else logits
+
+
+def prefill(cfg: ModelConfig, params, tokens, *, cache_len: int | None = None):
+    """A whole prompt from scratch: (logits of the last position (M, B, V)
+    f32, KVCache laid out as :func:`make_cache`'s), dense's shell
+    (``dense.prefill_embeds``) with :func:`seq_layer`, routing at the
+    capacity of the whole prompt.  Run it under ``torch.no_grad()`` (as
+    ``api.prefill`` does): the experts then launch the kernel directly."""
+    return dense.prefill_embeds(cfg, params, dense._embed_in(cfg, params, tokens),
+                                dense._positions(tokens), cache_len=cache_len,
+                                block=lambda *a, **kw: seq_layer(*a, **kw)[:3])
 
 
 def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device,

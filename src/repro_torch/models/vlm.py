@@ -14,6 +14,12 @@ embedding, and the chunk body is dense's (``_prefill_chunk_embeds``).
 After the prefill the patches live in the KV cache, so decode, the cache
 and the carry are dense's.
 
+Training and a prefill from scratch (``forward``, ``text_logits``,
+``prefill``) put the projected patches at positions [0, P) and the
+tokens after them, then run dense's whole-sequence path
+(``dense.forward(inputs_embeds=...)``, ``dense.prefill_embeds``): no
+kernel, as in the reference.
+
 On a mesh the backbone takes dense's rules (``models/shardings.py``):
 heads and the FFN over "model" where they divide, the head whole where
 the vocab does not; the projector stays whole on every rank.  A mesh
@@ -26,7 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import dense
 from repro_torch.models import layers as L
-from repro_torch.models.common import MergedParams, draw_leaf
+from repro_torch.models.common import MergedParams, draw_leaf, training_params
 
 torch_dtype = dense.torch_dtype
 
@@ -59,7 +65,8 @@ def storage_dtypes(cfg: ModelConfig, tree: dict) -> dict:
     return out
 
 
-def init(cfg: ModelConfig, generator, device: torch.device, cut=None) -> MergedParams:
+def init(cfg: ModelConfig, generator, device: torch.device, cut=None, *,
+         train: bool = False) -> MergedParams:
     """Random parameters with the reference's distributions, in the
     port's storage dtypes, on ``device``, each leaf drawn a layer at a
     time (``common.draw_leaf``: internvl2-26b's 48-layer backbone is
@@ -67,19 +74,21 @@ def init(cfg: ModelConfig, generator, device: torch.device, cut=None) -> MergedP
     ``torch.Generator`` or a list of M, one an instance (the model then
     equals M one-instance draws merged, bit for bit, written in place).
     ``cut`` (``shardings.vlm_cut``) keeps a mesh rank's slice of each
-    drawn layer."""
+    drawn layer.  ``train`` gives the trainable form (every leaf drawn in
+    param_dtype, requiring a gradient: ``common.training_params``)."""
     dev, par = torch.device(device), torch_dtype(cfg.param_dtype)
     tree = {}
     for group, leaf in _shapes(cfg).items():
         if isinstance(leaf, dict):
-            tree[group] = {k: draw_leaf(k, shape, init_, _dtype(cfg, group, k),
+            tree[group] = {k: draw_leaf(k, shape, init_,
+                                        par if train else _dtype(cfg, group, k),
                                         group == "layers", generator, dev, par,
                                         cut if group == "layers" else None)
                            for k, (shape, init_) in leaf.items()}
         else:
             shape, init_ = leaf
             tree[group] = draw_leaf(group, shape, init_, par, False, generator, dev, par, cut)
-    return MergedParams(tree)
+    return training_params(cfg, tree) if train else MergedParams(tree)
 
 
 def project_image(cfg: ModelConfig, params, image_embeds, groups: L.LaneGroups | None = None):
@@ -92,6 +101,37 @@ def project_image(cfg: ModelConfig, params, image_embeds, groups: L.LaneGroups |
         norm, b1 = groups.rows(norm), groups.rows(b1)
     x = L.layer_norm(image_embeds.to(torch_dtype(cfg.dtype)), norm, None, cfg.norm_eps)
     return L.linear(x, pp["w1"], b1, groups)
+
+
+def _combined(cfg: ModelConfig, params, tokens, image_embeds):
+    """The whole-sequence inputs (M, B, P + S, D): the projected patches,
+    then the token embeddings, and their positions 0 .. P + S - 1."""
+    x = torch.cat([project_image(cfg, params, image_embeds),
+                   dense._embed_in(cfg, params, tokens)], dim=2)
+    m, b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(m, b, s)
+    return x, positions
+
+
+def forward(cfg: ModelConfig, params, tokens, image_embeds, *, remat: bool = False):
+    """Logits over every position, the image prefix and the text (M, B,
+    P + S, V) f32; :func:`text_logits` slices the text."""
+    x, positions = _combined(cfg, params, tokens, image_embeds)
+    return dense.forward(cfg, params, tokens, inputs_embeds=x, positions=positions,
+                         remat=remat)
+
+
+def text_logits(cfg: ModelConfig, params, tokens, image_embeds, *, remat: bool = False):
+    """Logits of the text positions (M, B, S, V), aligned with the labels."""
+    p = image_embeds.shape[2]
+    return forward(cfg, params, tokens, image_embeds, remat=remat)[:, :, p:]
+
+
+def prefill(cfg: ModelConfig, params, tokens, image_embeds, *, cache_len: int | None = None):
+    """A whole prompt, image patches then tokens: (last logits (M, B, V)
+    f32, dense's KVCache over the P + S positions), dense's shell."""
+    x, positions = _combined(cfg, params, tokens, image_embeds)
+    return dense.prefill_embeds(cfg, params, x, positions, cache_len=cache_len)
 
 
 def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,

@@ -22,6 +22,11 @@ from repro_torch.models.common import MergedParams, _leaves, tree_map
 
 Tree = Any
 
+# elements of a leaf an AdamW update takes at once: its f32 temporaries
+# are then a few pieces of 256 MB, not a few copies of the largest leaf
+# (olmoe-1b-7b's (4, 2, 64, 2048, 1024) expert leaf is 4.3 GB in f32)
+UPDATE_PIECE = 1 << 26
+
 
 class OptState(NamedTuple):
     step: int
@@ -71,7 +76,9 @@ def adamw_update(grads, state: OptState, params, *, lr, b1: float = 0.9, b2: flo
     """One AdamW step with the reference's bias correction.  The moments
     and the parameters are updated in place; returns (params, the new
     state, {"grad_norm": the norm before clipping}).  Gradients are
-    clipped a leaf at a time, so no second copy of them is held."""
+    clipped a leaf at a time, so no second copy of them is held, and a
+    contiguous leaf is updated in flat pieces of ``UPDATE_PIECE``
+    elements (element-wise math: the same numbers)."""
     gn = global_norm(grads)
     step = state.step + 1
     with torch.no_grad():
@@ -81,13 +88,19 @@ def adamw_update(grads, state: OptState, params, *, lr, b1: float = 0.9, b2: flo
         c2 = float(1.0 - _f32(b2) ** _f32(step))
         lr = float(lr)
 
-        def upd(p, g, m, v):
+        def piece(p, g, m, v):
             g = g.float() * scale
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g * g)
             pf = p.float()
             delta = (m / c1) / (torch.sqrt(v / c2) + eps) + weight_decay * pf
             p.copy_((pf - lr * delta).to(p.dtype))
+
+        def upd(*leaves):
+            if not all(t.is_contiguous() for t in leaves):
+                return piece(*leaves)
+            for part in zip(*(t.view(-1).split(UPDATE_PIECE) for t in leaves)):
+                piece(*part)
 
         tree_map(upd, _tree(params), grads, state.mu, state.nu)
     return params, OptState(step, state.mu, state.nu), {"grad_norm": gn}

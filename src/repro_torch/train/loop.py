@@ -46,8 +46,10 @@ def make_train_step(cfg, *, lr_schedule: Callable, weight_decay: float = 0.1,
     """Returns train_step(state, batch) -> (state, metrics): loss and
     gradients, then one AdamW step at ``lr_schedule(step)``.  With
     ``microbatches`` > 1 each instance's batch splits into that many
-    slices along B, the gradients are summed over them and divided by
-    their count, as the reference does."""
+    slices along B (every batch leaf: tokens, labels, vlm's
+    ``image_embeds``, audio's ``frames``), the gradients are summed over
+    them and divided by their count, as the reference does; the metrics
+    then hold no nll / aux, as the reference's do not."""
 
     def train_step(state: TrainState, batch):
         params, opt = state
@@ -109,7 +111,9 @@ def train_loop(cfg, data, *, steps: int, batch_size: int, seq_len: int, lr_sched
         if step % log_every == 0 or step == steps - 1:
             loss = float(metrics["loss"])
             losses.append((step, loss))
-            print_fn(f"step {step:5d}  loss {loss:.4f}  lr {float(metrics['lr']):.2e}  "
+            aux = metrics.get("aux") if cfg.family == "moe" else None
+            aux = "" if aux is None else f"aux {float(aux):.4f}  "
+            print_fn(f"step {step:5d}  loss {loss:.4f}  {aux}lr {float(metrics['lr']):.2e}  "
                      f"gnorm {float(metrics['grad_norm']):.3f}  "
                      f"({time.perf_counter() - t0:.1f}s)")
     return state, losses

@@ -320,22 +320,32 @@ class _CudaProbe:
 
 
 def test_kernel_launch_without_a_function_raises_under_autograd(monkeypatch):
-    """A CUDA launch of a kernel with no autograd Function, on an input
-    that requires a gradient, raises instead of returning a tensor cut
-    off the graph; without a gradient it launches.  A kernel with a
-    Function launches under it and counts its launch."""
+    """A CUDA launch of a kernel with no autograd Function (the sharded
+    merged matmul), on an input that requires a gradient, raises instead
+    of returning a tensor cut off the graph; without a gradient it
+    launches.  A kernel with a Function launches under it and counts its
+    launches: the merged matmul's forward once and its backward twice (dx
+    and dw)."""
     x = torch.randn(2, 3, 8, requires_grad=True)
     w = torch.randn(2, 8, 5)
     launched = []
-    monkeypatch.setattr(ops._fused_matmul, "cuda",
-                        lambda *a, **k: launched.append(1) or ops._fm.fused_matmul_plain(*a, **k))
+    plain = lambda *a, **k: launched.append(1) or ops._fm.fused_matmul_plain(*a, **k)
+    monkeypatch.setattr(ops._fused_matmul_sh, "cuda", plain)
     ops.reset_launches()
     with pytest.raises(RuntimeError, match="no backward"):
-        ops._fused_matmul(_CudaProbe(), x, w, None)
-    assert not launched and ops.launches()["fused_matmul"] == 0
+        ops._fused_matmul_sh(_CudaProbe(), x, w, None)
+    assert not launched and ops.launches()["fused_matmul_sharded"] == 0
     with torch.no_grad():
-        ops._fused_matmul(_CudaProbe(), x, w, None)
-    assert launched and ops.launches()["fused_matmul"] == 1
+        ops._fused_matmul_sh(_CudaProbe(), x, w, None)
+    assert launched and ops.launches()["fused_matmul_sharded"] == 1
+
+    monkeypatch.setattr(ops._fused_matmul, "cuda", plain)
+    wg = w.clone().requires_grad_()
+    y = ops._fused_matmul(_CudaProbe(), x, wg, None)
+    assert y.grad_fn is not None and ops.launches()["fused_matmul"] == 1
+    y.sum().backward()
+    assert x.grad is not None and wg.grad is not None
+    assert ops.launches()["fused_matmul"] == 3
 
     monkeypatch.setattr(ops._mlstm, "cuda", ml.mlstm_chunkwise_plain)
     q, k, v, lf, li = [torch.from_numpy(a).requires_grad_() for a in _mlstm_inputs(9)]
@@ -496,12 +506,8 @@ def test_launch_train_saves_a_checkpoint_the_reference_reads(tmp_path):
 
 
 def test_unported_families_and_the_mesh_flag_raise():
-    cfg = treg.get_smoke_config("olmoe-1b-7b")
-    batch = {"tokens": torch.zeros(1, 1, 4, dtype=torch.int32)}
-    for fn in (lambda: tapi.train_logits(cfg, None, batch),
-               lambda: tapi.loss_fn(cfg, None, batch), lambda: tapi.prefill(cfg, None, batch),
-               lambda: tapi.init(cfg, None, "cpu", train=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
+    """Every family has its whole-sequence entries now; the launcher's
+    ``--mesh`` (data-parallel training) still raises."""
+    assert sorted(tapi.WHOLE_SEQUENCE) == sorted(tapi._FAMILY)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlaunch.main(["--arch", "tinyllama-1.1b", "--smoke", "--device", "cpu", "--mesh"])
