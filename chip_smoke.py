@@ -177,7 +177,17 @@ non-zero before the result line is printed):
               whole-layer kernel never; the ranks' streams identical; K=1 ==
               K=8 at 4 layers; the f32 smoke config's cache shards, gathered
               logits and greedy tokens against the single-device plain path
-              on the CPU;
+              on the CPU; in the same spawn the ssm family: xlstm-1.3b at
+              full width cut to 16 of its 48 layers (14 mLSTM, 2 sLSTM;
+              M=4, the serve mix), each rank on 2 of the 4 heads, the sLSTM
+              FFN and half the vocab -- per decode step the sLSTM cell 2
+              times, the merged matmul 14 times (q C), the logits once over
+              V/2; per layer pass (a decode step or a chunk call) 30 sums
+              and 2 gathers counted on the rank's handle; the ranks'
+              streams identical, and how many equal a one-device serve of
+              the same cut (information: the row-split sums round in
+              another order); 8 layers at K=1 == K=8; the f32 xlstm-smoke
+              (V 256) equal to the single-device plain path on the CPU;
 7. tp_hybrid -- tensor-parallel hybrid serving over 2 ranks sharing the
               card (gloo): the full hymba-1.5b (M=4, 16 requests of 16-512
               tokens, 32 new, K=8, max_context 1536; the attention whole on
@@ -189,6 +199,9 @@ non-zero before the result line is printed):
               layers; the "kv" plan end to end over 5 ranks (4 layers,
               M=2); the f32 smoke config's streams at TP=2 and TP=4
               ("expand") equal to the single-device plain path on the CPU;
+              over the same 4 ranks xlstm-smoke widened to 4 heads (d_model
+              128: a rank's sLSTM head of 32 is the kernel's step) in f32,
+              equal to the CPU plain path too;
 8. data    -- serving on a (data=D, model=T) mesh, the D*T ranks sharing
               the card (gloo), at 2x1 and 2x2: the full tinyllama-1.1b (M=4,
               16 requests of 16-512 tokens, 32 new, K=8), every launch
@@ -199,9 +212,12 @@ non-zero before the result line is printed):
               the f32 smoke config's streams equal to the single-device
               plain path on the CPU; the 2x1 streams equal to the serve
               phase's one-device streams at M=4, 16 of 16, for tinyllama
-              and for the full xlstm-1.3b and hymba-1.5b served at 2x1 too
-              (a lane's bf16 result does not depend on the instance count
-              of its call); at
+              and for the full xlstm-1.3b, hymba-1.5b and whisper-small
+              served at 2x1 too (a lane's bf16 result does not depend on
+              the instance count of its call; whisper's data ranks each
+              hold 2 instances' cross caches and launch the chunk attention
+              24 times a chunk call, the decode attention 24 times a decode
+              step); at
               2x2 K=1 == K=8 at 4 layers and
               ``fused_matmul_sharded`` on each rank's block of a seeded
               (4, 4, 2048, 5632) problem with bias, reassembled against the
@@ -313,6 +329,13 @@ TH, TKVH, TF = H // TP, KVH // TP, F // TP
 # requests of the TP serve cell (cut before anything else to keep the script
 # inside its time)
 TP_REQUESTS = 16
+# the ssm TP cell: xlstm-1.3b at full width cut to 16 of its 48 layers (14
+# mLSTM, 2 sLSTM: layers 3, 11; 0.81 B parameters an instance, 8.20 GB at
+# M=4 with the f32 embedding and head, drawn whole by each rank before it
+# keeps its 4.92 GB shard, computed from shapes; with 24 layers the script
+# took 1190.5 s of its 1200 on an NVIDIA H100 80GB HBM3 at 700 W whose host
+# ran the gloo cells slowly), and to 8 layers for K=1 == K=8 (8 requests)
+XLSTM_TP_LAYERS, XLSTM_CHECK_LAYERS = 16, 8
 # hymba-1.5b under TP: TP=2 keeps its 25 q heads whole on every rank
 # (plan None), TP=5 splits its 5 kv heads ("kv"), TP=25 gives each rank one
 # q head over the kv head it reads ("expand")
@@ -486,13 +509,14 @@ def decode_attn_inputs(torch, dev, dt, seed, lens=None, h=YH, kvh=YKVH):
     return q, k, v, kv_len
 
 
-def slstm_inputs(torch, dev, dt, rdt, m, b, s, seed, junk=False):
+def slstm_inputs(torch, dev, dt, rdt, m, b, s, seed, junk=False, h=XH):
     """Gate pre-activations (M,B,S,4,D), recurrent weights (M,4,H,hd,hd)
-    and a non-zero carried state at the xlstm-1.3b cell width.  With
-    ``junk``, lanes end early as in a padded final prefill chunk: their
-    suffix takes the neutral gates (input -1e30, forget +1e30)."""
+    and a non-zero carried state at the xlstm-1.3b cell width (``h`` of
+    its heads of 512: a TP rank's share).  With ``junk``, lanes end early
+    as in a padded final prefill chunk: their suffix takes the neutral
+    gates (input -1e30, forget +1e30)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    d = XH * XHD
+    d = h * XHD
     pre = torch.randn(m, b, s, 4, d, generator=g, device=dev)
     if junk:
         neutral = torch.tensor([0.0, -1e30, 1e30, 0.0], device=dev)[:, None]
@@ -500,7 +524,7 @@ def slstm_inputs(torch, dev, dt, rdt, m, b, s, seed, junk=False):
         for mi in range(m):
             for bi in range(b):
                 pre[mi, bi, int(ends[mi, bi]):] = neutral
-    r = (torch.randn(m, 4, XH, XHD, XHD, generator=g, device=dev) * XHD ** -0.5).to(rdt)
+    r = (torch.randn(m, 4, h, XHD, XHD, generator=g, device=dev) * XHD ** -0.5).to(rdt)
     state = (torch.randn(m, b, d, generator=g, device=dev),
              torch.rand(m, b, d, generator=g, device=dev) + 0.5,
              (0.5 * torch.randn(m, b, d, generator=g, device=dev)).to(dt),
@@ -684,6 +708,7 @@ def phase_kernels(torch, dev):
     errs.update(groups)
     errs.update(vlm_width_cases(torch, dev))
     errs.update(whisper_width_cases(torch, dev))
+    errs.update(xlstm_tp_width_cases(torch, dev))
     for key, e in errs.items():
         log("kernels", case=key, rel_err=f"{e:.3e}")
     log("kernels", cases=len(errs), tolerance_bf16=TOL["bfloat16"],
@@ -1026,6 +1051,57 @@ def whisper_width_cases(torch, dev):
             del k, v
     for key, e in errs.items():
         assert e <= TOL[key.split("/")[3]], f"{key}: {e}"
+    return errs
+
+
+def xlstm_tp_width_cases(torch, dev):
+    """xlstm-1.3b's kernels at a TP=2 rank's widths (the tp phase's cell):
+    the sLSTM cell on 2 of the 4 heads of 512 (decode over M=4 x B=4
+    slots; a prefill chunk of 4 lanes with padded tails), bf16 with r in
+    f32; the mLSTM step's q C on the merged matmul in f32, one (1, 1024)
+    @ (1024, 1024) product for each of M*B*2 (lane, head) pairs; the
+    logits over a rank's V/2 = 25152 columns at D=2048 (f32 head), bf16
+    and f32 residual.  Each against its plain version."""
+    from repro_torch.kernels import decode_layer as dl
+    from repro_torch.kernels import fused_matmul as fm
+    from repro_torch.kernels import slstm_cell as sc
+
+    errs, h = {}, XH // TP
+
+    def check(key, e, dtn):
+        assert e <= TOL[dtn], f"{key}: {e}"
+        errs[key] = e
+
+    for m, b, s, junk in ((M, B, 1, False), (4, 1, C, True)):
+        pre, r, state = slstm_inputs(torch, dev, torch.bfloat16, torch.float32, m, b, s, 81,
+                                     junk, h=h)
+        want = tuple(t.clone() for t in state)
+        want_hs, _ = sc.slstm_cell_plain(pre, r, want, num_heads=h)
+        got = tuple(t.clone() for t in state)
+        got_hs, _ = sc.slstm_cell_cuda(pre, r, got, num_heads=h)
+        torch.cuda.synchronize()
+        check(f"slstm_cell/tp{TP}/bfloat16/r_float32/H{h}/S{s}/B{b}",
+              max(rel_err(got_hs, want_hs), *(rel_err(a, w) for a, w in zip(got, want))),
+              "bfloat16")
+        del pre, r
+    g = torch.Generator(device=dev).manual_seed(82)
+    hd = 2 * XHD
+    q = torch.randn(M * B * h, 1, hd, generator=g, device=dev) * hd ** -0.5
+    cst = torch.randn(M * B * h, hd, hd, generator=g, device=dev)
+    got, want = fm.fused_matmul_cuda(q, cst), fm.fused_matmul_plain(q, cst)
+    torch.cuda.synchronize()
+    check(f"fused_matmul/tp{TP}/float32/mlstm_step/({M * B * h},1,{hd})@({hd},{hd})",
+          rel_err(got, want), "float32")
+    del q, cst
+    for xdt in ("bfloat16", "float32"):
+        x, scale, head = logits_inputs(torch, dev, getattr(torch, xdt), 83, dup=False,
+                                       v=50304 // TP)
+        tok, val = dl.logits_argmax_cuda(x, scale, head)
+        ptok, pval = dl.logits_argmax_plain(x, scale, head)
+        torch.cuda.synchronize()
+        assert torch.equal(tok, ptok), f"logits V/{TP} {xdt}: tokens differ"
+        check(f"logits/tp{TP}/{xdt}/V{50304 // TP}", rel_err(val, pval), "float32")
+        del head
     return errs
 
 
@@ -1620,17 +1696,25 @@ def phase_profile(torch, dev):
     out = subprocess.run([sys.executable, "-c", KERNELS_PER_CALL], capture_output=True,
                          text=True, timeout=300, cwd=HERE)
     assert out.returncode == 0, out.stderr[-2000:]
-    for name, names in json.loads(out.stdout.strip().splitlines()[-1]).items():
+    lines = out.stdout.strip().splitlines()
+    again = json.loads(lines[-2])
+    for name, names in json.loads(lines[-1]).items():
         want = 2 if name.startswith("mlstm") else 1
         log("profile", wrapper=name, kernels_per_call=len(names),
-            names=",".join(sorted({n[:40] for n in names})) or "none recorded")
+            names=",".join(sorted({n[:40] for n in names})) or "none recorded",
+            sessions_profiled_again=again[name])
         assert len(names) in (0, want), f"{name}: {names}"
     return launches
 
 
 # The device kernels one call of each tenth-slice wrapper runs:
 # torch.profiler's per-kernel counts over 8 calls, after a warm-up call
-# (a JSON object, wrapper -> kernel names, on the last line).
+# (a JSON object, wrapper -> kernel names, on the last line; before it,
+# the sessions each wrapper profiled again).  A session whose counts are
+# not a multiple of the 8 calls lost device events (a run on an H100 once
+# recorded 7 of 8 decode-attention launches) and is profiled again, up to
+# 3 sessions: a call's kernels do not vary, so a real extra or missing
+# launch shows in every session and still fails.
 KERNELS_PER_CALL = """
 import json, os, sys
 sys.path.insert(0, os.path.join(os.getcwd(), "src"))
@@ -1647,17 +1731,22 @@ multi = cs.mlstm_inputs(torch, dev, bf16, 4, 1, 4, 256, 1024, 42)
 calls = {"decode_attention": lambda: da.decode_attention_cuda(*attn_in),
          "mlstm_chunkwise": lambda: ml.mlstm_chunkwise_cuda(*one, chunk=32),
          "mlstm_chunkwise/4x64": lambda: ml.mlstm_chunkwise_cuda(*multi, chunk=64)}
-res = {}
+res, again = {}, {}
 for name, fn in calls.items():
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages() if cs.device_us(e) > 0]
+    for session in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if cs.device_us(e) > 0]
+        if all(e.count % 8 == 0 for e in ev):
+            break
     assert all(e.count % 8 == 0 for e in ev), [(e.key, e.count) for e in ev]
     res[name] = [e.key for e in ev for _ in range(e.count // 8)]
+    again[name] = session
+print(json.dumps(again))
 print(json.dumps(res))
 """
 
@@ -1848,8 +1937,8 @@ def phase_serve(torch, dev):
     # (12 more); a decode step runs 12 self- and 12 cross-attention
     # launches of the decode-attention kernel; no logits kernel (layer norm,
     # f32 tied head, argmax)
-    cfg, snap, audio, _ = serve_path(torch, dev, "whisper-small",
-                                     ("chunk_prefill_attention", "decode_attention",
+    cfg, snap, audio, audio_streams = serve_path(
+        torch, dev, "whisper-small", ("chunk_prefill_attention", "decode_attention",
                                       "fused_matmul"))
     steps, chunks, n = snap["decode_steps"], snap["prefill_batches"], cfg.num_layers
     n_enc = cfg.encoder_layers
@@ -1871,7 +1960,7 @@ def phase_serve(torch, dev):
     return ({"tinyllama-1.1b": dense, "xlstm-1.3b": xlstm, "hymba-1.5b": hymba,
              "olmoe-1b-7b": olmoe, "internvl2-26b": vlm, "whisper-small": audio},
             {"tinyllama-1.1b": dense_streams, "xlstm-1.3b": xlstm_streams,
-             "hymba-1.5b": hymba_streams}, olmoe_streams)
+             "hymba-1.5b": hymba_streams, "whisper-small": audio_streams}, olmoe_streams)
 
 
 def periphery_streams(torch, srv, reqs, *, plan=None, watchdog_s=None, trace=False,
@@ -2219,12 +2308,46 @@ def phase_tp(torch, dev):
     the sharded kernels launched (22 attention and 22 FFN phases per
     decode step) and the whole-layer kernel never; the ranks' streams
     identical; K=1 == K=8; the f32 config's cache shards, gathered logits
-    and greedy tokens equal to the single-device plain path on the CPU."""
+    and greedy tokens equal to the single-device plain path on the CPU.
+    The ssm family in the same spawn: xlstm-1.3b cut to XLSTM_TP_LAYERS
+    (the serve mix; ``check_xlstm_rank``, ranks equal, and how many
+    streams equal a one-device serve of the same cut, served here first),
+    cut to XLSTM_CHECK_LAYERS at K=1 and K=8, and xlstm-smoke in f32 (V
+    256, so that the head splits) against the CPU.  Returns rank 0's
+    launches by path."""
     import numpy as np
 
     from repro_torch import api
     from repro_torch.configs import registry
     from repro_torch.launch import mesh, serve, tp_parity
+    from repro_torch.serving import MultiModelServer
+
+    xcfg = registry.get_config("xlstm-1.3b").with_(num_instances=M,
+                                                   num_layers=XLSTM_TP_LAYERS)
+    xcut = xcfg.with_(num_layers=XLSTM_CHECK_LAYERS)
+    xsmall = registry.get_smoke_config("xlstm-1.3b").with_(num_instances=2, vocab_size=256)
+    xsmall_params = api.init(xsmall, torch.Generator().manual_seed(0), "cpu")
+    xsmall_kw = dict(slots_per_instance=2, max_context=64, prefill_chunk=8, decode_steps=4)
+    xmix = lambda: requests(TP_REQUESTS, M, 16, 512, 32, xcfg.vocab_size, 0)
+    xcheck = requests(8, M, 16, 120, 16, xcut.vocab_size, 1)
+    xsmall_reqs = requests(8, 2, 1, 48, 8, xsmall.vocab_size, 3)
+    cpu = MultiModelServer(xsmall, xsmall_params, device="cpu", **xsmall_kw)
+    for q in xsmall_reqs:
+        cpu.submit(q)
+    want_xsmall = drained(cpu, len(xsmall_reqs), 8)
+    t0 = time.perf_counter()
+    one = serve.serve(xcfg, 0, xmix(), device=dev, slots_per_instance=B, max_context=S,
+                      prefill_chunk=C, prefill_lanes=4, decode_steps=8)
+    one_streams = ok_streams({"statuses": [r.status for r in one["results"]],
+                              "streams": {r.request_id: r.tokens for r in one["results"]}},
+                             TP_REQUESTS, 32)
+    log("tp", arch=xcfg.name, layers=xcfg.num_layers, reference="one device, bf16",
+        tok_per_s=round(one["snapshot"]["generated_tokens"] / one["wall_s"], 1),
+        ms_per_decode_step=round(one["snapshot"]["decode_ms_per_step"], 3),
+        seconds=round(time.perf_counter() - t0, 1))
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=M)
     cut = cfg.with_(num_layers=4)
@@ -2246,6 +2369,10 @@ def phase_tp(torch, dev):
         (tp_parity.chunk_decode_rank, small, small_params, tok, 8, 64),
         (tp_parity.all_reduce_rank, (M, B, D), 50),
         (tp_parity.all_reduce_rank, (4, 1, C, D), 20),
+        (serve.serve_rank, xcfg, 0, xmix(), serve_kw),
+        (serve.serve_rank, xcut, 1, xcheck, dict(check_kw, decode_steps=1)),
+        (serve.serve_rank, xcut, 1, xcheck, dict(check_kw, decode_steps=8)),
+        (serve.serve_rank, xsmall, xsmall_params, xsmall_reqs, xsmall_kw),
         device="cuda")
     log("tp", spawn_and_run_s=round(time.perf_counter() - t0, 1))
     full = [r[0] for r in ranks]
@@ -2291,7 +2418,81 @@ def phase_tp(torch, dev):
     log("tp", reference="cpu-plain single device", config=small.name, vocab=small.vocab_size,
         kv_heads_per_rank=got[0]["k"].shape[4], cache_rel_err=f"{e_cache:.2e}",
         logits_rel_err=f"{e_logits:.2e}", tokens="equal")
-    return full[0]["launches"]
+
+    xfull = [r[6] for r in ranks]
+    for rank, out in enumerate(xfull):
+        steps, chunks, sums, gathers = check_xlstm_rank(xcfg, out, TP_REQUESTS, 32, TP)
+        snap = out["snapshot"]
+        log("tp", arch=xcfg.name, layers=xcfg.num_layers, rank=rank, device=out["device"],
+            backend=out["backend"], requests=TP_REQUESTS, tokens=snap["generated_tokens"],
+            wall_s=round(out["wall_s"], 3),
+            tok_per_s=round(snap["generated_tokens"] / out["wall_s"], 1),
+            ms_per_decode_step=round(snap["decode_ms_per_step"], 3), decode_steps=steps,
+            decode_blocks=snap["decode_device_calls"],
+            prefill_ms=round(1e3 * snap["prefill_wall_s"], 1), prefill_chunk_calls=chunks,
+            slstm_per_layer_pass=out["launches"]["slstm_cell"] / (steps + chunks),
+            fused_matmul_per_step=round(out["launches"]["fused_matmul"] / steps, 2),
+            sums_per_pass=sums, gathers_per_pass=gathers,
+            serve_peak_gib_on_card=round(out["peak_gib"], 2),
+            setup_peak_gib_on_card=round(out["setup_peak_gib"], 2),
+            host_param_gib=round(out["host_param_gib"], 2), setup_s=round(out["setup_s"], 1),
+            launches=json.dumps(out["launches"]).replace(" ", ""))
+    assert all(o["streams"] == xfull[0]["streams"] for o in xfull), "xlstm: ranks differ"
+    same = sum(xfull[0]["streams"][i] == one_streams[i] for i in one_streams)
+    # how far each stream runs with one device's before the rounding of the
+    # row-split sums turns a token (information, not a gate)
+    common = [next((j for j, (a, b) in enumerate(zip(xfull[0]["streams"][i], one_streams[i]))
+                    if a != b), 32) for i in one_streams]
+    log("tp", arch=xcfg.name, layers=xcfg.num_layers,
+        streams_equal_to_one_device=f"{same}/{TP_REQUESTS}",
+        first_tokens_equal=f"{sum(c > 0 for c in common)}/{TP_REQUESTS}",
+        mean_common_prefix_tokens=round(sum(common) / len(common), 2))
+    xk1 = [ok_streams(r[7], len(xcheck), 16) for r in ranks]
+    xk8 = [ok_streams(r[8], len(xcheck), 16) for r in ranks]
+    assert all(s_ == xk1[0] for s_ in xk1 + xk8), "xlstm: streams differ between K=1 and K=8"
+    for r in ranks:
+        check_xlstm_rank(xcut, r[8], len(xcheck), 16, TP)
+    log("tp", arch=xcut.name, layers=xcut.num_layers, streams="K1==K8, ranks equal",
+        requests=len(xk1[0]), tokens=sum(len(t) for t in xk1[0].values()),
+        wall_s=[round(ranks[0][i]["wall_s"], 1) for i in (7, 8)],
+        setup_s=[round(ranks[0][i]["setup_s"], 1) for i in (7, 8)])
+    for r in ranks:
+        check_xlstm_rank(xsmall, r[9], len(xsmall_reqs), 8, TP)
+        assert r[9]["streams"] == want_xsmall, "xlstm-smoke TP=2: streams differ from the CPU"
+    log("tp", reference="cpu-plain single device", config=xsmall.name, vocab=xsmall.vocab_size,
+        requests=len(want_xsmall), tokens=sum(len(t) for t in want_xsmall.values()),
+        streams="equal")
+    return {f"tinyllama-1.1b/tp{TP}-rank0": full[0]["launches"],
+            f"xlstm-1.3b/tp{TP}-rank0": xfull[0]["launches"]}
+
+
+def check_xlstm_rank(cfg, out, n_req, new, t):
+    """One xlstm TP rank's serve over ``t`` ranks whose heads split: every
+    request done with ``new`` tokens; per layer pass (each decode step
+    and each chunk call) the sLSTM cell once per sLSTM layer, a sum per
+    sLSTM layer and two per mLSTM layer, a gather per sLSTM layer; per
+    decode step the merged matmul once per mLSTM layer (q C) and the
+    logits kernel once, over the rank's vocab slice where V divides
+    (then combined by two small all-reduces); no attention or
+    decode-layer kernel.  Returns (decode steps, chunk calls, sums and
+    gathers a pass)."""
+    from repro_torch.models import shardings, ssm
+
+    la, snap, col = out["launches"], out["snapshot"], out["collectives"]
+    steps, chunks = snap["decode_steps"], snap["prefill_batches"]
+    n_s = len(ssm.mlstm_runs(cfg)) - 1
+    n_m, passes = cfg.num_layers - n_s, steps + chunks
+    ok_streams(out, n_req, new)
+    assert la["slstm_cell"] == n_s * passes, (la, n_s, passes)
+    assert la["fused_matmul"] == n_m * steps, (la, n_m, steps)
+    assert la["logits_sample"] == steps, (la, steps)
+    assert not any(v for k, v in la.items()
+                   if k not in ("slstm_cell", "fused_matmul", "logits_sample")), la
+    assert col["all_reduce_sum"] == (2 * n_m + n_s) * passes, (col, passes)
+    assert col["all_gather"] == n_s * passes, (col, passes)
+    vocab = shardings.vocab_split(cfg, t)
+    assert col.get("all_reduce", 0) == (2 * steps if vocab else 0), (col, steps)
+    return steps, chunks, col["all_reduce_sum"] // passes, col["all_gather"] // passes
 
 
 def check_hybrid_rank(cfg, out, n_req, new):
@@ -2324,10 +2525,11 @@ def phase_tp_hybrid(torch, dev):
     f32 smoke config (4 layers); the cost of one cross-rank sum at the
     decode and prefill-chunk shapes.  TP=5: the "kv" plan end to end (4
     layers, M=2, the widths kept).  TP=4: the f32 smoke config under
-    "expand".  Checked here: the launches of every rank
-    (``check_hybrid_rank``), the ranks' streams identical, K=1 == K=8,
-    and the smoke config's streams equal to the single-device plain path
-    on the CPU."""
+    "expand", and in the same spawn xlstm-smoke widened to 4 heads
+    (d_model 128) in f32.  Checked here: the launches of every rank
+    (``check_hybrid_rank``, ``check_xlstm_rank``), the ranks' streams
+    identical, K=1 == K=8, and the smoke configs' streams equal to the
+    single-device plain path on the CPU."""
     from types import SimpleNamespace
 
     from repro_torch import api
@@ -2343,6 +2545,13 @@ def phase_tp_hybrid(torch, dev):
     small_params = api.init(small, torch.Generator().manual_seed(0), "cpu")
     small_reqs = requests(8, 2, 1, 48, 8, small.vocab_size, 3)
     small_kw = dict(slots_per_instance=2, max_context=192, prefill_chunk=16, decode_steps=4)
+    # the sLSTM kernel steps hd by 32: xlstm-smoke over 4 ranks needs 4
+    # heads at d_model 128
+    wide = registry.get_smoke_config("xlstm-1.3b").with_(num_instances=2, d_model=128,
+                                                         num_heads=4, num_kv_heads=4)
+    wide_params = api.init(wide, torch.Generator().manual_seed(0), "cpu")
+    wide_reqs = requests(8, 2, 1, 48, 8, wide.vocab_size, 3)
+    wide_kw = dict(slots_per_instance=2, max_context=64, prefill_chunk=8, decode_steps=4)
     serve_kw = dict(slots_per_instance=B, max_context=YS, prefill_chunk=C, prefill_lanes=4,
                     decode_steps=8)
     check_kw = dict(slots_per_instance=2, max_context=YS, prefill_chunk=C)
@@ -2399,12 +2608,18 @@ def phase_tp_hybrid(torch, dev):
     for q in requests(8, 2, 1, 48, 8, small.vocab_size, 3):
         cpu.submit(q)
     want = drained(cpu, 8, 8)
+    cpu = MultiModelServer(wide, wide_params, device="cpu", **wide_kw)
+    for q in wide_reqs:
+        cpu.submit(q)
+    want_wide = drained(cpu, len(wide_reqs), 8)
     t0 = time.perf_counter()
     kv_ranks = mesh.spawn(
         mesh.in_turn, 5, (serve.serve_rank, kv_cut, 2, kv_reqs,
                           dict(check_kw, decode_steps=8)), device="cuda")
-    expand_ranks = mesh.spawn(mesh.in_turn, 4, (serve.serve_rank, small, small_params,
-                                                small_reqs, small_kw), device="cuda")
+    expand_ranks = mesh.spawn(mesh.in_turn, 4,
+                              (serve.serve_rank, small, small_params, small_reqs, small_kw),
+                              (serve.serve_rank, wide, wide_params, wide_reqs, wide_kw),
+                              device="cuda")
     log("tp_hybrid", ranks="5 and 4", spawn_and_run_s=round(time.perf_counter() - t0, 1))
     kv = [r[0] for r in kv_ranks]
     for out in kv:
@@ -2423,6 +2638,13 @@ def phase_tp_hybrid(torch, dev):
         log("tp_hybrid", reference="cpu-plain single device", config=small.name, ranks=n,
             plan=shardings.head_plan(small, n), requests=len(want),
             tokens=sum(len(t) for t in want.values()), streams="equal")
+    for r in expand_ranks:
+        check_xlstm_rank(wide, r[1], len(wide_reqs), 8, 4)
+        assert r[1]["streams"] == want_wide, "xlstm-smoke 4 heads TP=4: streams differ"
+    log("tp_hybrid", reference="cpu-plain single device", config=wide.name, ranks=4,
+        heads=wide.num_heads, d_model=wide.d_model, requests=len(want_wide),
+        tokens=sum(len(t) for t in want_wide.values()), streams="equal",
+        launches=json.dumps(expand_ranks[0][1]["launches"]).replace(" ", ""))
     return full[0]["launches"]
 
 
@@ -2448,6 +2670,20 @@ def check_dense_rank(cfg, out, n_req, new, split_layers):
     return steps, chunks
 
 
+def check_audio_rank(cfg, out):
+    """One whisper rank's serve: per chunk call the chunk attention once
+    per encoder and decoder layer and the merged matmul twice per decoder
+    layer (the cross K/V), per decode step the decode attention twice per
+    decoder layer (self and cross); no other kernel."""
+    la, snap = out["launches"], out["snapshot"]
+    steps, chunks, n = snap["decode_steps"], snap["prefill_batches"], cfg.num_layers
+    assert la["chunk_prefill_attention"] == (cfg.encoder_layers + n) * chunks, (la, chunks)
+    assert la["decode_attention"] == 2 * n * steps, (la, steps)
+    assert la["fused_matmul"] == 2 * n * chunks, (la, chunks)
+    assert not any(v for k, v in la.items() if k not in (
+        "chunk_prefill_attention", "decode_attention", "fused_matmul")), la
+
+
 def phase_data(torch, dev, single_streams):
     """Serving on (data=D, model=T) meshes, the D*T ranks sharing the card
     over gloo (``mesh.spawn(..., data=D)``): the data axis splits the
@@ -2461,17 +2697,20 @@ def phase_data(torch, dev, single_streams):
     ``fused_matmul_sharded`` on each rank's block of a seeded (4, 4, 2048,
     5632) problem with bias, bf16 and f32.  At 2x1 also: the full
     xlstm-1.3b and hymba-1.5b (M=4, the serve phase's mix of TP_REQUESTS
-    requests, K=8; hymba at context 1536).  Checked here: the launches of
+    requests, K=8; hymba at context 1536) and whisper-small (M=4, the
+    same mix; each data rank holds 2 instances and their cross caches).
+    Checked here: the launches of
     every rank (``check_dense_rank``: whole layers at 2x1, the phase
     kernels at 2x2), the ranks' streams identical, K=1 == K=8, the smoke
     config's streams equal to the single-device plain path on the CPU, the
     reassembled matmul blocks against the
     plain version on the whole problem, each rank's wrapper launched once
-    per call, and the 2x1 streams of all three models equal to the serve
+    per call, and the 2x1 streams of all four models equal to the serve
     phase's single-device streams at M (``single_streams``, by arch): a
     lane's bf16 result does not depend on how many instances its call
-    holds.  Returns each mesh's rank 0 launches (and at 2x1 xlstm's and
-    hymba's) and the matmul wrapper's launches summed over the ranks."""
+    holds; whisper-small's launches on each rank (``check_audio_rank``).
+    Returns each mesh's rank 0 launches (and at 2x1 xlstm's, hymba's and
+    whisper's) and the matmul wrapper's launches summed over the ranks."""
     from types import SimpleNamespace
 
     from repro_torch import api
@@ -2483,8 +2722,9 @@ def phase_data(torch, dev, single_streams):
 
     cfg = registry.get_config("tinyllama-1.1b").with_(num_instances=M)
     cut = cfg.with_(num_layers=4)
-    recurrent = [registry.get_config(a).with_(num_instances=M) for a in ("xlstm-1.3b",
-                                                                        "hymba-1.5b")]
+    # served at 2x1 beside tinyllama, each against the serve phase's streams
+    others = [registry.get_config(a).with_(num_instances=M)
+              for a in ("xlstm-1.3b", "hymba-1.5b", "whisper-small")]
     small = registry.get_smoke_config("tinyllama-1.1b").with_(num_instances=M, vocab_size=256)
     small_params = api.init(small, torch.Generator().manual_seed(0), "cpu")
     small_reqs = requests(8, M, 1, 48, 8, small.vocab_size, 3)
@@ -2520,7 +2760,7 @@ def phase_data(torch, dev, single_streams):
             calls += [(serve.serve_rank, fcfg, 0,
                        requests(TP_REQUESTS, M, 16, 512, 32, fcfg.vocab_size, 0),
                        dict(serve_kw, max_context=YS if fcfg.family == "hybrid" else S))
-                      for fcfg in recurrent]
+                      for fcfg in others]
         t0 = time.perf_counter()
         ranks = mesh.spawn(mesh.in_turn, t, *calls, device="cuda", data=d)
         log("data", mesh=f"{d}x{t}", spawn_and_run_s=round(time.perf_counter() - t0, 1))
@@ -2553,12 +2793,15 @@ def phase_data(torch, dev, single_streams):
             requests=len(want_small), tokens=sum(len(v) for v in want_small.values()),
             streams="equal")
         if t == 1:
-            for j, arch in enumerate(["tinyllama-1.1b"] + [c.name for c in recurrent]):
+            for j, arch in enumerate(["tinyllama-1.1b"] + [c.name for c in others]):
                 runs = [r[0] if j == 0 else r[3 + j] for r in ranks]
                 one = single_streams[arch]
                 assert all(o["statuses"] == ["ok"] * TP_REQUESTS for o in runs), arch
                 assert all(o["streams"] == runs[0]["streams"] for o in runs), f"{arch}: ranks"
                 same = sum(runs[0]["streams"][i] == one[i] for i in one)
+                if arch == "whisper-small":
+                    for o in runs:
+                        check_audio_rank(others[j - 1], o)
                 if j:
                     o = runs[0]
                     snap = o["snapshot"]
@@ -4079,7 +4322,7 @@ def main() -> int:
     timed("check", phase_check, torch, dev)
     timed("graph", phase_graph, torch, dev)
     launches.update(timed("train", phase_train, torch, dev))
-    launches[f"tinyllama-1.1b/tp{TP}-rank0"] = timed("tp", phase_tp, torch, dev)
+    launches.update(timed("tp", phase_tp, torch, dev))
     launches[f"hymba-1.5b/tp{TP}-rank0"] = timed("tp_hybrid", phase_tp_hybrid, torch, dev)
     by_mesh, matmul_launches = timed("data", phase_data, torch, dev, single_streams)
     for name, la in by_mesh.items():

@@ -10,8 +10,8 @@ tokens and labels (M, B, S) int32; vlm adds ``image_embeds`` (M, B, P,
 vision_dim) (S counts the text), audio ``frames`` (M, B, F, D).
 
 ``tp`` (a ``models.common.TensorParallel``) runs an entry on this rank's
-shard under tensor parallelism; the dense, moe, hybrid and vlm families
-take it.
+shard under tensor parallelism; the dense, moe, ssm, hybrid and vlm
+families take it (audio raises: its model axis is ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -58,10 +58,7 @@ def _tp(cfg: ModelConfig, tp) -> dict:
     """The ``tp`` keyword for the family's entry, where there is a handle."""
     if tp is None:
         return {}
-    if cfg.family not in S.FAMILIES:
-        raise NotImplementedError(
-            f"tensor parallelism is ported for the dense, moe, hybrid and vlm families, "
-            f"not {cfg.family!r}")
+    S.refuse_family(cfg)
     return {"tp": tp}
 
 
@@ -157,7 +154,7 @@ def make_cache(cfg: ModelConfig, m: int, b: int, context_len: int, device=None, 
     dev = resolve_device(device)
     kw = _tp(cfg, tp)
     if cfg.family == "ssm":
-        return ssm.make_state(cfg, m, b, dev)
+        return ssm.make_state(cfg, m, b, dev, **kw)
     return family_module(cfg).make_cache(cfg, m, b, context_len, dev, **kw)
 
 

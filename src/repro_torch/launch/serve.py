@@ -1,7 +1,7 @@
 """Serving launcher (port of ``repro.launch.serve``, dense, moe, ssm,
-hybrid, vlm and audio families; tensor parallelism for dense, moe, hybrid
-and vlm; the data axis for dense, moe, ssm and hybrid; audio on one
-device, a mesh raises).
+hybrid, vlm and audio families; tensor parallelism for dense, moe, ssm,
+hybrid and vlm; the data axis for all six: audio serves on Dx1 meshes,
+a model axis raises for it).
 
 Initialises M "fine-tuned" instances as M random initialisations from a
 seed, merges them (the paper's offline merge step, timed), and serves a
@@ -29,6 +29,10 @@ program.  Runs on the CUDA device unless ``--device cpu`` is given.
       --smoke --device cpu --mesh-shape 1x2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --smoke --device cpu --mesh-shape 1x2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --smoke --device cpu --mesh-shape 1x2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+      --smoke --device cpu --mesh-shape 2x1
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --smoke --device cpu --mesh-shape 2x2
 
@@ -81,7 +85,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import mesh
 from repro_torch.models import hybrid as H
 from repro_torch.models.common import merge_drawn
-from repro_torch.models.shardings import data_rows, moe_cut, vlm_cut
+from repro_torch.models.shardings import data_rows, moe_cut, refuse_family, vlm_cut
 from repro_torch.serving import (AsyncEngine, FaultInjector, FlightRecorder,
                                  MultiModelServer, Request, SLOConfig, Supervisor,
                                  start_http_server)
@@ -161,13 +165,15 @@ def drain(server, reqs) -> list:
 
 def serve(cfg, params, reqs, *, device, tp=None, run=drain, **server_kw) -> dict:
     """Serve ``reqs`` to the end on a new server, through ``run(server,
-    reqs)`` (the synchronous drain by default).  Every launch counter
-    and the card's peak memory are reset just before the requests are
-    submitted and read after the drain.  ``params`` is a whole merged
+    reqs)`` (the synchronous drain by default).  Every launch counter,
+    the mesh handle's collective counts and the card's peak memory are
+    reset just before the requests are submitted and read after the
+    drain.  ``params`` is a whole merged
     model, or an int seed of :func:`random_merged` (drawn on ``device``;
     on a mesh only the instance rows of the rank's data group: merged on
     the CPU, the server moving only the rank's shard, or for moe and vlm
     drawn as the rank's shard on ``device``)."""
+    t_setup = time.perf_counter()
     merge_s = merge_dev = None
     first, sharded = 0, False
     if isinstance(params, int):
@@ -189,23 +195,29 @@ def serve(cfg, params, reqs, *, device, tp=None, run=drain, **server_kw) -> dict
         torch.cuda.synchronize(device)
         setup_peak = torch.cuda.max_memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
+    setup_s = time.perf_counter() - t_setup
     ops.reset_launches()
+    if tp is not None:
+        tp.calls.clear()
     t0 = time.perf_counter()
     results = run(server, reqs)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     serve_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
-    return {"server": server, "results": results, "wall_s": wall, "merge_s": merge_s,
+    return {"server": server, "results": results, "wall_s": wall, "setup_s": setup_s,
+            "merge_s": merge_s,
             "merge_device": merge_dev, "launches": ops.launches(), "host_param_bytes": host_bytes,
+            "collectives": None if tp is None else dict(tp.calls),
             "setup_peak_bytes": setup_peak, "serve_peak_bytes": serve_peak,
             "snapshot": server.metrics.snapshot()}
 
 
 def serve_rank(tp, cfg, params, reqs, server_kw, verbose: bool = False) -> dict:
     """One rank of a serve on a mesh (a target of ``mesh.spawn``).
-    Returns what the rank saw: its streams, launch counts, metrics
-    snapshot, wall time, device, backend, the peak memory allocated on
+    Returns what the rank saw: its streams, launch counts, the model
+    group's collectives by method, metrics
+    snapshot, wall and setup times, device, backend, the peak memory allocated on
     its card while serving and, apart, from the process start to the end
     of the setup (which draws each instance in f32 on the card; both None
     on the CPU), and the host bytes of the params it was given; global
@@ -223,8 +235,10 @@ def serve_rank(tp, cfg, params, reqs, server_kw, verbose: bool = False) -> dict:
         torch.cuda.empty_cache()
     return {"streams": {r.request_id: r.tokens for r in out["results"]},
             "statuses": [r.status for r in out["results"]],
-            "launches": out["launches"], "snapshot": out["snapshot"],
-            "wall_s": out["wall_s"], "device": str(tp.device), "backend": tp.backend,
+            "launches": out["launches"], "collectives": out["collectives"],
+            "snapshot": out["snapshot"],
+            "wall_s": out["wall_s"], "setup_s": out["setup_s"], "device": str(tp.device),
+            "backend": tp.backend,
             "peak_gib": (None if out["serve_peak_bytes"] is None
                          else out["serve_peak_bytes"] / 2 ** 30),
             "setup_peak_gib": (None if out["setup_peak_bytes"] is None
@@ -444,12 +458,11 @@ def main(argv=None):
                                   f"device; --mesh-shape {args.mesh_shape} is not ported for it")
     device = api.resolve_device(args.device)
     base = registry.get_smoke_config(args.arch) if args.smoke else registry.get_config(args.arch)
-    # the engine refuses a mesh for audio too, but inside the spawned ranks,
-    # after each drew its weights, and ``mesh.spawn`` reports a rank's
-    # failure as a RuntimeError: refuse before the spawn, by name
-    if d * t > 1 and base.family == "audio":
-        raise NotImplementedError(f"{args.arch} (the audio family) serves on one device; "
-                                  f"--mesh-shape {args.mesh_shape} is not ported for it")
+    # the engine refuses a model axis for audio too, but inside the spawned
+    # ranks, after each drew its weights, and ``mesh.spawn`` reports a
+    # rank's failure as a RuntimeError: refuse before the spawn, by name
+    if t > 1:
+        refuse_family(base)
     max_context = args.max_context
     need, why = 0, ""
     if base.family == "hybrid":

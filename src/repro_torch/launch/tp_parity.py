@@ -3,8 +3,8 @@ one: targets of ``mesh.spawn``, run by the tests on the CPU and by
 ``chip_smoke.py`` on the card.  Each takes the whole model or problem
 (``chunk_decode_rank``: a dense or moe model; ``fused_matmul_rank``: a seeded
 matmul), cuts its rank's share and returns what it computed, on the CPU.
-The hybrid and ssm families and the data axis are held through
-``launch/serve.serve_rank``'s streams.
+The hybrid and ssm families under tensor parallelism and every family on
+the data axis are held through ``launch/serve.serve_rank``'s streams.
 """
 from __future__ import annotations
 

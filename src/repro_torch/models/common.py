@@ -19,6 +19,7 @@ Conventions, as in the reference:
 from __future__ import annotations
 
 import math
+from collections import Counter
 from typing import Any, Sequence
 
 import torch
@@ -59,7 +60,9 @@ class TensorParallel:
     passed down from the engine through ``api`` into the model as an
     argument, never held in a global, and the model code calls its
     collectives explicitly after each row-split projection (Megatron
-    style).  The model never reads ``data``."""
+    style).  The model never reads ``data``.  ``calls`` counts the
+    collectives by method since it was last cleared (the serve CLI clears
+    it with the launch counters)."""
 
     def __init__(self, rank: int, size: int, group, device: torch.device, backend: str,
                  data: DataParallel | None = None):
@@ -69,12 +72,14 @@ class TensorParallel:
         self.device = device
         self.backend = backend
         self.data = data
+        self.calls: Counter[str] = Counter()
 
     def all_reduce_sum(self, part: torch.Tensor) -> torch.Tensor:
         """Sum of the ranks' partials: an f32 sum of the partials, each
         already rounded to its dtype, rounded once to that dtype.  At two
         ranks this is the reference's psum bit for bit; it is the same on
         either backend, and no backend needs to sum in bf16."""
+        self.calls["all_reduce_sum"] += 1
         s = part.to(torch.float32, copy=True)
         dist.all_reduce(s, group=self.group)
         return s.to(part.dtype)
@@ -82,11 +87,13 @@ class TensorParallel:
     def all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
         """``t`` reduced over the ranks with ``op`` (a ``dist.ReduceOp``),
         in place."""
+        self.calls["all_reduce"] += 1
         dist.all_reduce(t, op=op, group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The ranks' ``t`` concatenated along ``dim`` in rank order."""
+        self.calls["all_gather"] += 1
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t.contiguous(), group=self.group)
         return torch.cat(parts, dim=dim)

@@ -71,9 +71,13 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
         y = y.reshape(*x.shape[:-1], w.shape[-1])
     else:
         y = groups.matmul(x, w)
-    if b is not None:
-        y = y + b.to(y.dtype).reshape(m, *([1] * (y.ndim - 2)), b.shape[-1])
-    return y
+    return y if b is None else add_bias(y, b)
+
+
+def add_bias(y: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y (M, ..., F) + b (M, F) in y's dtype: :func:`linear`'s bias, also
+    added once after a row-split product's sum over the ranks."""
+    return y + b.to(y.dtype).reshape(y.shape[0], *([1] * (y.ndim - 2)), b.shape[-1])
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

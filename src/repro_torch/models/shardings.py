@@ -11,7 +11,8 @@ slots [d B/D, (d+1) B/D); where neither divides, every data rank holds
 the whole grid.  The data slice is taken first (:func:`data_params`),
 then the model slice below.
 
-The model axis, for the dense, moe, hybrid and vlm families:
+The model axis, for the dense, moe, ssm, hybrid and vlm families (audio
+serves on the data axis only):
 
 Dense, Megatron style over the port's ``(L, M, ...)`` layer leaves:
 
@@ -73,11 +74,37 @@ does not divide stays whole on every rank:
 :func:`moe_cut` applies the same rules to one drawn layer of a leaf, so
 a rank can draw its shard layer by layer without holding the whole.
 
+xLSTM (xlstm-1.3b; :func:`xlstm_split`): three parts, each decided apart,
+and a part that does not divide stays whole on every rank:
+
+* the mLSTM and sLSTM layers by heads where ``num_heads % T == 0``
+  (xlstm-1.3b: 4 heads, so T in {2, 4}).  An mLSTM rank holds its heads'
+  columns of both halves of ``w_up`` (its ``xi`` channels, then its ``z``
+  channels: two column blocks, concatenated), its channels of ``conv_w``,
+  ``conv_b`` and ``out_norm``, its heads of ``wq``/``wk``/``wv``, and its
+  channel rows of ``w_gates`` and ``w_down``; ``b_gates`` and ``norm``
+  stay whole.  The gate pre-activations are row-parallel, so the layer
+  ends in two sums: the gates (added to ``b_gates`` once, after the sum),
+  then the down-projection.  An sLSTM rank holds, for each of the four
+  gates (z, i, f, o), its heads' columns of ``w_in`` and ``b_in``
+  (gathered into a contiguous (M, D, 4 D/T)), its heads of ``r`` and its
+  channels of ``out_norm``; ``norm`` and ``ffn_norm`` stay whole.  The
+  cell runs on the rank's heads and its (M, B, D/T) state, and the
+  head-normed outputs are gathered over the ranks before the residual;
+* the sLSTM FFN by ``slstm_ff % T`` (2688 for xlstm-1.3b):
+  ``w_ff_gate``/``w_ff_up`` columns, ``w_ff_down`` rows, one sum;
+* ``lm_head`` by vocab where V divides (50304 over 2 and 4); the
+  embedding and ``final_norm`` whole.
+
+The reference's rules put these leaves on "model" ("heads", "mlp") and
+let GSPMD add the sums; its split of "mlp" over ``w_up`` is not a
+per-head split, the port's is.
+
 Every slice is a contiguous copy, so ``LaneGroups`` and the kernels take
 a shard as they take a whole model.  The rules are decided here and
-nowhere else: :func:`layer_group`, :func:`vocab_group` and
-:func:`hybrid_split` hand the model the ``TensorParallel`` handle where a
-split applies and ``None`` where the rank holds the whole, and the
+nowhere else: :func:`layer_group`, :func:`vocab_group`,
+:func:`hybrid_split` and :func:`xlstm_split` hand the model the
+``TensorParallel`` handle where a split applies and ``None`` where the rank holds the whole, and the
 sharded kernel wrappers take that handle as it comes.
 """
 from __future__ import annotations
@@ -100,7 +127,7 @@ LM_HEAD_SPLIT_DIM = 2                              # (M, D, V): vocab
 # moe expert leaf (L, M, E, ...) -> its experts dim
 EXPERT_SPLIT_DIM = {"we_gate": 2, "we_up": 2, "we_down": 2}
 ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-FAMILIES = ("dense", "moe", "hybrid", "vlm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def data_split(m: int, b: int, d: int) -> str | None:
@@ -283,6 +310,34 @@ def hybrid_split(cfg, tp) -> HybridSplit:
                        tp if ssm_split(cfg, n) else None, plan, lo, hi, index)
 
 
+def xlstm_heads_split(cfg, n: int) -> bool:
+    """Whether an xLSTM model's mLSTM and sLSTM heads split over ``n``
+    ranks."""
+    return n > 1 and cfg.num_heads % n == 0
+
+
+def slstm_ffn_split(cfg, n: int) -> bool:
+    """Whether the sLSTM blocks' gated FFN splits over ``n`` ranks."""
+    from repro_torch.models.ssm import slstm_ff   # ssm imports this module
+    return n > 1 and slstm_ff(cfg) % n == 0
+
+
+class XlstmSplit(NamedTuple):
+    """An xLSTM rank's layer splits: the handle of each part that splits
+    (``None``: held whole) -- the mLSTM and sLSTM heads, the sLSTM FFN
+    (the vocab is :func:`vocab_group`'s, as dense's)."""
+    heads: object
+    ffn: object
+
+
+def xlstm_split(cfg, tp) -> XlstmSplit:
+    """The layer splits of an xLSTM model on the rank of ``tp`` (both
+    whole on one device)."""
+    n = 1 if tp is None else tp.size
+    return XlstmSplit(tp if xlstm_heads_split(cfg, n) else None,
+                      tp if slstm_ffn_split(cfg, n) else None)
+
+
 def sum_over(group, part: torch.Tensor) -> torch.Tensor:
     """The sum of the ranks' partials over ``group``; ``part`` itself
     where the part is held whole (``group`` None)."""
@@ -326,16 +381,64 @@ def _hybrid_layers(cfg, lay: dict, rank: int, n: int) -> dict:
     return lay
 
 
-def shard_params(cfg, params, rank: int, n: int) -> MergedParams:
-    """Rank ``rank``'s shard of a dense, moe, hybrid or vlm model's merged
-    params over ``n`` ranks, on the device ``params`` lie on: split leaves
-    sliced, the others (vlm's projector among them) shared with
-    ``params``."""
+def head_columns(leaf: torch.Tensor, parts: int, rank: int, n: int) -> torch.Tensor:
+    """Rank ``rank``'s 1/n of each of the ``parts`` equal column blocks of
+    ``leaf``'s last dim, concatenated (a copy): the rank's heads of every
+    gate of a fused gate projection."""
+    blocks = leaf.chunk(parts, -1)
+    return torch.cat([b.chunk(n, -1)[rank] for b in blocks], -1)
+
+
+def _xlstm_tree(cfg, tree: dict, rank: int, n: int) -> dict:
+    tree = dict(tree)
+    heads, ffn = xlstm_heads_split(cfg, n), slstm_ffn_split(cfg, n)
+    if heads:
+        runs = []
+        for run in tree["mlstm_runs"]:
+            if run is not None:
+                run = dict(run)
+                run["w_up"] = head_columns(run["w_up"], 2, rank, n)
+                for k, dim in (("conv_w", 3), ("conv_b", 2), ("out_norm", 2), ("wq", 2),
+                               ("wk", 2), ("wv", 2), ("w_gates", 2), ("w_down", 2)):
+                    run[k] = shard(run[k], dim, rank, n)
+            runs.append(run)
+        tree["mlstm_runs"] = runs
+    blocks = []
+    for lay in tree["slstm"]:
+        lay = dict(lay)
+        if heads:
+            lay["w_in"] = head_columns(lay["w_in"], 4, rank, n)
+            lay["b_in"] = head_columns(lay["b_in"], 4, rank, n)
+            lay["r"] = shard(lay["r"], 2, rank, n)
+            lay["out_norm"] = shard(lay["out_norm"], 1, rank, n)
+        if ffn:
+            for k, dim in (("w_ff_gate", 2), ("w_ff_up", 2), ("w_ff_down", 1)):
+                lay[k] = shard(lay[k], dim, rank, n)
+        blocks.append(lay)
+    tree["slstm"] = blocks
+    if vocab_split(cfg, n):
+        tree["lm_head"] = shard(tree["lm_head"], LM_HEAD_SPLIT_DIM, rank, n)
+    return tree
+
+
+def refuse_family(cfg) -> None:
+    """Raise for a family that has no model axis (audio: ROADMAP Queue 1)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"tensor parallelism is ported for the dense, moe, hybrid and vlm families, "
-            f"not {cfg.family!r}")
+            f"tensor parallelism is ported for the dense, moe, ssm, hybrid and vlm families, "
+            f"not {cfg.family!r}: the audio family's model axis is ROADMAP Queue 1, item 1 "
+            f"(its data axis serves)")
+
+
+def shard_params(cfg, params, rank: int, n: int) -> MergedParams:
+    """Rank ``rank``'s shard of a dense, moe, ssm, hybrid or vlm model's
+    merged params over ``n`` ranks, on the device ``params`` lie on: split
+    leaves sliced, the others (vlm's projector among them) shared with
+    ``params``."""
+    refuse_family(cfg)
     tree = params.tree()
+    if cfg.family == "ssm":
+        return MergedParams(_xlstm_tree(cfg, tree, rank, n))
     if cfg.family == "hybrid":
         tree["layers"] = _hybrid_layers(cfg, tree["layers"], rank, n)
         return MergedParams(tree)

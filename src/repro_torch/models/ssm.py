@@ -28,6 +28,21 @@ in every cell, so the carried state equals the exact-length pass.
 Norms reduce each row on its own (``layers.rms_norm_rowwise``) and the
 mLSTM step's state product is the merged-matmul kernel in f32, so a
 lane's decode does not depend on how many instances share the call.
+
+Tensor parallelism (serving): with a ``TensorParallel`` handle ``tp``
+the params and states are this rank's shard (``models/shardings.py``:
+``xlstm_split`` for the heads and the sLSTM FFN, ``vocab_group`` for the
+head, each decided apart).
+The blocks read their heads and widths off the leaves they are given.
+An mLSTM layer on the rank's heads ends in two sums: the gate
+pre-activations (row-parallel over the rank's channels; ``b_gates``
+added once after the sum), then the down-projection.  An sLSTM layer runs
+the cell on the rank's heads and its (M, B, D/T) state and gathers the
+head-normed outputs over the ranks, in rank order, before the residual;
+its FFN ends in one sum.  Greedy decode ends in the fused logits kernel
+over the rank's vocab slice and a cross-rank combine
+(``ops.logits_sample_sharded``).  The whole-sequence forms (``forward``,
+``prefill``) run on one device.
 """
 from __future__ import annotations
 
@@ -42,6 +57,7 @@ from repro_torch.kernels import ops as K
 from repro_torch.kernels.mlstm_chunk import mlstm_sequence
 from repro_torch.kernels.slstm_cell import log_sigmoid, slstm_scan
 from repro_torch.models import layers as L
+from repro_torch.models import shardings as S
 from repro_torch.models.common import (
     Factory, MergedParams, training_params, tree_map, tree_put_slot, tree_take_slot,
 )
@@ -251,6 +267,12 @@ def _head_proj(x, w):
     return torch.einsum("mbshd,mhde->mbshe", x, w.to(x.dtype))
 
 
+def _heads(lp) -> tuple[int, int]:
+    """(heads, head dim) of the mLSTM layer ``lp`` holds: the model's, or
+    a rank's share under a split."""
+    return lp["wq"].shape[-3], lp["wq"].shape[-1]
+
+
 def _head_norm(hs, h: int, eps: float):
     """Per-head group norm (xLSTM's multi-head layer norm) of (M, B, S, D)."""
     m, b, s, d = hs.shape
@@ -263,14 +285,16 @@ def _head_norm(hs, h: int, eps: float):
 _MLSTM_MATMUL = ("w_up", "w_gates", "w_down")
 
 
-def _mlstm_in(cfg: ModelConfig, lp, x, conv_state, valid=None, groups=None):
+def _mlstm_in(cfg: ModelConfig, lp, x, conv_state, valid=None, groups=None, heads=None):
     """The mLSTM block up to the cell: rms -> up-projection -> causal conv
     over [``conv_state``, x] -> q, k, v and the gates.  Returns (q, k, v
     (M, B, S, H, hd), lf, li (M, B, S, H) f32, z, the new conv window);
-    junk steps (``valid`` False) get neutral gates."""
+    junk steps (``valid`` False) get neutral gates.  ``heads``, where the
+    heads split: ``lp`` holds the rank's H heads, and the gates are summed
+    over the ranks before this rank takes its heads' pair."""
     m, b, s, d = x.shape
-    di, h = d_inner(cfg), cfg.num_heads
-    hd = di // h
+    h, hd = _heads(lp)
+    di = h * hd
     xn = L.rms_norm_rowwise(x, lp["norm"], cfg.norm_eps)
     up = L.linear(xn, lp["w_up"], groups=groups)
     xi, z = up[..., :di], up[..., di:]
@@ -281,9 +305,12 @@ def _mlstm_in(cfg: ModelConfig, lp, x, conv_state, valid=None, groups=None):
     q = _head_proj(xc.reshape(m, b, s, h, hd), lp["wq"])
     k = _head_proj(xc.reshape(m, b, s, h, hd), lp["wk"])
     v = _head_proj(xi.reshape(m, b, s, h, hd), lp["wv"])
-    gates = L.linear(xc, lp["w_gates"], lp["b_gates"], groups).float()     # (M,B,S,2H)
-    li = gates[..., :h]
-    lf = log_sigmoid(gates[..., h:])
+    gates = S.sum_over(heads, L.linear(xc, lp["w_gates"], groups=groups))
+    gates = L.add_bias(gates, lp["b_gates"]).float()                # (M,B,S,2 H_all)
+    h_all = gates.shape[-1] // 2
+    lo = 0 if heads is None else heads.rank * h
+    li = gates[..., lo:lo + h]
+    lf = log_sigmoid(gates[..., h_all + lo:h_all + lo + h])
     if valid is not None:
         vm = valid[..., None]
         li = torch.where(vm, li, torch.full_like(li, NEG_INF))
@@ -291,23 +318,26 @@ def _mlstm_in(cfg: ModelConfig, lp, x, conv_state, valid=None, groups=None):
     return q, k, v, lf, li, z, new_conv
 
 
-def _mlstm_out(cfg: ModelConfig, lp, x, hs, z, groups=None):
+def _mlstm_out(cfg: ModelConfig, lp, x, hs, z, groups=None, heads=None):
     """The mLSTM block after the cell: hs (M, B, S, H, hd) -> head norm ->
-    output gate -> down-projection + residual."""
+    output gate -> down-projection (summed over ``heads``' ranks) +
+    residual."""
     m, b, s, _ = x.shape
-    di = d_inner(cfg)
-    hs = _head_norm(hs.reshape(m, b, s, di).to(x.dtype), cfg.num_heads, cfg.norm_eps)
+    h, hd = _heads(lp)
+    hs = _head_norm(hs.reshape(m, b, s, h * hd).to(x.dtype), h, cfg.norm_eps)
     hs = hs * lp["out_norm"][:, None, None, :].to(hs.dtype)
-    return x + L.linear(hs * F.silu(z), lp["w_down"], groups=groups)
+    return x + S.sum_over(heads, L.linear(hs * F.silu(z), lp["w_down"], groups=groups))
 
 
 def mlstm_block(cfg: ModelConfig, lp, x, state: dict, *, chunk: int, valid=None,
-                groups=None, alive=None):
+                groups=None, alive=None, heads=None):
     """x (M, B, S, D); state dict(C, n, m, conv) of this layer, updated in
     place.  S > 1 runs the chunkwise form (a prefill chunk), S == 1 the
-    step form, as the reference.  Returns the block output."""
+    step form, as the reference.  ``heads``: the handle where the heads
+    split (``lp`` and ``state`` then hold the rank's), else None.  Returns
+    the block output."""
     lp = _lane_rows(lp, groups, _MLSTM_MATMUL)
-    q, k, v, lf, li, z, new_conv = _mlstm_in(cfg, lp, x, state["conv"], valid, groups)
+    q, k, v, lf, li, z, new_conv = _mlstm_in(cfg, lp, x, state["conv"], valid, groups, heads)
     cell = (state["C"], state["n"], state["m"])
     if x.shape[2] > 1:
         tr = lambda t: t.transpose(2, 3)                           # (M,B,H,S,...)
@@ -322,7 +352,7 @@ def mlstm_block(cfg: ModelConfig, lp, x, state: dict, *, chunk: int, valid=None,
     if alive is not None:
         new_conv = torch.where(alive[..., None, None], new_conv, state["conv"])
     state["conv"].copy_(new_conv)
-    return _mlstm_out(cfg, lp, x, hs, z, groups)
+    return _mlstm_out(cfg, lp, x, hs, z, groups, heads)
 
 
 def mlstm_block_seq(cfg: ModelConfig, lp, x, *, chunk: int):
@@ -348,48 +378,58 @@ _SLSTM_MATMUL = ("w_in", "w_ff_gate", "w_ff_up", "w_ff_down")
 
 def _slstm_pre(cfg: ModelConfig, lp, x, groups=None):
     """The gate pre-activations (M, B, S, 4, D), in the storage dtype (the
-    cell computes in f32)."""
-    m, b, s, d = x.shape
+    cell computes in f32); D/T of each gate on a rank whose heads split."""
+    m, b, s, _ = x.shape
     xn = L.rms_norm_rowwise(x, lp["norm"], cfg.norm_eps)
-    return L.linear(xn, lp["w_in"], lp["b_in"], groups).reshape(m, b, s, 4, d)
+    return L.linear(xn, lp["w_in"], lp["b_in"], groups).reshape(m, b, s, 4, -1)
 
 
-def _slstm_out(cfg: ModelConfig, lp, x, hs, groups=None):
+def _slstm_out(cfg: ModelConfig, lp, x, hs, groups=None, split=None):
     """The sLSTM block after the cell: head norm + residual, then the
-    gated FFN."""
-    hs = _head_norm(hs, cfg.num_heads, cfg.norm_eps)
+    gated FFN.  ``split`` (``shardings.xlstm_split``): the rank's normed
+    heads are gathered over ``split.heads`` before the residual, and the
+    FFN's partial summed over ``split.ffn``."""
+    hs = _head_norm(hs, lp["r"].shape[-3], cfg.norm_eps)
     hs = hs * lp["out_norm"][:, None, None, :].to(hs.dtype)
+    if split is not None and split.heads is not None:
+        hs = split.heads.all_gather(hs, dim=-1)
     x = x + hs
     nrm = L.rms_norm_rowwise(x, lp["ffn_norm"], cfg.norm_eps)
-    return x + L.swiglu_mlp(nrm, lp["w_ff_gate"], lp["w_ff_up"], lp["w_ff_down"], groups)
+    ffn = L.swiglu_mlp(nrm, lp["w_ff_gate"], lp["w_ff_up"], lp["w_ff_down"], groups)
+    return x + S.sum_over(None if split is None else split.ffn, ffn)
 
 
 def slstm_block(cfg: ModelConfig, lp, x, state: dict, *, valid=None, groups=None,
-                alive=None):
+                alive=None, split=None):
     """x (M, B, S, D); state dict(c, n, h, m) each (M, B, D), updated in
     place.  The recurrent scan is the ``slstm_cell`` kernel.  Junk steps
     (``valid`` False) get neutral gate pre-activations (input -1e30,
     forget +1e30), which keep c, n and m; h, which every step emits, is
-    re-taken at the last valid step afterwards."""
-    m, b, s, d = x.shape
+    re-taken at the last valid step afterwards.  ``split``
+    (``shardings.xlstm_split``; None: whole): where the heads split,
+    ``lp`` and ``state`` hold the rank's heads, (M, B, D/T) each, and the
+    cell runs on them."""
+    m, b, s, _ = x.shape
     # r stays the merged model's (M_w, ...) and the cell reads each lane's
     # instance through ``rows``: no per-lane copy of the recurrent weights
     lp = _lane_rows(lp, groups, _SLSTM_MATMUL + ("r",))
     rows = None if groups is None or groups.identity else groups.t32
     pre = _slstm_pre(cfg, lp, x, groups)
+    d = pre.shape[-1]
     st = (state["c"], state["n"], state["h"], state["m"])
     if valid is not None:
         neutral = torch.tensor([0.0, NEG_INF, -NEG_INF, 0.0], dtype=pre.dtype,
                                device=pre.device).reshape(1, 1, 1, 4, 1)
         pre = torch.where(valid[..., None, None], pre, neutral)
         h_in = state["h"].clone()
-    hs, _ = K.slstm_cell(pre, lp["r"], st, num_heads=cfg.num_heads, alive=alive, rows=rows)
+    hs, _ = K.slstm_cell(pre, lp["r"], st, num_heads=lp["r"].shape[-3], alive=alive,
+                         rows=rows)
     if valid is not None:
         nv = valid.sum(-1)                                          # (M,B)
         idx = torch.clamp(nv - 1, 0, s - 1).long()[..., None, None].expand(m, b, 1, d)
         h_sel = torch.take_along_dim(hs, idx, dim=2)[:, :, 0]
         state["h"].copy_(torch.where((nv > 0)[..., None], h_sel, h_in))
-    return _slstm_out(cfg, lp, x, hs, groups)
+    return _slstm_out(cfg, lp, x, hs, groups, split)
 
 
 def slstm_block_seq(cfg: ModelConfig, lp, x):
@@ -416,9 +456,11 @@ def _slstm_zero(cfg: ModelConfig, x) -> tuple:
 
 
 def _trunk(cfg: ModelConfig, params, x, states: dict, *, valid=None, groups=None,
-           alive=None):
-    """Run every block over x (M, B, S, D), updating ``states`` in place."""
+           alive=None, tp=None):
+    """Run every block over x (M, B, S, D), updating ``states`` in place;
+    under ``tp`` on the rank's shard."""
     runs = mlstm_runs(cfg)
+    split = S.xlstm_split(cfg, tp)
     for ri, n in enumerate(runs):
         if n:
             run_p, run_s = params["mlstm_runs"][ri], states["mlstm_runs"][ri]
@@ -426,10 +468,10 @@ def _trunk(cfg: ModelConfig, params, x, states: dict, *, valid=None, groups=None
                 x = mlstm_block(cfg, {k: run_p[k][i] for k in run_p.keys()}, x,
                                 {k: v[i] for k, v in run_s.items()},
                                 chunk=cfg.mlstm_chunk, valid=valid, groups=groups,
-                                alive=alive)
+                                alive=alive, heads=split.heads)
         if ri < len(runs) - 1:
             x = slstm_block(cfg, params["slstm"][ri], x, states["slstm"][ri],
-                            valid=valid, groups=groups, alive=alive)
+                            valid=valid, groups=groups, alive=alive, split=split)
     return x
 
 
@@ -490,40 +532,50 @@ def prefill(cfg: ModelConfig, params, tokens, *, state=None):
 
 
 def prefill_chunk(cfg: ModelConfig, params, batch, carry, offset, *,
-                  instances: list[int] | None = None) -> dict:
+                  instances: list[int] | None = None, tp=None) -> dict:
     """One chunk of a state-carrying prefill.  The state is positionless,
     so ``offset`` is unused.  batch["valid"] (M, B, C), when present,
     marks the real rows; junk rows are gate-neutral in every cell.
     ``instances`` maps row i of the batch to row ``instances[i]`` of the
-    merged model."""
+    merged model; under ``tp`` the params and carry are the rank's
+    shard."""
     x = _embed_in(cfg, params, batch["tokens"], instances)
     groups = None
     if instances is not None:
         groups = L.LaneGroups(instances, params["final_norm"].shape[0], x.device)
-    _trunk(cfg, params, x, carry["cache"], valid=batch.get("valid"), groups=groups)
+    _trunk(cfg, params, x, carry["cache"], valid=batch.get("valid"), groups=groups, tp=tp)
     return carry
 
 
-def decode_step(cfg: ModelConfig, params, states, tokens, pos=None, *, alive=None):
+def decode_step(cfg: ModelConfig, params, states, tokens, pos=None, *, alive=None, tp=None):
     """One token.  tokens (M, B, 1); pos unused.  Returns (logits
-    (M, B, V) f32, states updated in place)."""
-    x = _trunk(cfg, params, _embed_in(cfg, params, tokens), states, alive=alive)
+    (M, B, V) f32, states updated in place); under ``tp`` every rank gets
+    the whole vocab's logits."""
+    x = _trunk(cfg, params, _embed_in(cfg, params, tokens), states, alive=alive, tp=tp)
     n = L.rms_norm_rowwise(x, params["final_norm"], cfg.norm_eps)
-    return L.unembed(n, params["lm_head"])[:, :, 0], states
+    logits = L.unembed(n, params["lm_head"])[:, :, 0]
+    vtp = S.vocab_group(cfg, tp)
+    return (logits if vtp is None else vtp.all_gather(logits, dim=-1)), states
 
 
-def decode_step_sample(cfg: ModelConfig, params, states, tokens, pos=None, *, alive=None):
+def decode_step_sample(cfg: ModelConfig, params, states, tokens, pos=None, *, alive=None,
+                       tp=None):
     """Greedy decode step: (next token (M, B) int32, states updated in
-    place).  Final norm, logits and argmax are the fused logits kernel."""
-    x = _trunk(cfg, params, _embed_in(cfg, params, tokens), states, alive=alive)
-    tok = K.logits_sample(x[:, :, 0], params["final_norm"], params["lm_head"],
-                          eps=cfg.norm_eps)
+    place).  Final norm, logits and argmax are the fused logits kernel
+    (per vocab slice under tensor parallelism, then a cross-rank
+    combine)."""
+    x = _trunk(cfg, params, _embed_in(cfg, params, tokens), states, alive=alive, tp=tp)
+    tok = K.logits_sample_sharded(x[:, :, 0], params["final_norm"], params["lm_head"],
+                                  tp=S.vocab_group(cfg, tp), eps=cfg.norm_eps)
     return tok, states
 
 
-def make_state(cfg: ModelConfig, m: int, b: int, device) -> dict:
-    d, h = cfg.d_model, cfg.num_heads
-    di = d_inner(cfg)
+def make_state(cfg: ModelConfig, m: int, b: int, device, tp=None) -> dict:
+    """The (M, B) grid's recurrent state, zero with m = -1e30; a rank's
+    shard holds its heads (C, n, m), channels (conv) and sLSTM widths."""
+    parts = 1 if S.xlstm_split(cfg, tp).heads is None else tp.size
+    d, h = cfg.d_model // parts, cfg.num_heads // parts
+    di = d_inner(cfg) // parts
     hd = di // h
     f32, act = torch.float32, torch_dtype(cfg.dtype)
     z = lambda shape, dt=f32: torch.zeros(shape, dtype=dt, device=device)
@@ -541,8 +593,9 @@ def make_state(cfg: ModelConfig, m: int, b: int, device) -> dict:
     return st
 
 
-def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device) -> dict:
-    return {"cache": make_state(cfg, m, b, device)}
+def init_chunk_carry(cfg: ModelConfig, m: int, b: int, cache_len: int, device,
+                     tp=None) -> dict:
+    return {"cache": make_state(cfg, m, b, device, tp)}
 
 
 def state_axes(cfg: ModelConfig) -> dict:

@@ -1,7 +1,7 @@
 """Multi-model serving engine — the paper's deployment scenario (port of
 ``repro.serving.engine``, dense, moe, ssm, hybrid, vlm and audio
-families; tensor parallelism for dense, moe, hybrid and vlm; the data
-axis for dense, moe, ssm and hybrid; audio on one device).
+families; tensor parallelism for dense, moe, ssm, hybrid and vlm; the
+data axis for all six).
 
 M fine-tuned instances of one architecture, merged on a leading
 instances axis, are served from one program over a fixed (M, B) slot
@@ -79,7 +79,7 @@ import torch
 
 from repro_torch import api
 from repro_torch.models import hybrid as H
-from repro_torch.models.shardings import data_params, data_rows, shard_params
+from repro_torch.models.shardings import data_params, data_rows, refuse_family, shard_params
 from repro_torch.serving.metrics import ServerMetrics
 from repro_torch.serving.obs.accounting import TenantAccounting
 from repro_torch.serving.obs.flight import FlightRecorder
@@ -127,9 +127,8 @@ class MultiModelServer:
     ):
         if cfg.family not in SERVABLE_FAMILIES:
             raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-        if cfg.family == "audio" and tp is not None:
-            raise NotImplementedError("the audio family (whisper) serves on one device; "
-                                      "a mesh is not ported for it")
+        if tp is not None and tp.size > 1:
+            refuse_family(cfg)           # audio has a data axis, no model axis
         if cfg.family == "hybrid":
             need = H.min_serving_context(cfg)
             if max_context < need:

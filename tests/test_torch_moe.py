@@ -258,9 +258,9 @@ def test_init_storage_dtypes_and_refusals():
     assert tree["lm_head"].shape == want["lm_head"].shape
     assert tree["layers"]["we_gate"].float().std().item() == pytest.approx(64 ** -0.5, rel=0.1)
     # on a mesh a rank's cache holds its kv heads ("kv" over 2 ranks); the
-    # ssm family still refuses tensor parallelism
+    # audio family still refuses tensor parallelism
     two = SimpleNamespace(rank=1, size=2)
     assert tapi.make_cache(cfg, 1, 1, 8, device="cpu", tp=two).k.shape[4] == 1
-    with pytest.raises(NotImplementedError, match="dense, moe, hybrid and vlm"):
-        tapi.make_cache(treg.get_smoke_config("xlstm-1.3b"), 1, 1, 8, device="cpu",
+    with pytest.raises(NotImplementedError, match="dense, moe, ssm, hybrid and vlm"):
+        tapi.make_cache(treg.get_smoke_config("whisper-small"), 1, 1, 8, device="cpu",
                         tp=object())

@@ -36,6 +36,7 @@ from repro.kernels import ref
 from repro.models import hybrid as jhyb
 from repro.serving import MultiModelServer as JServer
 from repro.serving import Request as JRequest
+from repro_torch import api as tapi
 from repro_torch.checkpoint.bridge import params_from_numpy
 from repro_torch.configs import registry as treg
 from repro_torch.kernels import decode_attn as da
@@ -45,7 +46,7 @@ from repro_torch.launch import mesh, serve
 from repro_torch.models import hybrid as thyb
 from repro_torch.models import layers as L
 from repro_torch.models import shardings
-from repro_torch.serving import Request
+from repro_torch.serving import MultiModelServer, Request
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -282,10 +283,19 @@ def test_shard_params_keeps_undivided_parts_whole():
     assert all(whole[k].data_ptr() == tp["layers"][k].data_ptr() for k in tp["layers"].keys())
 
 
-def test_tp_rejects_the_ssm_family():
-    cfg = treg.get_smoke_config("xlstm-1.3b")
-    with pytest.raises(NotImplementedError, match="dense, moe, hybrid and vlm"):
+def test_tp_rejects_the_audio_family():
+    """The audio family has no model axis: ``shard_params``, the api's
+    ``tp`` keyword and the engine (given a model group of 2 ranks, before
+    it touches the params) raise, naming the queue item; a data-only
+    handle (a model group of 1) is served."""
+    cfg = treg.get_smoke_config("whisper-small")
+    two = SimpleNamespace(rank=0, size=2, data=None)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         shardings.shard_params(cfg, None, 0, 2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        tapi.make_cache(cfg, 1, 1, 8, device="cpu", tp=two)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        MultiModelServer(cfg, None, slots_per_instance=1, max_context=8, device="cpu", tp=two)
 
 
 # ---------------------------------------------------------------------------
